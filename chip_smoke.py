@@ -22,9 +22,25 @@ then:
      router) through the ``pingpong`` engine (max_batch 8, m = 2, 64 new
      tokens per request), with the kernel launch counts set to 0 just
      before and read just after, and requires every request to finish
-     and every kernel to have run.  It prints the serve rate (prefill
-     included) and the decode rate (decode tokens over the engine's
-     decode phase time).
+     and every kernel of the path to have run.  It prints the serve rate
+     (prefill included) and the decode rate (decode tokens over the
+     engine's decode phase time);
+  4. serves the same bf16 model through the paged KV path: ping-pong
+     with a contiguous cache, with a paged cache and no prefix cache,
+     and with a paged cache and the radix prefix cache, on prompts that
+     share a 24-token system prompt.  Paged tokens must equal the
+     contiguous ones, the prefix cache must hit for every request but
+     the first, and the pool must end holding only the tree's pages.
+     After 16 decode iterations of the prefix-cache run it launches
+     ``paged_decode_attention`` on every layer of the engine's live page
+     pool and block tables and ``gating_topk`` on layer 0's router input,
+     then checks and times both there against their plain versions (and
+     the paged kernel against ``decode_attention`` over the gathered
+     view).
+
+Phase 2 also serves the paged layout (monolithic and ping-pong, prefix
+cache on) on shared-prefix prompts, whose tokens must equal the
+contiguous monolithic ones.
 
 Before the last line it prints the card's name and power limit and a
 ``{"kernels": [...]}`` line; the last line is the contract line
@@ -52,7 +68,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MAIN = dict(max_batch=8, microbatches=2, max_seq=256, n_requests=8,
             prompt_len=16, max_new=64, n_layers=4)
 F32 = dict(max_batch=8, microbatches=2, max_seq=64, n_requests=4,
-           prompt_len=12, max_new=4, n_layers=2)
+           prompt_len=32, shared_prefix_len=24, page_size=8, max_new=4,
+           n_layers=2)
+# phase 4: the JAX package's pingpong_paged / pingpong_prefix_shared
+# serve_bench entries (page size 8, 24 of 32 prompt tokens shared) at
+# phase 3's width, depth and batch
+PAGED = dict(MAIN, prompt_len=32, shared_prefix_len=24, page_size=8)
+LIVE_ITER = 16          # decode iteration at which phase 4 reads the live pool
 
 
 class SmokeFailure(Exception):
@@ -111,13 +133,40 @@ def check_close(torch, name, got, want, rtol, atol):
             f"(rtol {rtol}, atol {atol})")
 
 
+def check_topk(torch, name, got, want):
+    require(torch.equal(got[1], want[1]), f"{name}: experts differ")
+    require(torch.equal(got[2], want[2]), f"{name}: counts differ")
+    check_close(torch, f"{name} gates", got[0], want[0], 1e-5, 1e-5)
+
+
+def paged_pool(torch, gen, k, v, cache_pos, pos, ps):
+    """Scatter a dense (B, W) cache into a shuffled pool of B * W / ps
+    pages: (k_pages, v_pages, pos_pages, block_table), row b mapping only
+    its logical pages up to ``pos[b]``."""
+    B, W = cache_pos.shape
+    npg = W // ps
+    pages = torch.randperm(B * npg, device=k.device, generator=gen).reshape(B, npg)
+    owned = torch.arange(npg, device=k.device)[None] <= (pos[:, None] // ps).long()
+    table = torch.where(owned, pages, -1).to(torch.int32).contiguous()
+    flat = pages.reshape(-1)
+    shape = (B * npg, ps) + tuple(k.shape[2:])
+    kp, vp = torch.empty(shape, dtype=k.dtype, device=k.device), \
+        torch.empty(shape, dtype=v.dtype, device=k.device)
+    pp = torch.empty((B * npg, ps), dtype=torch.int32, device=k.device)
+    kp[flat], vp[flat] = k.reshape(shape), v.reshape(shape)
+    pp[flat] = cache_pos.reshape(B * npg, ps)
+    return kp, vp, pp, table
+
+
 # ----------------------------------------------------------------- phase 1
 def phase_kernels(torch, dev):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
+    from repro_torch.kernels.gating_topk import gating_topk_plain
     from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.attention import decode_attention as attn_plain
+    from repro_torch.models.attention import paged_decode_attention as paged_plain
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -185,6 +234,35 @@ def phase_kernels(torch, dev):
     print(f"decode_attention f32 {tuple(qm.shape)} cache {tuple(km.shape)}: "
           f"max |err| {max_err(torch, got, want):.3e}")
 
+    # -- paged decode attention: the same micro-batch shape read through
+    # block tables from a shuffled pool of 8-slot pages (phase 4's page
+    # size), each row at its own position owning only the pages up to it
+    # (the rest of its table -1, the pages behind them holding another
+    # row's data).  Held against its plain version and against the dense
+    # kernel over the same cache, in bf16 and in f32
+    ps = PAGED["page_size"]
+    pq = torch.randint(ps // 2, W, (B,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    pcp = torch.arange(W, dtype=torch.int32, device=dev).repeat(B, 1)
+    pcp[pcp > pq[:, None]] = -1
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        pk_, pv_ = randn(B, W, Hkv, hd, dtype=dt), randn(B, W, Hkv, hd, dtype=dt)
+        pages = paged_pool(torch, gen, pk_, pv_, pcp, pq, ps)
+        qp = randn(B, H, hd, dtype=dt)
+        for kw in ({}, dict(window=40), dict(attn_softcap=30.0)):
+            got = kops.paged_decode_attention(qp, *pages, pq, **kw)
+            want = paged_plain(qp, *pages, pq, **kw)
+            dense = kops.decode_attention(qp, pk_, pv_, pcp, pq, **kw)
+            torch.cuda.synchronize()
+            check_close(torch, f"paged_decode_attention {dt} {kw}", got, want,
+                        tol, tol)
+            check_close(torch, f"paged_decode_attention {dt} {kw} vs dense kernel",
+                        got, dense, tol, tol)
+        print(f"paged_decode_attention {dt} q {tuple(qp.shape)} pool "
+              f"{tuple(pages[0].shape)} table {tuple(pages[3].shape)}: max |err| "
+              f"{max_err(torch, got, want):.3e} vs plain, "
+              f"{max_err(torch, got, dense):.3e} vs decode_attention")
+
     # -- gating_dispatch: one micro-batch of router inputs (T = 4 tokens,
     # d 6144, 8 experts, top-2, capacity C = T in capacity_mode "full")
     T, d, E, K = B, 6144, 8, 2
@@ -224,6 +302,16 @@ def phase_kernels(torch, dev):
         gating_dispatch_plain(xs, ws, 2, 4, 8, **kw)
     require(torch.equal(g2[0], w2[0]) and torch.equal(g2[2], w2[2]),
             "gating_dispatch f32: idx_buf or counts differ")
+
+    # -- gating_topk on the same router inputs: experts and counts exact,
+    # gates f32 sums -> 1e-5
+    got, want = kops.gating_topk(x, wr, K), gating_topk_plain(x, wr, K)
+    torch.cuda.synchronize()
+    check_topk(torch, "gating_topk bf16", got, want)
+    g3 = kops.gating_topk(xs, ws, 3)
+    check_topk(torch, "gating_topk f32", g3, gating_topk_plain(xs, ws, 3))
+    print(f"gating_topk x {tuple(x.shape)} top-{K}: experts and counts identical, "
+          f"gates max |err| {max_err(torch, got[0], want[0]):.3e}")
 
     # -- grouped_matmul: the expert phase's first GEMM for one micro-batch
     # (8 experts, M = C = 4 rows, 6144 -> 16384) in bf16
@@ -274,20 +362,26 @@ def phase_kernels(torch, dev):
     return rows
 
 
-# ----------------------------------------------------------------- phases 2, 3
-def build_engines(torch, cfg, params, spec, runtimes):
+# ----------------------------------------------------------------- phases 2-4
+# the kernels the contiguous serving paths launch; the ping-pong runtime
+# runs all three, the monolithic decode step only decode attention
+SERVING_KERNELS = ("decode_attention", "gating_dispatch", "grouped_matmul")
+MOE_KERNELS = ("gating_dispatch", "grouped_matmul")
+
+
+def build_engine(torch, cfg, params, spec, runtime, kv_layout="contiguous",
+                 prefix_cache=True):
     from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
     from repro_torch.serving.config import ServingConfig
     from repro_torch.serving.engine import Engine
-    out = {}
-    for rt in runtimes:
-        sc = ServingConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
-                           runtime=rt, microbatches=spec["microbatches"],
-                           verbose=False)
-        inst = (DisaggregatedInstance(cfg, params, DisaggPlan(sc.microbatches))
-                if rt == "pingpong" else None)
-        out[rt] = Engine(cfg, params, config=sc, runtime=inst)
-    return out
+    sc = ServingConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
+                       runtime=runtime, microbatches=spec["microbatches"],
+                       kv_layout=kv_layout, page_size=spec.get("page_size", 16),
+                       prefix_cache=prefix_cache, verbose=False,
+                       device=str(params["embed"].device))
+    inst = (DisaggregatedInstance(cfg, params, DisaggPlan(sc.microbatches))
+            if runtime == "pingpong" else None)
+    return Engine(cfg, params, config=sc, runtime=inst)
 
 
 def serve(torch, eng, prompts, max_new):
@@ -301,10 +395,24 @@ def serve(torch, eng, prompts, max_new):
 
 
 def prompts_for(spec, vocab, seed=0):
+    """``n_requests`` prompts of ``prompt_len`` tokens; with
+    ``shared_prefix_len`` they all open with the same tokens."""
     import numpy as np
     rng = np.random.RandomState(seed)
-    return [rng.randint(2, vocab, size=spec["prompt_len"]).tolist()
+    n_shared = spec.get("shared_prefix_len", 0)
+    shared = rng.randint(2, vocab, size=n_shared).tolist()
+    return [shared + rng.randint(2, vocab, size=spec["prompt_len"] - n_shared).tolist()
             for _ in range(spec["n_requests"])]
+
+
+def check_prefix_counts(stats, spec, name):
+    """Every request but the first hits the shared prefix's full pages."""
+    px = stats["prefix_cache"]
+    n, shared = spec["n_requests"], spec["shared_prefix_len"]
+    want = (n - 1, 1, (n - 1) * (shared // spec["page_size"]) * spec["page_size"])
+    got = (px["hits"], px["misses"], px["hit_tokens"])
+    require(got == want, f"{name}: prefix cache hits/misses/hit_tokens {got}, "
+            f"expected {want}")
 
 
 def phase_f32_parity(torch, dev, base_cfg):
@@ -314,43 +422,49 @@ def phase_f32_parity(torch, dev, base_cfg):
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(base_cfg, n_layers=F32["n_layers"])
     params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-    engines = build_engines(torch, cfg, params, F32, ("pingpong", "monolithic"))
+    runs = {"monolithic": ("monolithic", "contiguous"),
+            "pingpong": ("pingpong", "contiguous"),
+            "paged monolithic": ("monolithic", "paged"),
+            "paged pingpong": ("pingpong", "paged")}
     prompts = prompts_for(F32, cfg.vocab)
     toks, launches = {}, {}
-    for rt, eng in engines.items():
+    for name, (rt, layout) in runs.items():
+        eng = build_engine(torch, cfg, params, F32, rt, layout)
         reset_launch_counts()
-        toks[rt] = serve(torch, eng, prompts, F32["max_new"])[0]
-        launches[rt] = launch_counts()
-    require(len(toks["pingpong"]) == F32["n_requests"], "f32: requests unfinished")
-    require(toks["pingpong"] == toks["monolithic"],
-            f"f32: pingpong tokens {toks['pingpong']} != monolithic "
-            f"{toks['monolithic']}")
-    # the monolithic path runs decode attention on its kernel and the MoE
-    # layer in plain torch; the ping-pong path runs all three kernels
-    mono, pp = launches["monolithic"], launches["pingpong"]
-    require(mono["decode_attention"] > 0,
-            "f32: decode_attention was not launched on the monolithic path")
-    require(mono["gating_dispatch"] == 0 and mono["grouped_matmul"] == 0,
-            f"f32: the monolithic path launched MoE kernels: {mono}")
-    for name, n in pp.items():
-        require(n > 0, f"f32: kernel {name} was not launched on the pingpong path")
-    print(f"phase 2 (f32, {cfg.n_layers} layers, full width): pingpong == "
-          f"monolithic greedy tokens for {len(prompts)} requests "
-          f"({sum(map(len, toks['pingpong'].values()))} tokens)")
-    for rt, counts in launches.items():
-        print(f"phase 2 launches [{rt}]: "
+        toks[name] = serve(torch, eng, prompts, F32["max_new"])[0]
+        launches[name] = launch_counts()
+        require(len(toks[name]) == F32["n_requests"], f"f32 {name}: requests unfinished")
+        require(toks[name] == toks["monolithic"],
+                f"f32: {name} tokens {toks[name]} != monolithic "
+                f"{toks['monolithic']}")
+        # decode attention runs on its kernel on every path; the MoE
+        # kernels only in ping-pong (the monolithic MoE layer is plain)
+        counts = launches[name]
+        require(counts["decode_attention"] > 0,
+                f"f32: decode_attention was not launched on the {name} path")
+        for k in MOE_KERNELS:
+            require((counts[k] > 0) == (rt == "pingpong"),
+                    f"f32: {name} path launched {k} {counts[k]} times")
+        if layout == "paged":
+            check_prefix_counts(eng.stats(), F32, f"f32 {name}")
+        del eng
+    print(f"phase 2 (f32, {cfg.n_layers} layers, full width): "
+          + ", ".join(runs) + f" give identical greedy tokens for {len(prompts)} "
+          f"requests ({sum(map(len, toks['monolithic'].values()))} tokens each); "
+          f"paged runs hit the shared {F32['shared_prefix_len']}-token prefix "
+          f"{F32['n_requests'] - 1} times")
+    for name, counts in launches.items():
+        print(f"phase 2 launches [{name}]: "
               + " ".join(f"{k}={v}" for k, v in counts.items()))
 
 
-def phase_bf16_serving(torch, dev, base_cfg):
+def phase_bf16_serving(torch, dev, cfg, params):
     from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
-    from repro_torch.models.transformer import decode_step, init_params, prefill
+    from repro_torch.models.transformer import decode_step, prefill
     from repro_torch.serving.engine import Request
-    cfg = dataclasses.replace(base_cfg, n_layers=MAIN["n_layers"])
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     n_params = sum(t.numel() for t in [params["embed"], params["lm_head"]]
                    + [v for lp in params["layers"] for v in lp.values()])
-    eng = build_engines(torch, cfg, params, MAIN, ("pingpong",))["pingpong"]
+    eng = build_engine(torch, cfg, params, MAIN, "pingpong")
     inst = eng.runtime
 
     # in-situ check: one ping-pong decode step against the monolithic
@@ -389,8 +503,8 @@ def phase_bf16_serving(torch, dev, base_cfg):
     for rid, gen in out.items():
         require(len(gen) == MAIN["max_new"], f"bf16: request {rid} got {len(gen)}")
         require(all(0 <= t < cfg.vocab for t in gen), f"bf16: bad token in {rid}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the main path")
     iters = st["decode_iters"] - pre["decode_iters"]
     tokens = sum(map(len, out.values()))
     stages = st["stages"]
@@ -414,13 +528,223 @@ def phase_bf16_serving(torch, dev, base_cfg):
         for s in ("attn", "expert", "combine"))
         + f" | t_a={stages['t_a'] * 1e6:.1f}us t_e={stages['t_e'] * 1e6:.1f}us")
     print("phase 3 launches: " + " ".join(
-        f"{k}={v} ({v / max(1, iters):.1f}/decode iter)" for k, v in launches.items())
-        + f" over {iters} iters; prefill runs plain torch")
+        f"{k}={launches[k]} ({launches[k] / max(1, iters):.1f}/decode iter)"
+        for k in SERVING_KERNELS) + f" over {iters} iters; prefill runs plain torch")
     profile_decode(torch, eng, prompts_for(MAIN, cfg.vocab, seed=2))
     return launches
 
 
-def profile_decode(torch, eng, prompts):
+def phase_paged_serving(torch, dev, cfg, params):
+    """Phase 4: the paged KV path at full width in bf16.  Returns the
+    kernels-line rows of paged_decode_attention and gating_topk."""
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import Request
+    prompts = prompts_for(PAGED, cfg.vocab, seed=3)
+    runs = {"contiguous": ("contiguous", False),
+            "paged": ("paged", False),
+            "paged+prefix": ("paged", True)}
+    toks, res, live = {}, {}, None
+    for name, (layout, prefix) in runs.items():
+        eng = build_engine(torch, cfg, params, PAGED, "pingpong", layout, prefix)
+        # warm-up request, its own prompt: allocator pools, cuBLAS handles
+        eng.submit(Request(rid=-1, prompt=list(range(2, 2 + PAGED["prompt_len"])),
+                           max_new_tokens=2))
+        eng.run_until_done()
+        eng.finished.clear()
+        pre = eng.stats()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=list(p), max_new_tokens=PAGED["max_new"]))
+        reset_launch_counts()
+        paused, step_s = 0.0, []
+        t0 = time.perf_counter()
+        while eng.outstanding:
+            d0, n0 = eng.t_decode, eng.n_decode_iters
+            eng.step()
+            if eng.n_decode_iters > n0:
+                step_s.append(eng.t_decode - d0)
+            if (prefix and live is None
+                    and eng.n_decode_iters - pre["decode_iters"] == LIVE_ITER):
+                torch.cuda.synchronize()
+                tp = time.perf_counter()
+                live = launch_on_live_state(torch, dev, cfg, params, eng)
+                torch.cuda.synchronize()
+                paused += time.perf_counter() - tp
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - paused
+        launches = launch_counts()
+        st = eng.stats()
+        toks[name] = {r.rid: list(r.generated) for r in eng.finished}
+        require(len(toks[name]) == PAGED["n_requests"], f"paged {name}: unfinished")
+        for k in SERVING_KERNELS:
+            require(launches[k] > 0, f"paged {name}: {k} was not launched")
+        ph = {k: st["phases"][k] - pre["phases"][k]
+              for k in ("prefill_s", "decode_s", "transfer_s")}
+        iters = st["decode_iters"] - pre["decode_iters"]
+        dec_tokens = sum(map(len, toks[name].values())) - len(toks[name])
+        res[name] = dict(ph, iters=iters, rate=dec_tokens / ph["decode_s"],
+                         wall=wall, launches=launches,
+                         median_iter=statistics.median(step_s))
+        if name == "paged":
+            # the paged step's gather and write-back, against phase 3's
+            # contiguous profile
+            profile_decode(torch, eng, prompts_for(PAGED, cfg.vocab, seed=5),
+                           label="phase 4 profile [paged]")
+        if layout == "paged":
+            pool = eng.page_pool
+            held = len(eng.prefix) if prefix else 0
+            require(pool.used == held and pool.reserved == 0,
+                    f"paged {name}: {pool.used} pages used, {pool.reserved} "
+                    f"reserved after the run; the tree holds {held}")
+            if prefix:
+                px = {k: st["prefix_cache"][k] - pre["prefix_cache"][k]
+                      for k in ("hits", "misses", "hit_tokens")}
+                check_prefix_counts({"prefix_cache": px}, PAGED, f"paged {name}")
+                res[name]["prefix"] = px
+            res[name]["pages"] = st["kv_pages"]
+        del eng
+        torch.cuda.empty_cache()
+    require(toks["paged"] == toks["contiguous"],
+            "bf16: paged tokens differ from contiguous (the gather is a pure copy)")
+    same = sum(a == b for a, b in zip(toks["paged+prefix"].values(),
+                                      toks["contiguous"].values()))
+    base = res["contiguous"]
+    for name, r in res.items():
+        extra = ""
+        if "pages" in r:
+            kp = r["pages"]
+            extra = (f"; pool {kp['n_pages']} pages of {kp['page_size']}, "
+                     f"high-water {kp['high_water']}, {kp['forks']} forks")
+        if "prefix" in r:
+            px = r["prefix"]
+            extra += (f", prefix {px['hits']} hits / {px['misses']} misses "
+                      f"({px['hit_tokens']} tokens reused)")
+        print(f"phase 4 [{name}] ({params['embed'].dtype}, {cfg.n_layers} layers, "
+              f"pingpong m = {PAGED['microbatches']}, batch {PAGED['max_batch']}): "
+              f"{r['rate']:.2f} tok/s decoding, "
+              f"{r['decode_s'] / max(1, r['iters']) * 1e3:.2f} ms/iter (median "
+              f"{r['median_iter'] * 1e3:.2f}) over {r['iters']} iters; prefill "
+              f"{r['prefill_s'] * 1e3:.1f} ms "
+              f"({r['prefill_s'] / base['prefill_s']:.2f}x contiguous), kv write "
+              f"{r['transfer_s'] * 1e3:.1f} ms (host phase times); serve wall "
+              f"{r['wall']:.3f} s, of it outside decode "
+              f"{(r['wall'] - r['decode_s']) * 1e3:.1f} ms "
+              f"({(r['wall'] - r['decode_s']) / (base['wall'] - base['decode_s']):.2f}x "
+              f"contiguous){extra}")
+    print(f"phase 4: paged == contiguous greedy tokens for all "
+          f"{PAGED['n_requests']} requests; paged+prefix equals contiguous for "
+          f"{same} of them (bf16 suffix prefill rounds differently)")
+    lv = res["paged+prefix"]["launches"]
+    print("phase 4 launches [paged+prefix]: "
+          + " ".join(f"{k}={v}" for k, v in lv.items()))
+    require(lv["paged_decode_attention"] == cfg.n_layers and lv["gating_topk"] == 1,
+            f"phase 4: live-state launches {lv}")
+    return check_live_state(torch, cfg, live, lv)
+
+
+def launch_on_live_state(torch, dev, cfg, params, eng):
+    """At a decode iteration of the paged engine: launch the paged kernel
+    on every layer of its live pool through its block tables, with a
+    seeded query of the serving shape at each row's position, and the
+    gating_topk kernel on layer 0's router input for micro-batch 0 (the
+    next iteration's normed activations).  Keeps copies of the inputs
+    for the checks that follow the run."""
+    import numpy as np
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import embed_tokens, self_attn_decode_sublayer
+    pool = eng.page_pool
+    bt_np = eng.block_table_array()
+    pos_np = np.zeros((eng.max_batch,), np.int32)
+    for req in eng.running.values():
+        pos_np[req.slot] = req.position - 1
+    require(len(eng.running) == eng.max_batch and bool((bt_np[:, 0] >= 0).all()),
+            "phase 4: not every row serves a request at the live iteration")
+    bt = torch.from_numpy(bt_np).to(dev)
+    pos = torch.from_numpy(pos_np).to(dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    q = torch.randn(eng.max_batch, cfg.n_heads, cfg.resolved_head_dim, device=dev,
+                    generator=gen).to(pool.store[0]["k"].dtype)
+    outs = [kops.paged_decode_attention(q, e["k"], e["v"], e["pos"], bt, pos)
+            for e in pool.store]
+    mb = eng.mb_slices[0]
+    p0 = params["layers"][0]
+    scratch = pool.gather(bt_np)[0]
+    toks = torch.tensor(eng._last_token, dtype=torch.int64, device=dev)[mb]
+    x = embed_tokens(params, cfg, toks)
+    x = x + self_attn_decode_sublayer(p0, cfg, x, pos[mb],
+                                      {k: v[mb] for k, v in scratch.items()}, 0)
+    h = rms_norm(x, p0["ln2"])
+    topk = kops.gating_topk(h, p0["router"], cfg.moe.top_k)
+    return dict(q=q, bt=bt, bt_np=bt_np, pos=pos, outs=outs, h=h,
+                router=p0["router"], topk=topk,
+                store=[{k: t.clone() for k, t in e.items()} for e in pool.store],
+                dense=pool.gather(bt_np))
+
+
+def check_live_state(torch, cfg, live, launches):
+    """The live-state launches against their plain versions (and the
+    paged kernel against decode_attention over the gathered view), then
+    both kernels timed on those inputs.  Returns their kernels-line rows."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.gating_topk import gating_topk_plain
+    from repro_torch.models.attention import paged_decode_attention as paged_plain
+    q, bt, pos = live["q"], live["bt"], live["pos"]
+    errs, dense_errs = [], []
+    for l, (out, st, d) in enumerate(zip(live["outs"], live["store"], live["dense"])):
+        want = paged_plain(q, st["k"], st["v"], st["pos"], bt, pos)
+        dense = kops.decode_attention(q, d["k"], d["v"], d["pos"], pos)
+        torch.cuda.synchronize()
+        check_close(torch, f"live paged_decode_attention layer {l}", out, want,
+                    2e-2, 2e-2)
+        check_close(torch, f"live paged_decode_attention layer {l} vs dense",
+                    out, dense, 2e-2, 2e-2)
+        errs.append(max_err(torch, out, want))
+        dense_errs.append(max_err(torch, out, dense))
+    st = live["store"][0]
+    args = (q, st["k"], st["v"], st["pos"], bt, pos)
+    P, ps, Hkv, hd = st["k"].shape
+    mapped = bt >= 0
+    slot_pos = torch.where(mapped[:, :, None], st["pos"][bt.long().clamp(min=0)], -1)
+    valid = int(((slot_pos >= 0) & (slot_pos <= pos[:, None, None])).sum())
+    nbytes = (2 * q.numel() * 2 + valid * Hkv * hd * 2 * 2 + bt.numel() * 4
+              + int(mapped.sum()) * ps * 4 + pos.numel() * 4)
+    paged_row = dict(
+        err=max(errs), launches=launches["paged_decode_attention"],
+        ms=time_ms(torch, lambda: kops.paged_decode_attention(*args)),
+        plain_ms=time_ms(torch, lambda: paged_plain(*args)),
+        library_ms=None,
+        bound=bound_ms(nbytes, 4 * valid * cfg.n_heads * hd, "bfloat16"),
+        replaces="src/repro/kernels/decode_attention.py:209")
+    print(f"phase 4 live paged_decode_attention: q {tuple(q.shape)} over the pool "
+          f"{tuple(st['k'].shape)} x {cfg.n_layers} layers, table "
+          f"{tuple(bt.shape)} ({int(mapped.sum())} pages mapped, {valid} valid "
+          f"slots), positions {pos.tolist()}: max |err| {max(errs):.3e} vs plain, "
+          f"{max(dense_errs):.3e} vs decode_attention over the gathered view; "
+          f"{paged_row['ms']:.4f} ms, plain {paged_row['plain_ms']:.4f} ms")
+    h, w, K = live["h"], live["router"], cfg.moe.top_k
+    want = gating_topk_plain(h, w, K)
+    check_topk(torch, "live gating_topk", live["topk"], want)
+    T, d = h.shape
+    E = w.shape[1]
+    topk_row = dict(
+        err=max_err(torch, live["topk"][0], want[0]), launches=launches["gating_topk"],
+        ms=time_ms(torch, lambda: kops.gating_topk(h, w, K)),
+        plain_ms=time_ms(torch, lambda: gating_topk_plain(h, w, K)),
+        library_ms=None,
+        bound=bound_ms(h.numel() * 2 + w.numel() * 4 + T * K * 8 + E * 4,
+                       2 * T * d * E, "float32"),
+        replaces="src/repro/kernels/gating_topk.py:89")
+    print(f"phase 4 live gating_topk: layer 0 router input {tuple(h.shape)} "
+          f"{h.dtype}, experts {live['topk'][1].tolist()} identical to moe.route, "
+          f"counts {live['topk'][2].tolist()}; {topk_row['ms']:.4f} ms, plain "
+          f"{topk_row['plain_ms']:.4f} ms")
+    print("library_ms is null for paged_decode_attention (no PyTorch call reads "
+          "a block table; scaled_dot_product_attention needs the gathered view) "
+          "and gating_topk (top-k routing is three calls: matmul, softmax, topk)")
+    return {"paged_decode_attention": paged_row, "gating_topk": topk_row}
+
+
+def profile_decode(torch, eng, prompts, label="profile"):
     """Trace three decode iterations of a full batch with torch.profiler:
     the device's busy share of the window (union of kernel intervals on
     both streams) and the kernels that take the most device time."""
@@ -440,7 +764,7 @@ def profile_decode(torch, eng, prompts):
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        print("profile: the profiler recorded no device time")
+        print(f"{label}: the profiler recorded no device time")
         return
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -450,7 +774,7 @@ def profile_decode(torch, eng, prompts):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    print(f"profile: 3 decode iters in {wall_us / 1e3:.2f} ms wall, device busy "
+    print(f"{label}: 3 decode iters in {wall_us / 1e3:.2f} ms wall, device busy "
           f"{busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window "
           f"({len(spans)} device ops)")
     by_name = {}
@@ -458,7 +782,7 @@ def profile_decode(torch, eng, prompts):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"profile:   {us / 1e3:8.3f} ms  {name[:90]}")
+        print(f"{label}:   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
 def main() -> int:
@@ -475,6 +799,7 @@ def main() -> int:
     from repro_torch.config import get_config
     from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
     from repro_torch.kernels.cuda_build import REGISTRY, build_all
+    from repro_torch.models.transformer import init_params
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -494,20 +819,27 @@ def main() -> int:
         cfg = get_config("mixtral-8x22b")
         phase_f32_parity(torch, dev, cfg)
         torch.cuda.empty_cache()
-        launches = phase_bf16_serving(torch, dev, cfg)
+        cfg = dataclasses.replace(cfg, n_layers=MAIN["n_layers"])
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        launches = phase_bf16_serving(torch, dev, cfg, params)
+        for name, r in rows.items():
+            r["launches"] = launches[name]
+        rows.update(phase_paged_serving(torch, dev, cfg, params))
+        kernels = []
+        for name in ("decode_attention", "paged_decode_attention", "gating_topk",
+                     "gating_dispatch", "grouped_matmul"):
+            r, src = rows[name], f"{name}.cu"
+            require(src in REGISTRY, f"{src} not registered")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}", "replaces": r["replaces"],
+                "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+        require(len(kernels) == len(REGISTRY), "a registered kernel has no row")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    kernels = []
-    for name, r in rows.items():
-        src = f"{name}.cu"
-        require(src in REGISTRY, f"{src} not registered")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src}", "replaces": r["replaces"],
-            "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""Bridge from the JAX package's parameter and cache pytrees to the port's.
+"""Bridge from the JAX package's parameter, cache and page-pool pytrees
+to the port's.
 
-Input: the pytree of ``repro.models.init_params`` / ``init_cache`` with
-its leaves as numpy arrays (``jax.tree.map(np.asarray, tree)``).  The
+Input: the pytree of ``repro.models.init_params`` / ``init_cache``, or a
+``repro.serving.pages.PagePool``'s ``store``, with its leaves as numpy
+arrays (``jax.tree.map(np.asarray, tree)``).  The
 stacked ``blocks`` leading axis is unstacked into one dict per layer and
 the ``remainder`` layers follow, in execution order.  The bridge takes
 numpy only: it imports nothing of JAX or of the JAX package.
@@ -49,3 +51,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
 
 def cache_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
     return _layers(tree, cfg, resolve_device(device))
+
+
+def pages_from_jax(store: dict, cfg: ModelConfig, device="cuda") -> List[dict]:
+    """A JAX ``PagePool.store`` (leaves ``(n_blocks, P, ps, ...)``) as the
+    port's per-layer page store ``{k, v: (P, ps, Hkv, hd), pos: (P, ps)}``
+    (``serving.pages.PagePool.store``)."""
+    return _layers(store, cfg, resolve_device(device))

@@ -13,22 +13,23 @@
 // Bound: bytes.  The call reads x (T x d) and the router (d x E) once;
 // at decode T is one micro-batch (<= 8 rows), so the work is a few
 // hundred KB and the launch overhead dominates.  Design: two launches.
-// route_kernel runs one block per token: each warp takes experts in
-// turn and reduces the dot product over d with its lanes, then one
-// thread does the softmax and the k argmax rounds over E (<= 256)
-// probabilities.  dispatch_kernel is a single block: its threads fill
+// route_kernel runs one block per token through route.cuh (shared with
+// gating_topk.cu): each warp takes experts in turn and reduces the dot
+// product over d with its lanes, then one thread does the softmax and
+// the k argmax rounds over E (<= 256) probabilities.  dispatch_kernel
+// is a single block: its threads fill
 // the buffers with the sentinel, then one thread walks the T*K entries
 // in order, keeping the per-expert occupancy, so slot order and drops
 // are exactly those of the sequential definition.  An in-kernel scatter
 // is cheap on the GPU, so no (T*K, E) one-hot cumsum is built.
 
-#include "common.cuh"
+#include "route.cuh"
 
 namespace {
 
 constexpr int NT = 256;
-constexpr int MAX_E = 256;
-constexpr int MAX_K = 16;
+constexpr int MAX_E = repro::ROUTE_MAX_E;
+constexpr int MAX_K = repro::ROUTE_MAX_K;
 
 template <typename T>
 __global__ void __launch_bounds__(NT) route_kernel(
@@ -36,45 +37,9 @@ __global__ void __launch_bounds__(NT) route_kernel(
     const float* __restrict__ bias, float* __restrict__ gates,
     int* __restrict__ experts, int d, int E, int K) {
   __shared__ float prob_s[MAX_E];
-  const int t = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* xr = x + (size_t)t * d;
-  for (int e = warp; e < E; e += NT / 32) {
-    float acc = 0.f;
-    for (int i = lane; i < d; i += 32) acc += repro::to_f(xr[i]) * w[(size_t)i * E + e];
-    acc = repro::warp_sum(acc);
-    if (lane == 0) prob_s[e] = acc + bias[e];
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  float mx = prob_s[0];
-  for (int e = 1; e < E; ++e) mx = fmaxf(mx, prob_s[e]);
-  float sum = 0.f;
-  for (int e = 0; e < E; ++e) {
-    prob_s[e] = expf(prob_s[e] - mx);
-    sum += prob_s[e];
-  }
-  for (int e = 0; e < E; ++e) prob_s[e] = prob_s[e] / sum;
-  float g[MAX_K];
-  int idx[MAX_K];
-  float gsum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float best = -1.f;
-    int bi = 0;
-    for (int e = 0; e < E; ++e) {
-      if (prob_s[e] > best) {  // strict: the lowest index wins a tie
-        best = prob_s[e];
-        bi = e;
-      }
-    }
-    prob_s[bi] = -1.f;  // probabilities are >= 0: never picked again
-    g[k] = best;
-    idx[k] = bi;
-    gsum += best;
-  }
-  for (int k = 0; k < K; ++k) {
-    gates[(size_t)t * K + k] = g[k] / gsum;
-    experts[(size_t)t * K + k] = idx[k];
-  }
+  const int t = blockIdx.x;
+  repro::route_token<T, NT>(x + (size_t)t * d, w, bias, d, E, K, prob_s,
+                            gates + (size_t)t * K, experts + (size_t)t * K);
 }
 
 __global__ void __launch_bounds__(NT) dispatch_kernel(

@@ -4,10 +4,10 @@ Each kernel is one CUDA C++ source under ``repro_torch/csrc/`` with a
 plain C interface.  At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library under ``build/repro_torch_kernels/`` at
 the repository root and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale one is never
-loaded.  ``build_all`` compiles every registered source at once, one
-``nvcc`` process per source.
+build takes seconds).  The library name carries a hash of the source,
+the shared headers and the flags, so an edited source is rebuilt and a
+stale one is never loaded.  ``build_all`` compiles every registered
+source at once, one ``nvcc`` process per source.
 
 Nothing here runs when the module is imported: the CPU tests import
 every module on a machine with no ``nvcc`` and no card.
@@ -47,8 +47,9 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     src = CSRC / source
     h = hashlib.sha256()
-    for part in (src.read_bytes(), (CSRC / "common.cuh").read_bytes(),
-                 " ".join(NVCC_FLAGS).encode()):
+    for part in ([src.read_bytes()]
+                 + [hdr.read_bytes() for hdr in sorted(CSRC.glob("*.cuh"))]
+                 + [" ".join(NVCC_FLAGS).encode()]):
         h.update(part)
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 

@@ -1,9 +1,11 @@
-"""Flash-decode GQA attention: the CUDA kernel ``csrc/decode_attention.cu``
-and its plain PyTorch version.
+"""Flash-decode GQA attention over a ring-buffer KV cache
+(``csrc/decode_attention.cu``) and over a paged KV pool through a block
+table (``csrc/paged_decode_attention.cu``), each with its plain PyTorch
+version.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
-(``models.attention.decode_attention``, the same math as the JAX
-package's ``kernels/ref.py`` oracle).
+(``models.attention.decode_attention`` / ``paged_decode_attention``, the
+same math as the JAX package's ``kernels/ref.py`` oracle).
 """
 from __future__ import annotations
 
@@ -14,10 +16,17 @@ import torch
 from repro_torch.device import kernel_route
 from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
 from repro_torch.models.attention import decode_attention as decode_attention_plain
+from repro_torch.models.attention import \
+    paged_decode_attention as paged_decode_attention_plain
 
 KERNEL = CudaKernel(
     "decode_attention.cu", "decode_attention",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+    + [ctypes.c_int])
+
+PAGED_KERNEL = CudaKernel(
+    "paged_decode_attention.cu", "paged_decode_attention",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
     + [ctypes.c_int])
 
 MAX_REP = 16
@@ -52,4 +61,53 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     KERNEL.launch(q.device, ptr(q), ptr(k_cache), ptr(v_cache), ptr(cache_pos),
                   ptr(pos), ptr(out), B, H, Hkv, W, hd, int(window),
                   float(attn_softcap), float(hd ** -0.5), DTYPE_CODES[q.dtype])
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
+                           window: int = 0,
+                           attn_softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, H, hd); k/v pages: (P, ps, Hkv, hd); pos_pages: (P, ps)
+    int32 (-1 = empty); block_table: (B, n_logical) int32 (-1 =
+    unmapped); pos: (B,) int32.  Returns (B, H, hd) in q's dtype.
+
+    Every table entry must be -1 or below P.  The CPU route checks it;
+    on the card the kernel reads the table as it is, so there it is the
+    caller's contract (the engine's tables hold only pool page ids)."""
+    if kernel_route(q) == "plain":
+        check(bool((block_table < k_pages.shape[0]).all()),
+              "paged_decode_attention: block table entry >= pool size")
+        return paged_decode_attention_plain(q, k_pages, v_pages, pos_pages,
+                                            block_table, pos, window=window,
+                                            attn_softcap=attn_softcap)
+    B, H, hd = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    check(block_table.dim() == 2 and block_table.shape[0] == B,
+          "paged_decode_attention: table must be (B, n_logical)")
+    n_logical = block_table.shape[1]
+    for t in (k_pages, v_pages, pos_pages, block_table, pos):
+        check(t.device == q.device, "paged_decode_attention: mixed devices")
+    for t in (q, k_pages, v_pages, pos_pages, block_table, pos):
+        check(t.is_contiguous(),
+              "paged_decode_attention: inputs must be contiguous")
+    check(q.dtype in DTYPE_CODES, f"paged_decode_attention: dtype {q.dtype}")
+    check(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+          "paged_decode_attention: q and the pages must share a dtype")
+    check(pos_pages.dtype == torch.int32 and block_table.dtype == torch.int32
+          and pos.dtype == torch.int32,
+          "paged_decode_attention: positions and the table must be int32")
+    check(tuple(v_pages.shape) == (P, ps, Hkv, hd) and k_pages.shape[3] == hd,
+          "paged_decode_attention: page shape")
+    check(tuple(pos_pages.shape) == (P, ps) and tuple(pos.shape) == (B,),
+          "paged_decode_attention: position shapes")
+    check(hd in (64, 128),
+          f"paged_decode_attention: head_dim {hd} not in (64, 128)")
+    check(H % Hkv == 0 and H // Hkv <= MAX_REP,
+          f"paged_decode_attention: {H} heads over {Hkv} kv heads")
+    out = torch.empty_like(q)
+    PAGED_KERNEL.launch(q.device, ptr(q), ptr(k_pages), ptr(v_pages),
+                        ptr(pos_pages), ptr(block_table), ptr(pos), ptr(out),
+                        B, H, Hkv, ps, n_logical, hd, int(window),
+                        float(attn_softcap), float(hd ** -0.5),
+                        DTYPE_CODES[q.dtype])
     return out

@@ -1,0 +1,59 @@
+"""Fused router -> softmax -> top-k -> per-expert counts: the CUDA kernel
+``csrc/gating_topk.cu`` and its plain PyTorch version.
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+(``models.moe.route`` then ``routing_counts``).  Both follow
+``jax.lax.top_k``'s choice (the JAX oracle ``kernels/ref.py``
+``gating_topk_ref``): a chosen expert is never chosen again, also where
+the other probabilities underflow to 0, where the TPU kernel repeats
+expert 0.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.device import kernel_route
+from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
+from repro_torch.models import moe as moe_lib
+
+KERNEL = CudaKernel("gating_topk.cu", "gating_topk",
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
+
+MAX_EXPERTS = 256
+MAX_TOP_K = 16
+
+
+def gating_topk_plain(x, w_router, top_k: int):
+    """(gates (T, K) f32 normalized, experts (T, K) int32, counts (E,)
+    int32 routed tokens per expert)."""
+    routing = moe_lib.route(x, w_router, top_k)
+    counts = moe_lib.routing_counts(routing, w_router.shape[1])
+    return routing.gates, routing.experts, counts.to(torch.int32)
+
+
+def gating_topk(x, w_router, top_k: int):
+    """x: (T, d) f32|bf16, w_router: (d, E) f32.  See
+    ``gating_topk_plain`` for the outputs."""
+    if kernel_route(x) == "plain":
+        return gating_topk_plain(x, w_router, top_k)
+    check(x.dim() == 2, f"gating_topk: x must be (T, d), got {tuple(x.shape)}")
+    T, d = x.shape
+    check(w_router.device == x.device, "gating_topk: mixed devices")
+    check(w_router.dim() == 2 and w_router.shape[0] == d
+          and w_router.dtype == torch.float32,
+          "gating_topk: router must be (d, E) f32")
+    E = w_router.shape[1]
+    check(x.dtype in DTYPE_CODES, f"gating_topk: dtype {x.dtype}")
+    check(E <= MAX_EXPERTS and 0 < top_k <= min(E, MAX_TOP_K),
+          f"gating_topk: E={E}, top_k={top_k}")
+    check(x.is_contiguous() and w_router.is_contiguous(),
+          "gating_topk: inputs must be contiguous")
+    dev = x.device
+    gates = torch.empty((T, top_k), dtype=torch.float32, device=dev)
+    experts = torch.empty((T, top_k), dtype=torch.int32, device=dev)
+    counts = torch.empty((E,), dtype=torch.int32, device=dev)
+    KERNEL.launch(dev, ptr(x), ptr(w_router), ptr(gates), ptr(experts),
+                  ptr(counts), T, d, E, top_k, DTYPE_CODES[x.dtype])
+    return gates, experts, counts

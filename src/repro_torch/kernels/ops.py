@@ -12,8 +12,10 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attention import (  # noqa: F401
+    decode_attention, paged_decode_attention)
 from repro_torch.kernels.gating_dispatch import gating_dispatch  # noqa: F401
+from repro_torch.kernels.gating_topk import gating_topk  # noqa: F401
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.models.common import activation

@@ -1,10 +1,12 @@
 """Attention math: grouped-query attention for prefill (chunked over
-queries) and single-token decode attention over a ring-buffer KV cache.
+queries) and single-token decode attention over a ring-buffer KV cache
+or, through a block table, over a paged KV pool.
 
 Shapes follow the JAX package:
   q: (B, Sq, H, hd)    k, v: (B, Sk, Hkv, hd)    H = Hkv * rep (GQA).
-Plain einsum and softmax in f32, as there; ``decode_attention`` here is
-also the plain version of the ``kernels.decode_attention`` CUDA kernel.
+Plain einsum and softmax in f32, as there; ``decode_attention`` and
+``paged_decode_attention`` here are also the plain versions of the
+``kernels.decode_attention`` CUDA kernels.
 """
 from __future__ import annotations
 
@@ -68,3 +70,27 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     bias = torch.where(ok, 0.0, -1e30)                       # (B,W)
     p = torch.softmax(s + bias[:, None, None, None, :], dim=-1)
     return _grouped_out(p, v_cache, q.dtype)[:, 0]
+
+
+def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
+                           window: int = 0,
+                           attn_softcap: float = 0.0) -> torch.Tensor:
+    """Single-token attention reading KV through a block table: the
+    pages each row's table names are gathered into the dense (B, W) view
+    and ``decode_attention`` runs on it (the gather is a pure copy;
+    unmapped logical pages read ``cache_pos = -1``).
+
+    q: (B, H, hd); k_pages/v_pages: (P, ps, Hkv, hd); pos_pages: (P, ps)
+    int32 position per pool slot (-1 = empty); block_table: (B, n_logical)
+    int32 physical page per logical page (-1 = unmapped); pos: (B,)
+    int32.  Returns (B, H, hd).
+    """
+    B, n_logical = block_table.shape
+    W = n_logical * k_pages.shape[1]
+    bt = block_table.long().clamp(min=0)
+    k_cache = k_pages[bt].reshape((B, W) + tuple(k_pages.shape[2:]))
+    v_cache = v_pages[bt].reshape((B, W) + tuple(v_pages.shape[2:]))
+    mapped = (block_table >= 0)[:, :, None]
+    cache_pos = torch.where(mapped, pos_pages[bt], -1).reshape(B, W)
+    return decode_attention(q, k_cache, v_cache, cache_pos, pos, window=window,
+                            attn_softcap=attn_softcap)

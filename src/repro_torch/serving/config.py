@@ -1,7 +1,7 @@
 """Typed serving configuration of the port: the fields of the JAX
-package's ``ServingConfig`` that this slice supports, under the same
-names, plus what running at full width on one card needs (the layer
-count cut, the weight dtype, the device)."""
+package's ``ServingConfig`` that the port supports, under the same
+names and defaults, plus what running at full width on one card needs
+(the layer count cut, the weight dtype, the device)."""
 from __future__ import annotations
 
 import argparse
@@ -11,6 +11,7 @@ from repro_torch.serving.sampler import SamplingParams
 
 RUNTIMES = ("monolithic", "pingpong")
 DTYPES = ("float32", "bfloat16")
+KV_LAYOUTS = ("contiguous", "paged")
 
 
 @dataclass
@@ -29,6 +30,12 @@ class ServingConfig:
     verbose: bool = True
     # ---- decode runtime ------------------------------------------------
     microbatches: int = 3
+    # ---- KV cache layout (paged subsystem) ------------------------------
+    kv_layout: str = "contiguous"      # contiguous | paged
+    page_size: int = 16                # token slots per KV page (paged)
+    kv_pool_pages: int = 0             # 0 = auto-size from max_batch/max_seq
+    prefix_cache: bool = True          # radix prefix reuse (paged only)
+    shared_prefix_len: int = 0         # workload: shared system-prompt tokens
     # ---- engine ---------------------------------------------------------
     max_batch: int = 4
     max_seq: int = 128
@@ -46,6 +53,25 @@ class ServingConfig:
         self.microbatches = int(self.microbatches)
         if self.microbatches < 1:
             raise ValueError("microbatches must be >= 1")
+        if self.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
+                             f"got {self.kv_layout!r}")
+        if self.kv_layout == "paged":
+            if self.page_size <= 0:
+                raise ValueError(f"page_size must be positive, "
+                                 f"got {self.page_size}")
+            if self.max_seq % self.page_size:
+                raise ValueError(f"max_seq={self.max_seq} must be a whole "
+                                 f"number of pages of {self.page_size}")
+
+    @property
+    def n_pool_pages(self) -> int:
+        """Page-pool size: explicit, or auto: enough for every batch row
+        plus two spare rows' worth of pages, so the prefix cache can keep
+        recently finished chains without starving admission."""
+        if self.kv_pool_pages:
+            return self.kv_pool_pages
+        return (self.max_batch + 2) * (self.max_seq // self.page_size)
 
     def sampling_params(self) -> SamplingParams:
         return SamplingParams(temperature=self.temperature,

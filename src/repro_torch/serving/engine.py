@@ -10,6 +10,15 @@ The decode iteration runs in one of two modes:
     contiguous micro-batch groups and a ``core.disagg``
     ``DisaggregatedInstance`` runs each iteration through the ping-pong
     schedule on two CUDA streams, with all three kernels.
+
+The KV cache has one of two layouts (``ServingConfig.kv_layout``):
+  * ``contiguous`` — one dense ``(B, W)`` ring-buffer row per KV slot;
+  * ``paged`` — rows are virtual: per-request block tables over a
+    refcounted page pool (``serving.pages``) with radix prefix reuse
+    (``serving.prefix_cache``).  Each decode iteration gathers the dense
+    view through the block tables, runs the unchanged decode step on it,
+    and scatters each row's one new token back into its page, so paged
+    decode is token-identical to contiguous.
 """
 from __future__ import annotations
 
@@ -28,6 +37,9 @@ from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.kvcache import (MicrobatchSlotAllocator, SlotAllocator,
                                          insert_rows, reset_row)
+from repro_torch.serving.pages import PagePool, n_pages_for
+from repro_torch.serving.prefill import suffix_prefill
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import sample, sample_rows
 
 
@@ -73,8 +85,23 @@ class Engine:
         self.runtime = runtime if self.mode == "pingpong" else None
         self.max_batch, self.max_seq = base.max_batch, base.max_seq
         self.sampling = base.sampling_params()
-        self.cache = init_cache(cfg, self.max_batch, self.max_seq,
-                                dtype=params["embed"].dtype, device=self.device)
+        self.kv_layout = base.kv_layout
+        if self.kv_layout == "paged":
+            self.page_pool = PagePool(
+                cfg, n_pages=base.n_pool_pages, page_size=base.page_size,
+                max_seq=self.max_seq, dtype=params["embed"].dtype,
+                device=self.device)
+            self.prefix = (PrefixCache(self.page_pool) if base.prefix_cache
+                           else None)
+            self.cache = None           # gathered from the pool per step
+            self.block_tables: Dict[int, List[int]] = {}   # rid -> pages
+            self._page_reserve: Dict[int, int] = {}        # rid -> unspent
+        else:
+            self.page_pool = None
+            self.prefix = None
+            self.cache = init_cache(cfg, self.max_batch, self.max_seq,
+                                    dtype=params["embed"].dtype,
+                                    device=self.device)
         if self.mode == "pingpong":
             self.mb_slices = even_partition(self.max_batch,
                                             runtime.plan.n_microbatches)
@@ -112,8 +139,98 @@ class Engine:
         self.running[req.rid] = req
         self.n_prefills += 1
 
+    # --------------------------------------------------------- paged helpers
+    def _pages_for_request(self, req: Request) -> int:
+        """Worst-case pages a request can ever touch: its prompt plus all
+        generated tokens, clamped at the ring width (wrapped writes land
+        in pages it owns, or fork shared ones, which the clamp covers
+        since every logical page is counted)."""
+        n_slots = min(self.max_seq, len(req.prompt) + req.max_new_tokens)
+        return n_pages_for(n_slots, self.page_pool.page_size)
+
+    def _reserve_pages(self, rid: int, n: int) -> bool:
+        """OOM-safe admission: reserve the request's worst case up front,
+        evicting cold prefix-cache pages if the free list is short.  On
+        False the request stays waiting at the head of the queue."""
+        if not self.page_pool.reserve(n):
+            if self.prefix is None:
+                return False
+            self.prefix.evict(n - self.page_pool.available)
+            if not self.page_pool.reserve(n):
+                return False
+        self._page_reserve[rid] = n
+        return True
+
+    def _take_page(self, rid: int) -> int:
+        """Allocate one page against the request's reservation."""
+        left = self._page_reserve.get(rid, 0)
+        if left > 0:
+            self._page_reserve[rid] = left - 1
+            return self.page_pool.alloc(from_reserve=True)
+        return self.page_pool.alloc()
+
+    def _fork_page(self, rid: int, page: int) -> int:
+        """Copy-on-write a shared page, spending reservation if any."""
+        left = self._page_reserve.get(rid, 0)
+        if left > 0:
+            self._page_reserve[rid] = left - 1
+            return self.page_pool.fork(page, from_reserve=True)
+        return self.page_pool.fork(page)
+
+    def _install_pages(self, req: Request, shared: List[int],
+                       fresh: List[int]):
+        """The block table owns one reference per page (the lookup pin of
+        a shared page, the alloc reference of a fresh one); the prompt's
+        full pages are published to the radix tree."""
+        table = list(shared) + list(fresh)
+        self.block_tables[req.rid] = table
+        if self.prefix is not None:
+            self.prefix.insert(req.prompt, table)
+
+    def _admit_paged(self):
+        """Inline paged admission (FIFO): prefix-aware prefill straight
+        into freshly allocated pages.  A radix hit gathers the shared
+        pages and computes only the suffix."""
+        ps = self.page_pool.page_size
+        while self.waiting and self.slots.free:
+            req = self.waiting[0]
+            h, shared = (self.prefix.lookup(req.prompt)
+                         if self.prefix is not None else (0, []))
+            needed = self._pages_for_request(req) - len(shared)
+            if not self._reserve_pages(req.rid, needed):
+                for p in shared:        # drop the lookup pins
+                    self.page_pool.release(p)
+                break
+            self.waiting.pop(0)
+            slot = self.slots.alloc(req.rid)
+            t0 = time.perf_counter()
+            if h:
+                row = self.page_pool.gather_row(shared)
+                last_logits, row = suffix_prefill(self.params, self.cfg,
+                                                  req.prompt, row, h)
+            else:
+                toks = torch.tensor([req.prompt], dtype=torch.int64,
+                                    device=self.device)
+                last_logits, row = prefill(self.params, self.cfg, toks,
+                                           max_seq=self.max_seq)
+            self.t_prefill += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            n_written = n_pages_for(len(req.prompt), ps)
+            fresh = [self._take_page(req.rid)
+                     for _ in range(n_written - len(shared))]
+            if fresh:
+                self.page_pool.write_row_span(fresh, row, len(shared) * ps,
+                                              len(req.prompt))
+            self.t_transfer += time.perf_counter() - t0
+            self.n_transfers += 1
+            self._install_pages(req, shared, fresh)
+            self._start_request(req, slot, last_logits)
+
     def _admit(self):
         """Inline prefill of waiting requests into free KV rows (FIFO)."""
+        if self.kv_layout == "paged":
+            self._admit_paged()
+            return
         while self.waiting and self.slots.free:
             req = self.waiting.pop(0)
             slot = self.slots.alloc(req.rid)
@@ -134,9 +251,52 @@ class Engine:
             req = self.running.pop(rid)
             req.t_done = time.perf_counter()
             slot = self.slots.release(rid)
-            # a recycled row must never expose the previous request's KV
-            reset_row(self.cache, slot)
+            if self.kv_layout == "paged":
+                # drop the table's references: pages the radix tree (or
+                # another request) still holds stay alive.  A recycled
+                # page is invalidated (pos = -1) when it is allocated.
+                for p in self.block_tables.pop(rid):
+                    self.page_pool.release(p)
+                left = self._page_reserve.pop(rid, 0)
+                if left:
+                    self.page_pool.unreserve(left)
+            else:
+                # a recycled row must never expose the previous request's KV
+                reset_row(self.cache, slot)
             self.finished.append(req)
+
+    def _paged_writeback(self, dense_cache: List[dict]):
+        """Scatter this iteration's new KV token of each live row back
+        into its physical page.  The decode step wrote it at ring slot
+        ``(position - 1) % W`` of the gathered view; the page holding that
+        slot is taken from the request's reservation when the row grows
+        into it, and forked first if it is shared (the ring's wrap is the
+        one legal write into a prefix-cache or multi-holder page)."""
+        pool, ps = self.page_pool, self.page_pool.page_size
+        rows, slots, pages, offs = [], [], [], []
+        for req in self.running.values():
+            w = (req.position - 1) % self.max_seq
+            lp = w // ps
+            tb = self.block_tables[req.rid]
+            if lp == len(tb):
+                tb.append(self._take_page(req.rid))
+            elif pool.is_shared(tb[lp]):
+                tb[lp] = self._fork_page(req.rid, tb[lp])
+            rows.append(req.slot)
+            slots.append(w)
+            pages.append(tb[lp])
+            offs.append(w % ps)
+        pool.write_tokens(dense_cache, np.asarray(rows), np.asarray(slots),
+                          np.asarray(pages), np.asarray(offs))
+
+    def block_table_array(self) -> np.ndarray:
+        """The (max_batch, n_logical) int32 block tables of the running
+        requests by KV row, -1 where unmapped."""
+        bt = np.full((self.max_batch, self.page_pool.n_logical), -1, np.int32)
+        for req in self.running.values():
+            tb = self.block_tables[req.rid]
+            bt[req.slot, :len(tb)] = tb
+        return bt
 
     # ----------------------------------------------------------------- step
     def step(self) -> int:
@@ -157,14 +317,27 @@ class Engine:
                             device=self.device)
         pos_t = torch.from_numpy(pos).to(self.device)
         t0 = time.perf_counter()
+        if self.kv_layout == "paged":
+            # block-table gather: a fresh dense (B, W) view, a pure copy
+            # (unmapped pages read pos = -1, exactly a reset row), so the
+            # decode step below is the contiguous layout's, bit for bit
+            cache = self.page_pool.gather(self.block_table_array())
+        else:
+            cache = self.cache
         if self.mode == "pingpong":
             # idle rows decode anyway; keep them out of the expert counts
             self.runtime.set_active_slots(active)
-            logits, self.cache = self.runtime.decode_microbatched(
-                toks, self.cache, pos_t, self.mb_slices)
+            logits, cache = self.runtime.decode_microbatched(
+                toks, cache, pos_t, self.mb_slices)
         else:
-            logits, self.cache = decode_step(self.params, self.cfg, toks,
-                                             self.cache, pos_t)
+            logits, cache = decode_step(self.params, self.cfg, toks, cache,
+                                        pos_t)
+        if self.kv_layout == "paged":
+            # the attention stages wrote the new tokens into the gathered
+            # view on the caller's current stream (the runtime's attention
+            # stream), and the write-back is issued on that stream after
+            # them, so stream order alone puts it after the last write
+            self._paged_writeback(cache)
         nxt = sample_rows(logits, self._next_seed(), rids,
                           self.sampling).tolist()
         self.t_decode += time.perf_counter() - t0
@@ -207,7 +380,12 @@ class Engine:
                        "decode_s": self.t_decode,
                        "decode_n": self.n_decode_iters},
             "kernel_launches": launch_counts(),
+            "kv_layout": self.kv_layout,
         }
+        if self.page_pool is not None:
+            out["kv_pages"] = self.page_pool.stats()
+        if self.prefix is not None:
+            out["prefix_cache"] = self.prefix.stats()
         if self.mode == "pingpong":
             out["n_microbatches"] = len(self.mb_slices)
             out["stages"] = self.runtime.stage_report()

@@ -1,5 +1,5 @@
-"""The port's three kernels on the serving path: decode_attention,
-gating_dispatch, grouped_matmul / grouped_mlp.
+"""The port's five kernels: decode_attention, paged_decode_attention,
+gating_topk, gating_dispatch, grouped_matmul / grouped_mlp.
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run as its own tests run them
@@ -22,10 +22,14 @@ import torch
 
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import gating_topk as gt_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
+from repro_torch.kernels.gating_topk import gating_topk_plain
 from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
 from repro_torch.models.attention import decode_attention as decode_attention_plain
+from repro_torch.models.attention import \
+    paged_decode_attention as paged_decode_attention_plain
 
 torch.set_num_threads(1)
 
@@ -39,7 +43,8 @@ def jx():
 
     from repro.core import load_balance as lb
     from repro.kernels import ops as jops
-    return types.SimpleNamespace(jnp=jnp, ops=jops, lb=lb)
+    from repro.kernels import ref as jref
+    return types.SimpleNamespace(jnp=jnp, ops=jops, lb=lb, ref=jref)
 
 
 @pytest.fixture
@@ -87,6 +92,106 @@ def test_decode_attention_plain_matches_jax(jx, b, h, hkv, hd, w, window, cap):
     a = jx.jnp.asarray
     want = jx.ops.decode_attention(a(q), a(k), a(v), a(cpos), a(pos), **kw)
     _close(got, want)
+
+
+# ---------------------------------------------------------------- paged decode attention
+def _paged_case(b, h, hkv, hd, ps, npg, seed=0):
+    """A dense cache scattered into a shuffled page pool, as the JAX
+    package's ``test_paged_decode_attention`` builds it: request i owns
+    only the pages up to its position; the rest of its table is -1."""
+    w = ps * npg
+    rng = np.random.RandomState(seed + b * w + h + ps)
+    q = rng.randn(b, h, hd).astype(np.float32)
+    kc = rng.randn(b, w, hkv, hd).astype(np.float32)
+    vc = rng.randn(b, w, hkv, hd).astype(np.float32)
+    pos = rng.randint(ps // 2, w, size=(b,)).astype(np.int32)
+    cpos = np.broadcast_to(np.arange(w, dtype=np.int32), (b, w))
+    cpos = np.where(cpos <= pos[:, None], cpos, -1).astype(np.int32)
+    perm = rng.permutation(b * npg)
+    bt = np.full((b, npg), -1, np.int32)
+    pk = np.zeros((b * npg, ps, hkv, hd), np.float32)
+    pv = np.zeros_like(pk)
+    ppos = np.full((b * npg, ps), -1, np.int32)
+    for i in range(b):
+        for lp in range(int(pos[i]) // ps + 1):
+            pg = int(perm[i * npg + lp])
+            bt[i, lp] = pg
+            sl = slice(lp * ps, (lp + 1) * ps)
+            pk[pg], pv[pg], ppos[pg] = kc[i, sl], vc[i, sl], cpos[i, sl]
+    return (q, pk, pv, ppos, bt, pos), (kc, vc, cpos)
+
+
+PAGED_CASES = [  # (b, h, hkv, hd, ps, npg, window, softcap): tests/test_kernels.py's
+    (2, 4, 2, 16, 8, 4, 0, 0.0),
+    (1, 8, 1, 32, 16, 3, 0, 0.0),    # MQA
+    (3, 4, 4, 16, 8, 4, 16, 0.0),    # MHA + sliding window
+    (2, 4, 2, 32, 8, 4, 0, 50.0),    # softcap
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,ps,npg,window,cap", PAGED_CASES)
+def test_paged_decode_attention_plain_matches_jax(jx, b, h, hkv, hd, ps, npg,
+                                                  window, cap):
+    args, _ = _paged_case(b, h, hkv, hd, ps, npg)
+    kw = dict(window=window, attn_softcap=cap)
+    got = kops.paged_decode_attention(*map(_t, args), **kw)
+    want = jx.ops.paged_decode_attention(*map(jx.jnp.asarray, args), **kw)
+    _close(got, want)
+
+
+def test_paged_decode_attention_refuses_a_page_outside_the_pool():
+    args, _ = _paged_case(2, 4, 2, 16, 8, 4)
+    q, pk, pv, ppos, bt, pos = map(_t, args)
+    bt[0, 0] = pk.shape[0]
+    with pytest.raises(ValueError, match="pool size"):
+        kops.paged_decode_attention(q, pk, pv, ppos, bt, pos)
+
+
+# ---------------------------------------------------------------- gating top-k
+def _topk_equal(got, want):
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert got[1].dtype == got[2].dtype == torch.int32
+    _close(got[0], want[0])
+
+
+@pytest.mark.parametrize("t,d,e,k", [(8, 16, 4, 2), (96, 48, 16, 4), (4, 64, 8, 2),
+                                     (33, 20, 8, 8)])
+def test_gating_topk_plain_matches_jax(jx, t, d, e, k):
+    x, w = _dispatch_case(t, d, e)
+    got = kops.gating_topk(_t(x), _t(w), k)
+    _topk_equal(got, jx.ref.gating_topk_ref(jx.jnp.asarray(x), jx.jnp.asarray(w), k))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_gating_topk_ties_take_lowest_index(jx, k):
+    x, w = _tie_case()
+    got = kops.gating_topk(_t(x), _t(w), k)
+    _topk_equal(got, jx.ref.gating_topk_ref(jx.jnp.asarray(x), jx.jnp.asarray(w), k))
+
+
+def test_topk_with_underflowing_probabilities_follows_lax_top_k(jx):
+    """Router logits [200, 0, ..., 0]: in f32 every probability but the
+    first underflows to 0.  ``jax.lax.top_k`` (the oracle
+    ``ref.gating_topk_ref``) then picks experts [0, 1].  The port's
+    gating_topk and gating_dispatch follow it.  The JAX TPU kernels do
+    not: ``_topk_core`` masks a chosen expert by multiplying it to 0, so
+    ``repro.kernels.ops.gating_topk`` returns experts [[0, 0], [3, 0]]
+    with counts [3, 0, 0, 1, 0, 0, 0, 0] on this input (its
+    gating_dispatch shares the core)."""
+    e, k = 8, 2
+    x = np.zeros((2, e), np.float32)
+    x[0, 0] = 200.0
+    x[1, 3] = 200.0
+    w = np.eye(e, dtype=np.float32)
+    want = jx.ref.gating_topk_ref(jx.jnp.asarray(x), jx.jnp.asarray(w), k)
+    assert np.asarray(want[1]).tolist() == [[0, 1], [3, 0]]
+    _topk_equal(kops.gating_topk(_t(x), _t(w), k), want)
+    idx_buf, gate_buf, counts = gating_dispatch_plain(_t(x), _t(w), k, e, 2)
+    chosen = sorted((int(ex), int(tok)) for ex in range(e) for tok in idx_buf[ex]
+                    if tok < 2)
+    assert chosen == [(0, 0), (0, 1), (1, 0), (3, 1)]
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want[2], np.float32))
 
 
 # ---------------------------------------------------------------- gating dispatch
@@ -219,8 +324,9 @@ def test_library_name_tracks_the_source():
     p = cuda_build.library_path("grouped_matmul.cu")
     assert p.parent == cuda_build.BUILD_DIR and p.suffix == ".so"
     assert p != cuda_build.library_path("decode_attention.cu")
-    assert set(cuda_build.REGISTRY) == {"decode_attention.cu",
-                                        "gating_dispatch.cu", "grouped_matmul.cu"}
+    assert set(cuda_build.REGISTRY) == {
+        "decode_attention.cu", "paged_decode_attention.cu", "gating_topk.cu",
+        "gating_dispatch.cu", "grouped_matmul.cu"}
 
 
 def test_build_without_nvcc_raises():
@@ -256,6 +362,55 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, hd, w,
     want = decode_attention_plain(*args, **kw)
     tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,hd,ps,npg,window,cap", [
+    (2, 8, 2, 64, 8, 4, 0, 0.0), (1, 8, 1, 128, 16, 3, 0, 0.0),
+    (3, 4, 4, 64, 8, 4, 16, 0.0), (2, 8, 2, 128, 8, 4, 0, 50.0),
+    (4, 48, 8, 128, 8, 32, 0, 0.0), (3, 16, 1, 64, 64, 2, 0, 0.0)])
+def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, hd,
+                                                     ps, npg, window, cap):
+    args, dense = _paged_case(b, h, hkv, hd, ps, npg)
+    q, pk, pv, ppos, bt, pos = [_t(a).to(cuda) for a in args]
+    q, pk, pv = q.to(dtype), pk.to(dtype), pv.to(dtype)
+    kw = dict(window=window, attn_softcap=cap)
+    n0 = da_mod.PAGED_KERNEL.launches
+    got = kops.paged_decode_attention(q, pk, pv, ppos, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert da_mod.PAGED_KERNEL.launches == n0 + 1
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    want = paged_decode_attention_plain(q, pk, pv, ppos, bt, pos, **kw)
+    _close(got, want.float().cpu().numpy(), tol)
+    kc, vc, cpos = [_t(a).to(cuda) for a in dense]
+    dense_out = kops.decode_attention(q, kc.to(dtype), vc.to(dtype), cpos, pos, **kw)
+    _close(got, dense_out.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,e,k", [(8, 16, 4, 2), (4, 6144, 8, 2), (96, 48, 16, 4),
+                                     (33, 20, 8, 8)])
+def test_gating_topk_kernel_matches_plain(cuda, dtype, t, d, e, k):
+    x, w = _dispatch_case(t, d, e)
+    xt, wt = _t(x).to(cuda, dtype), _t(w).to(cuda)
+    n0 = gt_mod.KERNEL.launches
+    got = kops.gating_topk(xt, wt, k)
+    want = gating_topk_plain(xt, wt, k)
+    torch.cuda.synchronize()
+    assert gt_mod.KERNEL.launches == n0 + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _close(got[0], want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_gating_topk_kernel_follows_lax_top_k_on_underflow(cuda):
+    x = torch.zeros(2, 8, device=cuda)
+    x[0, 0], x[1, 3] = 200.0, 200.0
+    gates, experts, counts = kops.gating_topk(x, torch.eye(8, device=cuda), 2)
+    assert experts.tolist() == [[0, 1], [3, 0]]
+    assert counts.tolist() == [2, 1, 0, 1, 0, 0, 0, 0]
 
 
 @pytest.mark.cuda

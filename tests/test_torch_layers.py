@@ -259,12 +259,17 @@ def test_local_layers_use_a_window_ring():
 # ------------------------------------------------------------ isolation
 def test_port_imports_nothing_of_jax():
     """Every module of repro_torch (and chip_smoke.py) imports, in a fresh
-    interpreter, with neither jax nor any module of the JAX package."""
+    interpreter, with neither jax nor any module of the JAX package.  The
+    paged serving modules and the gating_topk kernel are named, so the
+    check fails if the walk stops reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('serving.pages', 'serving.prefix_cache', 'serving.prefill',\n"
+        "          'kernels.gating_topk'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'repro' or n.startswith('repro.')]\n"
