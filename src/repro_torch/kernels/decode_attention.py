@@ -6,6 +6,11 @@ version.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``models.attention.decode_attention`` / ``paged_decode_attention``, the
 same math as the JAX package's ``kernels/ref.py`` oracle).
+
+The contiguous kernel splits the ring across blocks (flash-decoding):
+``split_plan`` picks the number of splits from the shapes alone, each
+split writes a partial (acc, max, sum) to a scratch buffer allocated
+here, and the same C entry point merges them in a fixed order.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from repro_torch.models.attention import \
 
 KERNEL = CudaKernel(
     "decode_attention.cu", "decode_attention",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
     + [ctypes.c_int])
 
 PAGED_KERNEL = CudaKernel(
@@ -30,6 +35,32 @@ PAGED_KERNEL = CudaKernel(
     + [ctypes.c_int])
 
 MAX_REP = 16
+TILE = 32                 # ring slots per tile of the contiguous kernel
+TARGET_BLOCKS = 4 * 132   # four resident blocks on each of the H100's SMs
+MAX_SPLITS = 64           # the merge kernel's limit
+
+
+def split_plan(B: int, Hkv: int, W: int):
+    """(splits, tiles per split) of the contiguous kernel: enough splits
+    of the ring's 32-slot tiles for about ``TARGET_BLOCKS`` blocks of
+    (kv head, row, split), at most ``MAX_SPLITS``, none empty.  A
+    function of the shapes only, so the result never depends on the
+    data."""
+    tiles = -(-W // TILE)
+    want = max(1, min(tiles, MAX_SPLITS, -(-TARGET_BLOCKS // (B * Hkv))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def scratch_shape(B: int, H: int, Hkv: int, hd: int, W: int):
+    """Shape of the f32 scratch of the split partials: per (row, kv
+    head, split, query head of the group) the unnormalised accumulator
+    (hd), the running max and the running sum."""
+    return (B, Hkv, split_plan(B, Hkv, W)[0], H // Hkv, hd + 2)
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
@@ -57,10 +88,16 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     check(hd in (64, 128), f"decode_attention: head_dim {hd} not in (64, 128)")
     check(H % Hkv == 0 and H // Hkv <= MAX_REP,
           f"decode_attention: {H} heads over {Hkv} kv heads")
+    check(_aligned(q, k_cache, v_cache),
+          "decode_attention: q, k and v must start on a 16-byte boundary")
+    nsplit, per = split_plan(B, Hkv, W)
+    part = torch.empty(scratch_shape(B, H, Hkv, hd, W), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     KERNEL.launch(q.device, ptr(q), ptr(k_cache), ptr(v_cache), ptr(cache_pos),
-                  ptr(pos), ptr(out), B, H, Hkv, W, hd, int(window),
-                  float(attn_softcap), float(hd ** -0.5), DTYPE_CODES[q.dtype])
+                  ptr(pos), ptr(part), ptr(out), B, H, Hkv, W, hd, nsplit, per,
+                  int(window), float(attn_softcap), float(hd ** -0.5),
+                  DTYPE_CODES[q.dtype])
     return out
 
 

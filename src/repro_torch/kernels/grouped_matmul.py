@@ -11,7 +11,11 @@ from repro_torch.device import kernel_route
 from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("grouped_matmul.cu", "grouped_matmul",
-                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5)
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6)
+
+# the kernel's compute body: "auto" picks by shape (f32 FMAs; bf16 FMAs
+# up to 8 rows, tensor cores above); "fma" / "mma" force one, to time both
+BODIES = {"auto": 0, "fma": 1, "mma": 2}
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -19,7 +23,8 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gmk,gkn->gmn", x.float(), w.float()).to(x.dtype)
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   body: str = "auto") -> torch.Tensor:
     if kernel_route(x) == "plain":
         return grouped_matmul_plain(x, w)
     G, M, K = x.shape
@@ -30,8 +35,12 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
           f"grouped_matmul: dtypes {x.dtype}, {w.dtype}")
     check(x.is_contiguous() and w.is_contiguous(),
           "grouped_matmul: inputs must be contiguous")
+    check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+          "grouped_matmul: x and w must start on a 16-byte boundary")
+    check(body in BODIES and (body != "mma" or x.dtype == torch.bfloat16),
+          f"grouped_matmul: body {body!r} for {x.dtype}")
     N = w.shape[2]
     out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.device, ptr(x), ptr(w), ptr(out), G, M, K, N,
-                  DTYPE_CODES[x.dtype])
+                  DTYPE_CODES[x.dtype], BODIES[body])
     return out

@@ -10,7 +10,8 @@ indices exact; counts and gates at 1e-5 (f32 sums).
 Cases marked ``cuda`` hold each CUDA kernel against its plain version on
 the card; they skip on a machine without one.  bf16 cases there compare
 at 2e-2 (one bf16 rounding of the output plus f32 sums in another
-order).  The JAX cases get JAX through a fixture that skips where it is
+order).  The CPU also holds a plain mirror of the decode-attention
+kernel's split of the ring and its merge against the plain version.  The JAX cases get JAX through a fixture that skips where it is
 not installed, so the file also collects on the card's machine.
 """
 import shutil
@@ -23,6 +24,7 @@ import torch
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import gating_topk as gt_mod
+from repro_torch.kernels import grouped_matmul as gm_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
 from repro_torch.kernels.gating_topk import gating_topk_plain
@@ -30,6 +32,7 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
 from repro_torch.models.attention import decode_attention as decode_attention_plain
 from repro_torch.models.attention import \
     paged_decode_attention as paged_decode_attention_plain
+from repro_torch.models.common import softcap
 
 torch.set_num_threads(1)
 
@@ -92,6 +95,97 @@ def test_decode_attention_plain_matches_jax(jx, b, h, hkv, hd, w, window, cap):
     a = jx.jnp.asarray
     want = jx.ops.decode_attention(a(q), a(k), a(v), a(cpos), a(pos), **kw)
     _close(got, want)
+
+
+# the CUDA kernel's split of the ring across blocks and its merge
+SPLIT_SHAPES = [  # (B, Hkv, W)
+    (4, 8, 256), (8, 8, 256), (8, 8, 64), (1, 1, 1), (2, 2, 33), (1, 8, 4096),
+    (64, 8, 256), (1, 1, 8192)]
+
+
+@pytest.mark.parametrize("B,Hkv,W", SPLIT_SHAPES)
+def test_decode_attention_split_plan_covers_the_ring_once(B, Hkv, W):
+    """The split count and the scratch shape are functions of the shapes
+    alone; the splits' tiles cover the ring's slots exactly once, none
+    is empty, and the plan asks for no more blocks than it needs."""
+    nsplit, per = da_mod.split_plan(B, Hkv, W)
+    tiles = -(-W // da_mod.TILE)
+    starts = [s * per * da_mod.TILE for s in range(nsplit)]
+    covered = [w for s0 in starts for w in range(s0, min(W, s0 + per * da_mod.TILE))]
+    assert covered == list(range(W))
+    assert (nsplit - 1) * per < tiles <= nsplit * per
+    assert nsplit <= da_mod.MAX_SPLITS
+    assert nsplit == 1 or B * Hkv * (nsplit - 1) < da_mod.TARGET_BLOCKS
+    assert da_mod.split_plan(B, Hkv, W) == (nsplit, per)
+    assert da_mod.scratch_shape(B, 6 * Hkv, Hkv, 128, W) == (B, Hkv, nsplit, 6, 130)
+
+
+def _split_merge(q, k, v, cpos, pos, window=0, cap=0.0):
+    """A plain mirror of the CUDA kernel's rule: per split of the ring
+    (``split_plan``), the masked scores' max m, the sum l of exp(s - m)
+    over valid slots and the unnormalised accumulator; then the splits
+    merged with weights exp(m_s - max m) and the sum clamped at 1e-30."""
+    B, H, hd = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+    nsplit, per = da_mod.split_plan(B, Hkv, W)
+    span = per * da_mod.TILE
+    qg = q.float().reshape(B, Hkv, H // Hkv, hd)
+    ok = (cpos >= 0) & (cpos <= pos[:, None])
+    if window > 0:
+        ok = ok & (cpos > pos[:, None] - window)
+    parts = []
+    for sp in range(nsplit):
+        sl = slice(sp * span, min(W, (sp + 1) * span))
+        sc = torch.einsum("bgrd,bwgd->bgrw", qg, k[:, sl].float()) * hd ** -0.5
+        if cap > 0.0:
+            sc = softcap(sc, cap)
+        valid = ok[:, None, None, sl]
+        sc = torch.where(valid, sc, -1e30)
+        m = sc.max(-1).values
+        p = torch.exp(sc - m[..., None]) * valid
+        parts.append((m, p.sum(-1), torch.einsum("bgrw,bwgd->bgrd", p,
+                                                 v[:, sl].float())))
+    mx = torch.stack([m for m, _, _ in parts]).max(0).values
+    acc = sum(torch.exp(m - mx)[..., None] * a for m, _, a in parts)
+    den = sum(torch.exp(m - mx) * l for m, l, _ in parts)
+    return (acc / den.clamp(min=1e-30)[..., None]).reshape(B, H, hd)
+
+
+def _prefix_case(b, h, hkv, hd, w, filled, seed=0):
+    """A ring filled from slot 0 up to ``filled`` slots (the rest empty),
+    every row at the query position filled - 1, as in the serving path's
+    early decode steps."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, hd).astype(np.float32)
+    k = rng.randn(b, w, hkv, hd).astype(np.float32)
+    v = rng.randn(b, w, hkv, hd).astype(np.float32)
+    cpos = np.full((b, w), -1, np.int32)
+    cpos[:, :filled] = np.arange(filled, dtype=np.int32)
+    pos = np.full((b,), filled - 1, np.int32)
+    return q, k, v, cpos, pos
+
+
+@pytest.mark.parametrize("case,window,cap", [
+    ((4, 12, 2, 32, 256, 41), 0, 0.0),     # 6 of 8 splits empty
+    ((4, 12, 2, 32, 256, 41), 9, 0.0),     # window: the first split empty too
+    ((4, 12, 2, 32, 256, 256), 0, 30.0),   # full ring, softcap
+    ((3, 8, 2, 64, 20, 20), 6, 0.0),
+    ((1, 4, 1, 64, 1, 1), 0, 0.0),         # W = 1
+])
+def test_split_merge_rule_equals_plain(case, window, cap):
+    q, k, v, cpos, pos = map(_t, _prefix_case(*case))
+    kw = dict(window=window, attn_softcap=cap)
+    want = decode_attention_plain(q, k, v, cpos, pos, **kw)
+    _close(_split_merge(q, k, v, cpos, pos, window, cap), want.numpy())
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,w,window,cap", ATTN_CASES)
+def test_split_merge_rule_equals_plain_on_a_wrapped_ring(b, h, hkv, hd, w, window,
+                                                        cap):
+    q, k, v, cpos, pos = map(_t, _attn_case(b, h, hkv, hd, w))
+    kw = dict(window=window, attn_softcap=cap)
+    want = decode_attention_plain(q, k, v, cpos, pos, **kw)
+    _close(_split_merge(q, k, v, cpos, pos, window, cap), want.numpy())
 
 
 # ---------------------------------------------------------------- paged decode attention
@@ -364,6 +458,63 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, hd, w,
     _close(got, want.float().cpu().numpy(), tol)
 
 
+def _on_card(cuda, dtype, q, k, v, cpos, pos):
+    return ([_t(a).to(cuda).to(dtype) for a in (q, k, v)]
+            + [_t(cpos).to(cuda), _t(pos).to(cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (4, 48, 8, 128, 256, 256),    # full ring, B = 4 (8 splits of one tile)
+    (8, 48, 8, 128, 256, 256),    # full ring, B = 8
+    (4, 48, 8, 128, 256, 41),     # the serving path's early step: 6 empty splits
+    (2, 8, 2, 64, 1, 1),          # W = 1
+])
+def test_decode_attention_kernel_split_shapes(cuda, dtype, case):
+    args = _on_card(cuda, dtype, *_prefix_case(*case))
+    got = kops.decode_attention(*args)
+    again = kops.decode_attention(*args)
+    want = decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)          # fixed split count and merge order
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_only_slot_in_the_last_split(cuda, dtype):
+    """Row 1's only valid slot is the ring's last one, in the last split;
+    every other split of that row is empty and must weigh nothing."""
+    q, k, v, cpos, pos = _prefix_case(4, 48, 8, 128, 256, 41)
+    cpos[1] = -1
+    cpos[1, -1] = 7
+    pos[1] = 7
+    assert da_mod.split_plan(4, 8, 256)[0] > 1
+    args = _on_card(cuda, dtype, q, k, v, cpos, pos)
+    got = kops.decode_attention(*args)
+    want = decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    _close(got, want.float().cpu().numpy(), tol)
+    # one valid slot: the output is that slot's V row, repeated per head
+    _close(got[1].reshape(8, 6, 128)[:, 0], args[2][1, -1].float().cpu().numpy(),
+           tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_refuses_a_misaligned_view(cuda):
+    q, k, v, cpos, pos = _on_card(cuda, torch.bfloat16,
+                                  *_prefix_case(2, 8, 2, 64, 32, 32))
+    base = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qm = base[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.is_contiguous() and qm.storage_offset() == 1
+    with pytest.raises(ValueError, match="16-byte"):
+        kops.decode_attention(qm, k, v, cpos, pos)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,hd,ps,npg,window,cap", [
@@ -451,3 +602,65 @@ def test_grouped_matmul_kernel_matches_plain(cuda, dtype, g, m, k, n):
     torch.cuda.synchronize()
     tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     _close(got, want.float().cpu().numpy(), tol)
+
+
+def _gm_inputs(cuda, dtype, g, m, k, n, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(g, m, k, device=cuda, generator=gen).to(dtype)
+    w = (torch.randn(g, k, n, device=cuda, generator=gen) / k ** 0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 9, 16, 17, 100])
+@pytest.mark.parametrize("k,n", [(130, 257), (256, 264)])
+def test_grouped_matmul_kernel_rows(cuda, dtype, m, k, n):
+    """Every row-strip width of the kernel, with ragged (element-filled
+    stages) and vector-aligned N and K."""
+    x, w = _gm_inputs(cuda, dtype, 3, m, k, n)
+    n0 = gm_mod.KERNEL.launches
+    got = kops.grouped_matmul(x, w)
+    want = grouped_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert gm_mod.KERNEL.launches == n0 + 1
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    _close(got, want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["fma", "mma"])
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("k,n", [(130, 257), (512, 384)])
+def test_grouped_matmul_kernel_bodies(cuda, body, m, k, n):
+    x, w = _gm_inputs(cuda, torch.bfloat16, 2, m, k, n)
+    got = gm_mod.grouped_matmul(x, w, body=body)
+    want = grouped_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    _close(got, want.float().cpu().numpy(), dict(rtol=2e-2, atol=2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["auto", "fma", "mma"])
+@pytest.mark.parametrize("k,n", [(6144, 16384), (16384, 6144)])
+def test_grouped_matmul_kernel_path_shapes(cuda, body, k, n):
+    """The serving path's up and down projections (8 experts, capacity
+    4) in bf16; two launches on the same inputs are bit-identical."""
+    x, w = _gm_inputs(cuda, torch.bfloat16, 8, 4, k, n)
+    got = gm_mod.grouped_matmul(x, w, body=body)
+    again = gm_mod.grouped_matmul(x, w, body=body)
+    want = grouped_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want.float().cpu().numpy(), dict(rtol=2e-2, atol=2e-2))
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_kernel_refuses_a_misaligned_view(cuda):
+    x, w = _gm_inputs(cuda, torch.bfloat16, 2, 4, 64, 64)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xm = base[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.storage_offset() == 1
+    with pytest.raises(ValueError, match="16-byte"):
+        kops.grouped_matmul(xm, w)
