@@ -11,13 +11,18 @@ then:
   1. holds each kernel against its plain PyTorch version on the card, at
      the serving path's shapes in bf16 and at small f32 shapes (decode
      attention also at phase 2's monolithic shape), checks that two
-     launches of decode attention and of the grouped matmul on the same
-     inputs agree bit for bit, and times kernel, plain version and the
-     nearest single PyTorch call: decode attention at the serving step's
-     shape and on a full 256-slot ring at B = 4 and 8 (beside
-     ``scaled_dot_product_attention``), the grouped matmul at the up
-     and the down projection with each of its two compute bodies
-     (beside ``torch.bmm``);
+     launches of decode attention, of gating dispatch and of the grouped
+     matmul on the same inputs agree bit for bit, that the paged kernel
+     is bit-identical to decode attention over the same cache (bf16 and
+     f32; plain, window, softcap), and times kernel, plain version and
+     the nearest single PyTorch call: decode attention at the serving
+     step's shape and on a full 256-slot ring at B = 4 and 8 (beside
+     ``scaled_dot_product_attention``), gating dispatch at T = 4 and 8
+     tokens, and counts with ``torch.profiler`` the device kernels of
+     one gating-dispatch call there and in the f32 case at T = 128,
+     which must be one, one and two (``dispatch_launches``), the
+     grouped matmul at the up and the down projection with each of
+     its two compute bodies (beside ``torch.bmm``);
   2. serves mixtral-8x22b at full width (2 layers, f32 weights, TF32
      off) in ``pingpong`` (m = 2) and ``monolithic`` mode on the same
      requests, each run with the launch counts set to 0 just before and
@@ -40,21 +45,23 @@ then:
      After 16 decode iterations of the prefix-cache run it launches
      ``paged_decode_attention`` on every layer of the engine's live page
      pool and block tables and ``gating_topk`` on layer 0's router input,
-     then checks and times both there against their plain versions (and
-     the paged kernel against ``decode_attention`` over the gathered
-     view).
+     then checks and times both there against their plain versions, and
+     requires the paged kernel's output to be bit-identical to
+     ``decode_attention`` over the gathered view on every layer.
 
 Phase 2 also serves the paged layout (monolithic and ping-pong, prefix
 cache on) on shared-prefix prompts, whose tokens must equal the
 contiguous monolithic ones.
 
 After the build it prints each kernel's registers, shared memory and
-spills from ``nvcc -Xptxas -v``.  Before the last line it prints the
-card's name and power limit and a ``{"kernels": [...]}`` line (decode
-attention and the grouped matmul carry a ``shapes`` list, one entry per
-timed shape); the last line is the contract line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-that line.  It imports nothing of JAX or of the JAX package.
+spills from ``nvcc -Xptxas -v``.  Each decode profile (phases 3 and 4)
+requires one device kernel per ``gating_dispatch`` call.  Before the
+last line it prints the card's name and power limit and a
+``{"kernels": [...]}`` line (decode attention, gating dispatch and the
+grouped matmul carry a ``shapes`` list, one entry per timed shape); the
+last line is the contract line ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero before that line.  It imports nothing of JAX or
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -168,6 +175,24 @@ def time_ms(torch, fn, reps=20, flush=None):
     return statistics.median(times)
 
 
+def require_dispatch_kernels(torch, gd_mod, fn, T, label):
+    """The device kernels of one gating_dispatch call ``fn`` at T tokens,
+    counted by torch.profiler, must be the wrapper's
+    ``dispatch_launches(T)``; returns the count."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "gating_dispatch" in e.name)
+    require(n == gd_mod.dispatch_launches(T),
+            f"{label}: one call ran {n} gating_dispatch device kernels, "
+            f"expected {gd_mod.dispatch_launches(T)}")
+    return n
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -214,6 +239,7 @@ def paged_pool(torch, gen, k, v, cache_pos, pos, ps):
 
 # ----------------------------------------------------------------- phase 1
 def phase_kernels(torch, dev):
+    from repro_torch.kernels import gating_dispatch as gd_mod
     from repro_torch.kernels import grouped_matmul as gm_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
@@ -324,8 +350,9 @@ def phase_kernels(torch, dev):
     # block tables from a shuffled pool of 8-slot pages (phase 4's page
     # size), each row at its own position owning only the pages up to it
     # (the rest of its table -1, the pages behind them holding another
-    # row's data).  Held against its plain version and against the dense
-    # kernel over the same cache, in bf16 and in f32
+    # row's data).  Held against its plain version, and bit for bit against
+    # the dense kernel over the same cache (one split plan, one kernel
+    # body), in bf16 and in f32
     ps = PAGED["page_size"]
     pq = torch.randint(ps // 2, W, (B,), device=dev, generator=gen,
                        dtype=torch.int32)
@@ -342,44 +369,63 @@ def phase_kernels(torch, dev):
             torch.cuda.synchronize()
             check_close(torch, f"paged_decode_attention {dt} {kw}", got, want,
                         tol, tol)
-            check_close(torch, f"paged_decode_attention {dt} {kw} vs dense kernel",
-                        got, dense, tol, tol)
+            require(torch.equal(got, dense),
+                    f"paged_decode_attention {dt} {kw}: not bit-identical to "
+                    f"decode_attention over the same cache (max |diff| "
+                    f"{max_err(torch, got, dense):.3e})")
         print(f"paged_decode_attention {dt} q {tuple(qp.shape)} pool "
               f"{tuple(pages[0].shape)} table {tuple(pages[3].shape)}: max |err| "
-              f"{max_err(torch, got, want):.3e} vs plain, "
-              f"{max_err(torch, got, dense):.3e} vs decode_attention")
+              f"{max_err(torch, got, want):.3e} vs plain; bit-identical to "
+              f"decode_attention (plain, window, softcap)")
 
-    # -- gating_dispatch: one micro-batch of router inputs (T = 4 tokens,
-    # d 6144, 8 experts, top-2, capacity C = T in capacity_mode "full")
+    # -- gating_dispatch: the serving path's call for one micro-batch of
+    # router inputs (T = 4 tokens, d 6144, 8 experts, top-2, capacity C =
+    # T in capacity_mode "full", no router bias, the live-row count
+    # weights), and at T = 8 (one micro-batch of max_batch 16)
     T, d, E, K = B, 6144, 8, 2
-    x = randn(T, d)
     wr = randn(d, E, dtype=torch.float32, scale=d ** -0.5)
-    cw = torch.ones(T, device=dev)
-    bias = torch.zeros(E, device=dev)
-    gk = dict(bias=bias, count_weights=cw)
-    got = kops.gating_dispatch(x, wr, K, E, T, **gk)
-    want = gating_dispatch_plain(x, wr, K, E, T, **gk)
-    torch.cuda.synchronize()
-    probs = moe_lib.route(x, wr, K).probs.sort(dim=-1, descending=True).values
-    margin = float((probs[:, K - 1] - probs[:, K]).min())
-    print(f"gating_dispatch: smallest top-{K} probability margin of the inputs "
-          f"{margin:.3e}")
-    # the slot build must be identical; gates are f32 sums -> 1e-5
-    require(torch.equal(got[0], want[0]), "gating_dispatch bf16: idx_buf differs")
-    require(torch.equal(got[2], want[2]), "gating_dispatch bf16: counts differ")
-    check_close(torch, "gating_dispatch gates", got[1], want[1], 1e-5, 1e-5)
-    nbytes = (x.numel() * 2 + wr.numel() * 4 + 4 * E + 4 * T
-              + 2 * E * T * 4 + E * 4)
+
+    def dispatch_shape(T):
+        x = randn(T, d)
+        gk = dict(count_weights=torch.ones(T, device=dev))
+        got = kops.gating_dispatch(x, wr, K, E, T, **gk)
+        again = kops.gating_dispatch(x, wr, K, E, T, **gk)
+        want = gating_dispatch_plain(x, wr, K, E, T, **gk)
+        torch.cuda.synchronize()
+        probs = moe_lib.route(x, wr, K).probs.sort(dim=-1, descending=True).values
+        margin = float((probs[:, K - 1] - probs[:, K]).min())
+        # the slot build must be identical; gates are f32 sums -> 1e-5
+        require(torch.equal(got[0], want[0]), f"gating_dispatch T={T}: idx_buf differs")
+        require(torch.equal(got[2], want[2]), f"gating_dispatch T={T}: counts differ")
+        check_close(torch, f"gating_dispatch T={T} gates", got[1], want[1], 1e-5, 1e-5)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"gating_dispatch T={T}: two launches on the same inputs differ")
+        n = require_dispatch_kernels(
+            torch, gd_mod, lambda: kops.gating_dispatch(x, wr, K, E, T, **gk), T,
+            f"gating_dispatch T={T}")
+        nbytes = x.numel() * 2 + wr.numel() * 4 + T * 4 + 2 * E * T * 4 + E * 4
+        r = dict(shape=f"x ({T},{d}) bf16, {E} experts, top-{K}, C = {T} "
+                       f"({n} device kernel{'s' if n > 1 else ''} per call, "
+                       f"profiled)",
+                 err=max_err(torch, got[1], want[1]),
+                 ms=time_ms(torch, lambda: kops.gating_dispatch(x, wr, K, E, T, **gk),
+                            flush=flush),
+                 plain_ms=time_ms(torch, lambda: gating_dispatch_plain(
+                     x, wr, K, E, T, **gk), flush=flush),
+                 library_ms=None,
+                 bound=bound_ms(nbytes, 2 * T * d * E, "float32"))
+        print(f"gating_dispatch {r['shape']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms; idx_buf and "
+              f"counts identical, gates max |err| {r['err']:.3e}, two launches "
+              f"bit-identical; smallest top-{K} probability margin {margin:.3e}")
+        return r, x
+
+    (r4, x), (r8, _) = dispatch_shape(T), dispatch_shape(2 * T)
+    shapes = [r4, r8]
     rows["gating_dispatch"] = dict(
-        err=max_err(torch, got[1], want[1]),
-        ms=time_ms(torch, lambda: kops.gating_dispatch(x, wr, K, E, T, **gk),
-                   flush=flush),
-        plain_ms=time_ms(torch, lambda: gating_dispatch_plain(x, wr, K, E, T, **gk),
-                         flush=flush),
-        library_ms=None,
-        bound=bound_ms(nbytes, 2 * T * d * E, "float32"),
-        replaces="src/repro/kernels/gating_topk.py:255")
-    # f32 small shape with drops, bias and weights (T*K = 256 >> E*C = 32)
+        shapes[0], shapes=shapes, replaces="src/repro/kernels/gating_topk.py:255")
+    # f32 small shape with drops, bias and weights (T*K = 256 >> E*C = 32),
+    # over 8 token tiles of the cluster kernel and the slot kernel
     xs = randn(128, 32, dtype=torch.float32)
     ws = randn(32, 4, dtype=torch.float32)
     kw = dict(bias=torch.linspace(-1, 1, 4, device=dev),
@@ -388,6 +434,16 @@ def phase_kernels(torch, dev):
         gating_dispatch_plain(xs, ws, 2, 4, 8, **kw)
     require(torch.equal(g2[0], w2[0]) and torch.equal(g2[2], w2[2]),
             "gating_dispatch f32: idx_buf or counts differ")
+    check_close(torch, "gating_dispatch f32 gates", g2[1], w2[1], 1e-5, 1e-5)
+    require(all(torch.equal(a, b) for a, b in zip(
+        g2, kops.gating_dispatch(xs, ws, 2, 4, 8, **kw))),
+        "gating_dispatch f32: two launches on the same inputs differ")
+    n = require_dispatch_kernels(
+        torch, gd_mod, lambda: kops.gating_dispatch(xs, ws, 2, 4, 8, **kw), 128,
+        "gating_dispatch f32 T=128")
+    print(f"gating_dispatch f32 x {tuple(xs.shape)}, 4 experts, top-2, C = 8 "
+          f"({n} device kernels per call, profiled), bias and weights: "
+          f"idx_buf and counts identical, two launches bit-identical")
 
     # -- gating_topk on the same router inputs: experts and counts exact,
     # gates f32 sums -> 1e-5
@@ -868,17 +924,20 @@ def check_live_state(torch, cfg, live, launches):
     from repro_torch.kernels.gating_topk import gating_topk_plain
     from repro_torch.models.attention import paged_decode_attention as paged_plain
     q, bt, pos = live["q"], live["bt"], live["pos"]
-    errs, dense_errs = [], []
+    errs = []
     for l, (out, st, d) in enumerate(zip(live["outs"], live["store"], live["dense"])):
         want = paged_plain(q, st["k"], st["v"], st["pos"], bt, pos)
         dense = kops.decode_attention(q, d["k"], d["v"], d["pos"], pos)
         torch.cuda.synchronize()
         check_close(torch, f"live paged_decode_attention layer {l}", out, want,
                     2e-2, 2e-2)
-        check_close(torch, f"live paged_decode_attention layer {l} vs dense",
-                    out, dense, 2e-2, 2e-2)
+        require(torch.equal(out, dense),
+                f"live paged_decode_attention layer {l}: not bit-identical to "
+                f"decode_attention over the gathered view (max |diff| "
+                f"{max_err(torch, out, dense):.3e})")
         errs.append(max_err(torch, out, want))
-        dense_errs.append(max_err(torch, out, dense))
+    # the same L2 flush as phase 1: the decode step finds its inputs cold
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=q.device)
     st = live["store"][0]
     args = (q, st["k"], st["v"], st["pos"], bt, pos)
     P, ps, Hkv, hd = st["k"].shape
@@ -889,8 +948,8 @@ def check_live_state(torch, cfg, live, launches):
               + int(mapped.sum()) * ps * 4 + pos.numel() * 4)
     paged_row = dict(
         err=max(errs), launches=launches["paged_decode_attention"],
-        ms=time_ms(torch, lambda: kops.paged_decode_attention(*args)),
-        plain_ms=time_ms(torch, lambda: paged_plain(*args)),
+        ms=time_ms(torch, lambda: kops.paged_decode_attention(*args), flush=flush),
+        plain_ms=time_ms(torch, lambda: paged_plain(*args), flush=flush),
         library_ms=None,
         bound=bound_ms(nbytes, 4 * valid * cfg.n_heads * hd, "bfloat16"),
         replaces="src/repro/kernels/decode_attention.py:209")
@@ -898,8 +957,8 @@ def check_live_state(torch, cfg, live, launches):
           f"{tuple(st['k'].shape)} x {cfg.n_layers} layers, table "
           f"{tuple(bt.shape)} ({int(mapped.sum())} pages mapped, {valid} valid "
           f"slots), positions {pos.tolist()}: max |err| {max(errs):.3e} vs plain, "
-          f"{max(dense_errs):.3e} vs decode_attention over the gathered view; "
-          f"{paged_row['ms']:.4f} ms, plain {paged_row['plain_ms']:.4f} ms")
+          f"bit-identical to decode_attention over the gathered view on every "
+          f"layer; {paged_row['ms']:.4f} ms, plain {paged_row['plain_ms']:.4f} ms")
     h, w, K = live["h"], live["router"], cfg.moe.top_k
     want = gating_topk_plain(h, w, K)
     check_topk(torch, "live gating_topk", live["topk"], want)
@@ -907,8 +966,8 @@ def check_live_state(torch, cfg, live, launches):
     E = w.shape[1]
     topk_row = dict(
         err=max_err(torch, live["topk"][0], want[0]), launches=launches["gating_topk"],
-        ms=time_ms(torch, lambda: kops.gating_topk(h, w, K)),
-        plain_ms=time_ms(torch, lambda: gating_topk_plain(h, w, K)),
+        ms=time_ms(torch, lambda: kops.gating_topk(h, w, K), flush=flush),
+        plain_ms=time_ms(torch, lambda: gating_topk_plain(h, w, K), flush=flush),
         library_ms=None,
         bound=bound_ms(h.numel() * 2 + w.numel() * 4 + T * K * 8 + E * 4,
                        2 * T * d * E, "float32"),
@@ -917,9 +976,12 @@ def check_live_state(torch, cfg, live, launches):
           f"{h.dtype}, experts {live['topk'][1].tolist()} identical to moe.route, "
           f"counts {live['topk'][2].tolist()}; {topk_row['ms']:.4f} ms, plain "
           f"{topk_row['plain_ms']:.4f} ms")
+    del flush
     print("library_ms is null for paged_decode_attention (no PyTorch call reads "
-          "a block table; scaled_dot_product_attention needs the gathered view) "
-          "and gating_topk (top-k routing is three calls: matmul, softmax, topk)")
+          "a block table; scaled_dot_product_attention needs the gathered view), "
+          "gating_topk (top-k routing is three calls: matmul, softmax, topk) and "
+          "gating_dispatch (no single PyTorch call routes and builds the "
+          "capacity buffers)")
     return {"paged_decode_attention": paged_row, "gating_topk": topk_row}
 
 
@@ -928,17 +990,20 @@ def profile_decode(torch, eng, prompts, label="profile"):
     the device's busy share of the window (union of kernel intervals on
     both streams) and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.cuda_build import launch_counts
     from repro_torch.serving.engine import Request
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=100 + i, prompt=list(p), max_new_tokens=6))
     eng.step()                        # admission and prefill stay outside
     torch.cuda.synchronize()
+    calls0 = launch_counts()["gating_dispatch"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = launch_counts()["gating_dispatch"] - calls0
     eng.run_until_done()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -956,14 +1021,22 @@ def profile_decode(torch, eng, prompts, label="profile"):
     print(f"{label}: 3 decode iters in {wall_us / 1e3:.2f} ms wall, device busy "
           f"{busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window "
           f"({len(spans)} device ops)")
+    # each gating_dispatch call of the decode step (T = 4) is one kernel
+    gd_kernels = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "gating_dispatch" in e.name)
+    print(f"{label}: gating_dispatch {calls} calls, {gd_kernels} device kernels")
+    require(calls > 0 and gd_kernels == calls,
+            f"{label}: {gd_kernels} gating_dispatch kernels for {calls} calls")
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    # the top 8, and every launch of the port's attention kernels
-    shown = ranked[:8] + [kv for kv in ranked[8:] if "attention" in kv[0]]
+    # the top 8, and every launch of the port's attention and gating kernels
+    shown = ranked[:8] + [kv for kv in ranked[8:]
+                          if "attention" in kv[0] or "gating" in kv[0]]
     for name, (us, n) in shown:
         print(f"{label}:   {us / 1e3:8.3f} ms = {n:4d} x {us / n:8.2f} us  {name[:80]}")
 

@@ -10,95 +10,330 @@
 // buffer.  The placement-table and owner-filter branches of the TPU
 // kernel are not ported yet; the Python wrapper refuses them.
 //
-// Bound: bytes.  The call reads x (T x d) and the router (d x E) once;
-// at decode T is one micro-batch (<= 8 rows), so the work is a few
-// hundred KB and the launch overhead dominates.  Design: two launches.
-// route_kernel runs one block per token through route.cuh (shared with
-// gating_topk.cu): each warp takes experts in turn and reduces the dot
-// product over d with its lanes, then one thread does the softmax and
-// the k argmax rounds over E (<= 256) probabilities.  dispatch_kernel
-// is a single block: its threads fill
-// the buffers with the sentinel, then one thread walks the T*K entries
-// in order, keeping the per-expert occupancy, so slot order and drops
-// are exactly those of the sequential definition.  An in-kernel scatter
-// is cheap on the GPU, so no (T*K, E) one-hot cumsum is built.
-
+// Bound: bytes.  The call reads x (T x d) and the router (d x E) once; at
+// decode T is one micro-batch (4 rows at the serving shape), so the work
+// is ~245 KB (0.07 us of HBM time) and the time is latency: the launch,
+// one round trip to memory, and the dependent steps after it, each run
+// once per call on cold caches, instructions included.
+//
+// Design: one launch of a thread-block cluster of CLUSTER = 8 blocks per
+// tile of up to TOK = 16 tokens.
+//  * Block r of the cluster owns rows [r * per, (r + 1) * per) of d (per
+//    a multiple of 8, from the wrapper's chunk_plan).  Its rows of w are
+//    one contiguous span of 32-byte rows (E = 8), copied to shared memory
+//    with 16-byte cp.async, together with its slice of x, all issued
+//    before the first is used; a chunk larger than the shared-memory
+//    budget is walked in tiles of rt rows.  Its threads split the
+//    (token, expert) logits and, when there are fewer logits than
+//    threads, the rows too (G groups of 8-row blocks, summed in group
+//    order; G = 1 from 256 logits on), so the block's partial logits
+//    (tokens x E, f32) land in its shared memory.  At the decode shape
+//    (32 logits, G = 8) the call took 0.0110 ms against 0.0123 ms with
+//    one logit per thread (G = 1), L2 flushed, on an NVIDIA H100 80GB
+//    HBM3 at 700 W (scripts/time_route_kernels.py).  Block 0 loads the
+//    bias and the count weights for its epilogue meanwhile.
+//  * After cluster.sync(), block 0 reads every block's partials through
+//    distributed shared memory and sums them in chunk order 0..7, then
+//    adds the bias: the sum order is fixed, so two launches on the same
+//    inputs agree bit for bit, with no global scratch, atomics or
+//    counters.  One warp per token then does the softmax and the top-k
+//    with the experts across its lanes (route.cuh's softmax_topk_warp,
+//    shared with gating_topk.cu).
+//  * T <= TOK (one cluster, the decode path): block 0 goes on to the
+//    dispatch.  One warp per expert scans the T*K entries in token
+//    order with ballots: slot order, drops and the weighted count (summed
+//    in token order) are exactly those of the sequential definition.
+//    One launch in all.
+//  * T > TOK: one cluster per tile of TOK tokens writes the gates and
+//    expert ids to a (T, K) scratch, and a second, one-block launch does
+//    the dispatch scan over all T tokens.
+//  * Each step runs once per call, so the code it runs is kept short:
+//    per-thread loops rather than unrolled register arrays, and the
+//    per-lane loops stop at the experts in use (one slot per lane at
+//    E <= 32).
 #include "route.cuh"
+
+#include <cooperative_groups.h>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int NT = 256;               // threads per block
+constexpr int CLUSTER = 8;            // blocks per cluster: d is split 8 ways
+constexpr int TOK = 16;               // tokens per cluster
+constexpr int ALIGN_ROWS = 8;         // chunk and tile starts are multiples of 8 rows
+constexpr int SMEM_BYTES = 40 * 1024; // dynamic shared memory per block
 constexpr int MAX_E = repro::ROUTE_MAX_E;
 constexpr int MAX_K = repro::ROUTE_MAX_K;
 
-template <typename T>
-__global__ void __launch_bounds__(NT) route_kernel(
-    const T* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, float* __restrict__ gates,
-    int* __restrict__ experts, int d, int E, int K) {
-  __shared__ float prob_s[MAX_E];
-  const int t = blockIdx.x;
-  repro::route_token<T, NT>(x + (size_t)t * d, w, bias, d, E, K, prob_s,
-                            gates + (size_t)t * K, experts + (size_t)t * K);
+__host__ __device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
 }
 
-__global__ void __launch_bounds__(NT) dispatch_kernel(
-    const float* __restrict__ gates, const int* __restrict__ experts,
-    const float* __restrict__ count_weights, int* __restrict__ idx_buf,
-    float* __restrict__ gate_buf, float* __restrict__ counts, int T, int E,
-    int K, int C) {
-  __shared__ int occ_s[MAX_E];
-  __shared__ float cnt_s[MAX_E];
-  for (int i = threadIdx.x; i < E * C; i += NT) {
-    idx_buf[i] = T;
-    gate_buf[i] = 0.f;
-  }
-  for (int e = threadIdx.x; e < E; e += NT) {
-    occ_s[e] = 0;
-    cnt_s[e] = 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int t = 0; t < T; ++t) {
-      const float cw = count_weights[t];
-      for (int k = 0; k < K; ++k) {
-        const int e = experts[(size_t)t * K + k];
-        cnt_s[e] += cw;
-        const int slot = occ_s[e]++;
+// floats of the row groups' sums: G * TT * E <= max(NT, TT * E)
+__host__ __device__ __forceinline__ int acc_floats(int TT, int E) {
+  return TT * E > NT ? TT * E : NT;
+}
+
+// rows of d per shared-memory tile: as many as the budget holds beside
+// the row groups' sums, at most the chunk
+template <typename X>
+int tile_rows(int TT, int E, int per) {
+  const size_t fixed = align16((size_t)acc_floats(TT, E) * 4);
+  const size_t row = (size_t)E * 4 + (size_t)TT * sizeof(X);
+  const int rt = (int)((SMEM_BYTES - fixed) / row) / ALIGN_ROWS * ALIGN_ROWS;
+  return rt < per ? rt : per;
+}
+
+template <typename X>
+size_t smem_bytes(int TT, int E, int rt) {
+  return align16((size_t)acc_floats(TT, E) * 4) + (size_t)rt * E * 4 +
+         (size_t)TT * rt * sizeof(X);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Call with every thread of a block.  gates / experts: (T, K) in shared
+// or global memory, cw: (T,) or null (all ones).  One warp per expert
+// scans the T*K entries in token-major, k-minor order, 32 at a time: a
+// ballot finds the entries routed to its expert, each takes the running
+// count plus its rank in the ballot as its slot (first come, dropped at
+// slot >= C), and the weighted count adds their weights in token order;
+// the slots left empty get the sentinel T.  Each expert's row has one
+// writer, so no barrier is needed.
+__device__ __forceinline__ void dispatch_block(
+    const float* gates, const int* experts, const float* cw,
+    int* __restrict__ idx_buf, float* __restrict__ gate_buf,
+    float* __restrict__ counts, int T, int E, int K, int C) {
+  const int lane = threadIdx.x & 31, n = T * K;
+  for (int e = threadIdx.x >> 5; e < E; e += blockDim.x >> 5) {
+    int* idx_row = idx_buf + (size_t)e * C;
+    float* gate_row = gate_buf + (size_t)e * C;
+    int occ = 0;
+    float cnt = 0.f;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      // the owner filter (m2n) and the placement tables (live placement)
+      // go here: an entry is this warp's when the replica the token hash
+      // picks from the tables is this slot of the owner's node; the
+      // count stays per routed expert
+      const bool mine = i < n && experts[i] == e;
+      const float wt = mine ? (cw != nullptr ? cw[i / K] : 1.f) : 0.f;
+      const unsigned m = __ballot_sync(0xffffffffu, mine);
+      if (mine) {
+        const int slot = occ + __popc(m & ((1u << lane) - 1u));
         if (slot < C) {
-          idx_buf[(size_t)e * C + slot] = t;
-          gate_buf[(size_t)e * C + slot] = gates[(size_t)t * K + k];
+          idx_row[slot] = i / K;
+          gate_row[slot] = gates[i];
         }
       }
+      for (unsigned r = m; r != 0; r &= r - 1)  // in entry (token) order
+        cnt += __shfl_sync(0xffffffffu, wt, __ffs(r) - 1);
+      occ += __popc(m);
+    }
+    for (int s = min(occ, C) + lane; s < C; s += 32) {
+      idx_row[s] = T;
+      gate_row[s] = 0.f;
+    }
+    if (lane == 0) counts[e] = cnt;
+  }
+}
+
+// 8 consecutive elements of x from shared memory, as f32 (16 or 32 bytes)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+template <typename X>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
+    gating_dispatch_kernel(const X* __restrict__ x, const float* __restrict__ w,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ cw, float* __restrict__ gates,
+                           int* __restrict__ experts, int* __restrict__ idx_buf,
+                           float* __restrict__ gate_buf,
+                           float* __restrict__ counts, int T, int d, int E, int K,
+                           int C, int per, int rt) {
+  constexpr int VX = 16 / sizeof(X);  // elements of x per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float gate_s[TOK * MAX_K];
+  __shared__ int expert_s[TOK * MAX_K];
+  __shared__ float bias_s[MAX_E];
+  __shared__ float cw_s[TOK];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
+  const int TT = min(T, TOK);
+  const int t0 = blockIdx.y * TOK, nt = min(TOK, T - t0);
+  const bool fused = T <= TOK;
+  if (rank == 0) {  // block 0's epilogue inputs, loaded while the others work
+    for (int e = tid; e < E; e += NT) bias_s[e] = bias != nullptr ? bias[e] : 0.f;
+    if (fused && tid < T) cw_s[tid] = cw != nullptr ? cw[tid] : 1.f;
+  }
+  // (G, nt, E) row groups' sums; group 0's become the partial logits
+  float* acc_s = reinterpret_cast<float*>(smem);
+  float* w_s = reinterpret_cast<float*>(smem + align16((size_t)acc_floats(TT, E) * 4));
+  X* x_s = reinterpret_cast<X*>(w_s + (size_t)rt * E);  // (nt, rt) slice of x
+
+  // logit o = t * E + e.  G groups of threads split the rows: group g
+  // takes the 8-row blocks g, g + G, ... of a tile (one 16-byte load of
+  // x and 8 independent loads of w each) and sums into acc_s[g * nout +
+  // o].  With fewer logits than threads G = NT / nout and each thread
+  // has one logit; otherwise G = 1 and each thread sums logits tid, tid
+  // + NT, ...  Each slot starts at 0, has one writer and adds each
+  // tile's sum.
+  const int nout = nt * E;
+  const int G = nout >= NT ? 1 : NT / nout;
+  const int g = tid / nout;  // 0 when G == 1
+  for (int i = tid; i < G * nout; i += NT) acc_s[i] = 0.f;
+
+  const int r_begin = min(d, rank * per), r_end = min(d, r_begin + per);
+  for (int r0 = r_begin; r0 < r_end; r0 += rt) {
+    const int rows = min(rt, r_end - r0);
+    const float* wsrc = w + (size_t)r0 * E;
+    const int nw = rows * E, nw4 = nw / 4;
+    for (int i = tid; i < nw4; i += NT) cp_async16(w_s + 4 * i, wsrc + 4 * i);
+    for (int i = 4 * nw4 + tid; i < nw; i += NT) w_s[i] = wsrc[i];
+    if (d % VX == 0) {  // every row of x starts on a 16-byte boundary
+      const int nv = rows / VX;
+      for (int i = tid; i < nt * nv; i += NT) {
+        const int t = i / nv, c = i % nv;
+        cp_async16(x_s + (size_t)t * rt + c * VX,
+                   x + (size_t)(t0 + t) * d + r0 + c * VX);
+      }
+    } else {
+      for (int i = tid; i < nt * rows; i += NT) {
+        const int t = i / rows, c = i % rows;
+        x_s[(size_t)t * rt + c] = x[(size_t)(t0 + t) * d + r0 + c];
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 1
+    for (int o = tid % nout; g < G && o < nout; o += NT) {
+      const int t = o / E, e = o % E;
+      const X* xr = x_s + (size_t)t * rt;
+      float a = 0.f;
+      for (int b = g; b < rows / 8; b += G) {
+        float xf[8], wf[8];
+        load8(xr + b * 8, xf);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) wf[i] = w_s[(b * 8 + i) * E + e];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a = fmaf(xf[i], wf[i], a);
+      }
+      if (g == 0)  // the ragged end of d (d % 8 != 0)
+        for (int i = rows / 8 * 8; i < rows; ++i)
+          a = fmaf(repro::to_f(xr[i]), w_s[i * E + e], a);
+      acc_s[g * nout + o] += a;
+    }
+    __syncthreads();
+  }
+  __syncthreads();  // a block with no rows has only zeroed its sums
+  for (int o = tid; o < nout; o += NT) {  // the groups' sums, in group order
+    float s = acc_s[o];
+    for (int q = 1; q < G; ++q) s += acc_s[q * nout + o];
+    acc_s[o] = s;
+  }
+  cluster.sync();  // every block's partials are visible to block 0
+
+  if (rank == 0) {
+    const int lane = tid & 31, J = (E + 31) / 32;
+    for (int t = tid >> 5; t < nt; t += NT / 32) {
+      float v[repro::ROUTE_LANE_E];
+#pragma unroll
+      for (int j = 0; j < repro::ROUTE_LANE_E && j < J; ++j) {
+        const int e = lane + 32 * j;
+        v[j] = 0.f;
+        if (e < E) {
+          float pr[CLUSTER];
+#pragma unroll
+          for (int r = 0; r < CLUSTER; ++r)
+            pr[r] = cluster.map_shared_rank(acc_s, r)[t * E + e];
+          float s = pr[0];
+#pragma unroll
+          for (int r = 1; r < CLUSTER; ++r) s += pr[r];
+          v[j] = s + bias_s[e];
+        }
+      }
+      if (fused)
+        repro::softmax_topk_warp(v, E, K, gate_s + t * K, expert_s + t * K);
+      else
+        repro::softmax_topk_warp(v, E, K, gates + (size_t)(t0 + t) * K,
+                                 experts + (size_t)(t0 + t) * K);
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < E; e += NT) counts[e] = cnt_s[e];
+  cluster.sync();  // block 0 is done reading; the other blocks may exit
+  if (rank != 0 || !fused) return;
+  dispatch_block(gate_s, expert_s, cw_s, idx_buf, gate_buf, counts, T, E, K, C);
+}
+
+// the second launch of the T > TOK path: the dispatch scan over all T
+// tokens' (T, K) gates and expert ids
+__global__ void __launch_bounds__(NT) gating_dispatch_slots_kernel(
+    const float* __restrict__ gates, const int* __restrict__ experts,
+    const float* __restrict__ cw, int* __restrict__ idx_buf,
+    float* __restrict__ gate_buf, float* __restrict__ counts, int T, int E,
+    int K, int C) {
+  dispatch_block(gates, experts, cw, idx_buf, gate_buf, counts, T, E, K, C);
 }
 
 }  // namespace
 
-// x (T,d) f32|bf16; w_router (d,E), bias (E,), count_weights (T,) f32;
-// scratch gates (T,K) f32 and experts (T,K) int32; outputs idx_buf
-// (E,C) int32, gate_buf (E,C) f32, counts (E,) f32.  All contiguous.
+// x (T,d) f32|bf16 and w_router (d,E) f32, both 16-byte aligned; bias
+// (E,) and count_weights (T,) f32 or null (zeros / ones); outputs idx_buf
+// (E,C) int32, gate_buf (E,C) f32, counts (E,) f32.  gates (T,K) f32 and
+// experts (T,K) int32 are scratch for T > 16 and may be null otherwise.
+// per: rows of d per block, a multiple of 8 with 8 * per >= d.  All
+// contiguous.  Returns cudaGetLastError().
 extern "C" int gating_dispatch(const void* x, const void* w, const void* bias,
                                const void* count_weights, void* gates,
                                void* experts, void* idx_buf, void* gate_buf,
                                void* counts, int T, int d, int E, int K, int C,
-                               int dtype, void* stream) {
+                               int per, int dtype, void* stream) {
   if (T <= 0 || d <= 0 || E <= 0 || E > MAX_E || K <= 0 || K > MAX_K ||
-      K > E || C <= 0)
+      K > E || C <= 0 || per <= 0 || per % ALIGN_ROWS != 0 ||
+      (long long)per * CLUSTER < d || (T + TOK - 1) / TOK > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool fused = T <= TOK;
+  if (!fused && (gates == nullptr || experts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)w) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
+  const int TT = T < TOK ? T : TOK;
   REPRO_DISPATCH_DTYPE(dtype, X, {
-    route_kernel<X><<<T, NT, 0, s>>>((const X*)x, (const float*)w,
-                                     (const float*)bias, (float*)gates,
-                                     (int*)experts, d, E, K);
+    const int rt = tile_rows<X>(TT, E, per);
+    gating_dispatch_kernel<X>
+        <<<dim3(CLUSTER, (T + TOK - 1) / TOK), NT, smem_bytes<X>(TT, E, rt), s>>>(
+            (const X*)x, (const float*)w, (const float*)bias,
+            (const float*)count_weights, (float*)gates, (int*)experts,
+            (int*)idx_buf, (float*)gate_buf, (float*)counts, T, d, E, K, C, per,
+            rt);
   });
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dispatch_kernel<<<1, NT, 0, s>>>((const float*)gates, (const int*)experts,
-                                   (const float*)count_weights, (int*)idx_buf,
-                                   (float*)gate_buf, (float*)counts, T, E, K, C);
+  if (err != cudaSuccess || fused) return (int)err;
+  gating_dispatch_slots_kernel<<<1, NT, 0, s>>>(
+      (const float*)gates, (const int*)experts, (const float*)count_weights,
+      (int*)idx_buf, (float*)gate_buf, (float*)counts, T, E, K, C);
   return (int)cudaGetLastError();
 }

@@ -12,10 +12,12 @@
 // Bound: bytes.  The call reads x (T x d) and the router (d x E) once
 // and does 2 * T * d * E flops, ~0.5 flop per byte of the router.  At
 // decode T is one micro-batch, so the work is a few hundred KB and the
-// launch dominates.  Design: one block per token, as route_kernel in
-// gating_dispatch.cu.  The counts are one atomicAdd per (token, k) on an
-// int32 (E,) buffer zeroed on the same stream before the launch;
-// integer atomics are exact, so their order does not matter.
+// launch dominates.  Design: one block per token; its warps compute the
+// E logits (route.cuh's router_logits_block), then warp 0 does the
+// softmax and top-k with the experts across its lanes (softmax_topk_warp,
+// shared with gating_dispatch.cu).  The counts are one atomicAdd per
+// (token, k) on an int32 (E,) buffer zeroed on the same stream before the
+// launch; integer atomics are exact, so their order does not matter.
 
 #include "route.cuh"
 
@@ -28,12 +30,17 @@ __global__ void __launch_bounds__(NT) gating_topk_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     float* __restrict__ gates, int* __restrict__ experts,
     int* __restrict__ counts, int d, int E, int K) {
-  __shared__ float prob_s[repro::ROUTE_MAX_E];
-  const int t = blockIdx.x;
+  __shared__ float logit_s[repro::ROUTE_MAX_E];
+  const int t = blockIdx.x, lane = threadIdx.x & 31;
   int* ex = experts + (size_t)t * K;
-  repro::route_token<T, NT>(x + (size_t)t * d, w, nullptr, d, E, K, prob_s,
-                            gates + (size_t)t * K, ex);
-  if (threadIdx.x == 0) {
+  repro::router_logits_block<T, NT>(x + (size_t)t * d, w, d, E, logit_s);
+  if (threadIdx.x >= 32) return;
+  float v[repro::ROUTE_LANE_E];
+#pragma unroll
+  for (int j = 0; j < repro::ROUTE_LANE_E; ++j)
+    v[j] = lane + 32 * j < E ? logit_s[lane + 32 * j] : 0.f;
+  repro::softmax_topk_warp(v, E, K, gates + (size_t)t * K, ex);
+  if (lane == 0) {
     for (int k = 0; k < K; ++k) atomicAdd(&counts[ex[k]], 1);
   }
 }

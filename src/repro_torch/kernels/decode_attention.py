@@ -7,10 +7,14 @@ A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``models.attention.decode_attention`` / ``paged_decode_attention``, the
 same math as the JAX package's ``kernels/ref.py`` oracle).
 
-The contiguous kernel splits the ring across blocks (flash-decoding):
-``split_plan`` picks the number of splits from the shapes alone, each
+Both kernels are one split kernel and one merge kernel
+(``csrc/decode_split.cuh``), flash-decoding: ``split_plan`` picks the
+number of splits of the W logical slots from the shapes alone, each
 split writes a partial (acc, max, sum) to a scratch buffer allocated
-here, and the same C entry point merges them in a fixed order.
+here, and the same C entry point merges them in a fixed order.  The
+paged kernel splits its ``n_logical * ps`` logical slots as the ring
+kernel splits a ring of that width, so over one pool it is
+bit-identical to ``decode_attention`` over ``PagePool.gather``'s view.
 """
 from __future__ import annotations
 
@@ -31,21 +35,21 @@ KERNEL = CudaKernel(
 
 PAGED_KERNEL = CudaKernel(
     "paged_decode_attention.cu", "paged_decode_attention",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
     + [ctypes.c_int])
 
 MAX_REP = 16
-TILE = 32                 # ring slots per tile of the contiguous kernel
+TILE = 32                 # logical slots per tile of the split kernel
 TARGET_BLOCKS = 4 * 132   # four resident blocks on each of the H100's SMs
 MAX_SPLITS = 64           # the merge kernel's limit
 
 
 def split_plan(B: int, Hkv: int, W: int):
-    """(splits, tiles per split) of the contiguous kernel: enough splits
-    of the ring's 32-slot tiles for about ``TARGET_BLOCKS`` blocks of
-    (kv head, row, split), at most ``MAX_SPLITS``, none empty.  A
-    function of the shapes only, so the result never depends on the
-    data."""
+    """(splits, tiles per split) of the split kernel over W logical
+    slots: enough splits of the 32-slot tiles for about
+    ``TARGET_BLOCKS`` blocks of (kv head, row, split), at most
+    ``MAX_SPLITS``, none empty.  A function of the shapes only, so the
+    result never depends on the data."""
     tiles = -(-W // TILE)
     want = max(1, min(tiles, MAX_SPLITS, -(-TARGET_BLOCKS // (B * Hkv))))
     per = -(-tiles // want)
@@ -141,10 +145,17 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
           f"paged_decode_attention: head_dim {hd} not in (64, 128)")
     check(H % Hkv == 0 and H // Hkv <= MAX_REP,
           f"paged_decode_attention: {H} heads over {Hkv} kv heads")
+    check(_aligned(q, k_pages, v_pages),
+          "paged_decode_attention: q, k and v must start on a 16-byte boundary")
+    # the plan of a ring of n_logical * ps slots, the width of
+    # PagePool.gather's view: the two kernels run the same arithmetic
+    nsplit, per = split_plan(B, Hkv, n_logical * ps)
+    part = torch.empty(scratch_shape(B, H, Hkv, hd, n_logical * ps),
+                       dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     PAGED_KERNEL.launch(q.device, ptr(q), ptr(k_pages), ptr(v_pages),
-                        ptr(pos_pages), ptr(block_table), ptr(pos), ptr(out),
-                        B, H, Hkv, ps, n_logical, hd, int(window),
-                        float(attn_softcap), float(hd ** -0.5),
+                        ptr(pos_pages), ptr(block_table), ptr(pos), ptr(part),
+                        ptr(out), B, H, Hkv, ps, n_logical, hd, nsplit, per,
+                        int(window), float(attn_softcap), float(hd ** -0.5),
                         DTYPE_CODES[q.dtype])
     return out

@@ -7,6 +7,13 @@ filter).  The CUDA kernel covers what the serving path uses: bias and
 count weights, no tables, no owner; the wrapper raises
 ``NotImplementedError`` for the rest until the m2n and live-placement
 slices port them.
+
+The kernel splits d over a thread-block cluster of ``CLUSTER`` blocks
+(``chunk_plan``) and sums the blocks' partial logits in chunk order.
+Up to ``TOKENS_PER_CLUSTER`` tokens (the decode path) it is one launch
+of one cluster, whose first block also builds the capacity slots; more
+tokens take one cluster per tile of tokens and a second, one-block
+launch for the slots (``dispatch_launches``).
 """
 from __future__ import annotations
 
@@ -19,10 +26,34 @@ from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
 from repro_torch.models import moe as moe_lib
 
 KERNEL = CudaKernel("gating_dispatch.cu", "gating_dispatch",
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
+                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7)
 
 MAX_EXPERTS = 256
 MAX_TOP_K = 16
+CLUSTER = 8               # blocks per cluster; d is split this many ways
+CHUNK_ALIGN = 8           # a block's rows of d start on a multiple of 8
+TOKENS_PER_CLUSTER = 16   # tokens one cluster routes
+
+
+def chunk_rows(d: int, n_chunks: int = CLUSTER) -> int:
+    """Rows of d per block: d / n_chunks rounded up to a multiple of
+    ``CHUNK_ALIGN``, so every chunk's rows of x and of the router start
+    on a 16-byte boundary."""
+    return -(-(-(-d // n_chunks)) // CHUNK_ALIGN) * CHUNK_ALIGN
+
+
+def chunk_plan(d: int, n_chunks: int = CLUSTER):
+    """The rows of d each block of the cluster sums, as (start, stop)
+    pairs in the order their partial logits are added; the last chunks
+    may be ragged or empty."""
+    per = chunk_rows(d, n_chunks)
+    return [(min(d, c * per), min(d, (c + 1) * per)) for c in range(n_chunks)]
+
+
+def dispatch_launches(T: int) -> int:
+    """CUDA launches of one call at T tokens: 1 up to
+    ``TOKENS_PER_CLUSTER`` (the cluster builds the slots), else 2."""
+    return 1 if T <= TOKENS_PER_CLUSTER else 2
 
 
 def gating_dispatch_plain(x, w_router, top_k: int, n_buckets: int,
@@ -79,22 +110,30 @@ def gating_dispatch(x, w_router, top_k: int, n_buckets: int, capacity: int,
     check(E <= MAX_EXPERTS and 0 < top_k <= min(E, MAX_TOP_K),
           f"gating_dispatch: E={E}, top_k={top_k}")
     check(capacity > 0, "gating_dispatch: capacity must be positive")
-    bias = (torch.zeros(E, dtype=torch.float32, device=dev) if bias is None
-            else bias.to(torch.float32))
-    cw = (torch.ones(T, dtype=torch.float32, device=dev) if count_weights is None
-          else count_weights.to(torch.float32))
-    for t in (w_router, bias, cw):
-        check(t.device == dev, "gating_dispatch: mixed devices")
-    check(tuple(bias.shape) == (E,) and tuple(cw.shape) == (T,),
-          "gating_dispatch: bias (E,) and count_weights (T,)")
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    cw = (None if count_weights is None
+          else count_weights.to(torch.float32).contiguous())
+    check(bias is None or (tuple(bias.shape) == (E,) and bias.device == dev),
+          "gating_dispatch: bias must be (E,) on x's device")
+    check(cw is None or (tuple(cw.shape) == (T,) and cw.device == dev),
+          "gating_dispatch: count_weights must be (T,) on x's device")
+    check(w_router.device == dev, "gating_dispatch: mixed devices")
     x, w_router = x.contiguous(), w_router.contiguous()
-    bias, cw = bias.contiguous(), cw.contiguous()
-    gates = torch.empty((T, top_k), dtype=torch.float32, device=dev)
-    experts = torch.empty((T, top_k), dtype=torch.int32, device=dev)
+    check(x.data_ptr() % 16 == 0 and w_router.data_ptr() % 16 == 0,
+          "gating_dispatch: x and the router must start on a 16-byte boundary")
+    scratch = [None, None]
+    if dispatch_launches(T) == 2:
+        scratch = [torch.empty((T, top_k), dtype=torch.float32, device=dev),
+                   torch.empty((T, top_k), dtype=torch.int32, device=dev)]
     idx_buf = torch.empty((E, capacity), dtype=torch.int32, device=dev)
     gate_buf = torch.empty((E, capacity), dtype=torch.float32, device=dev)
     counts = torch.empty((E,), dtype=torch.float32, device=dev)
-    KERNEL.launch(dev, ptr(x), ptr(w_router), ptr(bias), ptr(cw), ptr(gates),
-                  ptr(experts), ptr(idx_buf), ptr(gate_buf), ptr(counts),
-                  T, d, E, top_k, capacity, DTYPE_CODES[x.dtype])
+    KERNEL.launch(dev, ptr(x), ptr(w_router), _ptr_or_null(bias),
+                  _ptr_or_null(cw), *map(_ptr_or_null, scratch), ptr(idx_buf),
+                  ptr(gate_buf), ptr(counts), T, d, E, top_k, capacity,
+                  chunk_rows(d), DTYPE_CODES[x.dtype])
     return idx_buf, gate_buf, counts
+
+
+def _ptr_or_null(t):
+    return None if t is None else ptr(t)

@@ -11,8 +11,11 @@ Cases marked ``cuda`` hold each CUDA kernel against its plain version on
 the card; they skip on a machine without one.  bf16 cases there compare
 at 2e-2 (one bf16 rounding of the output plus f32 sums in another
 order).  The CPU also holds a plain mirror of the decode-attention
-kernel's split of the ring and its merge against the plain version.  The JAX cases get JAX through a fixture that skips where it is
-not installed, so the file also collects on the card's machine.
+kernel's split of the ring and its merge against the plain version, and
+a plain mirror of the gating-dispatch kernel's chunked router sum
+against the JAX package.  The JAX cases get JAX through a fixture that
+skips where it is not installed, so the file also collects on the
+card's machine.
 """
 import shutil
 import types
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import gating_dispatch as gd_mod
 from repro_torch.kernels import gating_topk as gt_mod
 from repro_torch.kernels import grouped_matmul as gm_mod
 from repro_torch.kernels import ops as kops
@@ -32,6 +36,7 @@ from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
 from repro_torch.models.attention import decode_attention as decode_attention_plain
 from repro_torch.models.attention import \
     paged_decode_attention as paged_decode_attention_plain
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import softcap
 
 torch.set_num_threads(1)
@@ -241,6 +246,35 @@ def test_paged_decode_attention_refuses_a_page_outside_the_pool():
         kops.paged_decode_attention(q, pk, pv, ppos, bt, pos)
 
 
+def _gathered(pk, pv, ppos, bt):
+    """The dense (B, n_logical * ps) view of a pool, as ``PagePool.gather``
+    builds it: unmapped logical pages read page 0 with pos -1."""
+    B, n = bt.shape
+    W = n * pk.shape[1]
+    btc = bt.long().clamp(min=0)
+    k = pk[btc].reshape((B, W) + tuple(pk.shape[2:]))
+    v = pv[btc].reshape((B, W) + tuple(pv.shape[2:]))
+    cpos = torch.where((bt >= 0)[:, :, None], ppos[btc], -1).reshape(B, W)
+    return k, v, cpos
+
+
+@pytest.mark.parametrize("ps", [4, 8, 32, 64])
+def test_paged_split_plan_equals_decode_attention_plan_on_the_gathered_view(ps):
+    """The paged kernel splits its n_logical * ps logical slots as the
+    ring kernel splits a ring of that width (so over one pool the two
+    kernels run the same arithmetic), and that split rule over the
+    gathered view equals the plain paged version."""
+    npg = 128 // ps
+    args, _ = _paged_case(2, 8, 2, 32, ps, npg)
+    q, pk, pv, ppos, bt, pos = map(_t, args)
+    assert da_mod.split_plan(2, 2, npg * ps)[0] > 1
+    for window, cap in ((0, 0.0), (40, 0.0), (0, 30.0)):
+        want = paged_decode_attention_plain(q, pk, pv, ppos, bt, pos, window=window,
+                                            attn_softcap=cap)
+        k, v, cpos = _gathered(pk, pv, ppos, bt)
+        _close(_split_merge(q, k, v, cpos, pos, window, cap), want.numpy())
+
+
 # ---------------------------------------------------------------- gating top-k
 def _topk_equal(got, want):
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
@@ -377,6 +411,72 @@ def test_gating_dispatch_ties_take_lowest_index(jx, k):
     _assert_dispatch_equal(got, want)
     used = set(np.nonzero((got[0] < x.shape[0]).numpy().any(1))[0].tolist())
     assert used == {1: {1}, 2: {1, 3}, 3: {1, 2, 3}}[k]
+
+
+@pytest.mark.parametrize("d", [16, 48, 6000, 6144, 16384])
+def test_gating_dispatch_chunk_plan_covers_d_once(d):
+    """The cluster's blocks sum chunks of d that cover it exactly once,
+    in order, each starting on a multiple of 8 rows (16-byte rows of x
+    and of the router)."""
+    plan = gd_mod.chunk_plan(d)
+    assert len(plan) == gd_mod.CLUSTER
+    assert [i for a, b in plan for i in range(a, b)] == list(range(d))
+    assert all(a % gd_mod.CHUNK_ALIGN == 0 for a, b in plan if b > a)
+    per = gd_mod.chunk_rows(d)
+    assert per % gd_mod.CHUNK_ALIGN == 0 and per * gd_mod.CLUSTER >= d
+    assert (per - gd_mod.CHUNK_ALIGN) * gd_mod.CLUSTER < d     # the least such
+
+
+def _chunked_dispatch(x, w, k, n_buckets, capacity, bias=None, count_weights=None):
+    """A plain mirror of the CUDA kernel's router sum: each block's
+    partial logits x[:, chunk] @ w[chunk] over ``chunk_plan``, added in
+    chunk order, then the bias; then the softmax, top-k, counts and slot
+    build of the plain version."""
+    parts = [x[:, a:b].float() @ w[a:b].float() for a, b in gd_mod.chunk_plan(x.shape[1])]
+    logits = parts[0]
+    for part in parts[1:]:
+        logits = logits + part
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = moe_lib.topk_lowest_index(probs, k)
+    routing = moe_lib.Routing(gates / gates.sum(-1, keepdim=True),
+                              experts.to(torch.int32), probs)
+    counts = moe_lib.routing_counts(routing, w.shape[1], count_weights)
+    return (*moe_lib.dispatch_indices(routing, n_buckets, capacity), counts)
+
+
+def _dispatch_cases():
+    """The cases of the gating_dispatch tests above: (x, w, k, capacity,
+    keyword arguments)."""
+    out = []
+    for t, d, e, k in ((8, 16, 4, 2), (96, 48, 16, 4), (4, 64, 8, 2)):
+        out.append(("full", *_dispatch_case(t, d, e), k, t, {}))
+    out.append(("capped", *_dispatch_case(128, 32, 4, seed=7), 2, 8, {}))
+    x, w = _dispatch_case(64, 32, 8, seed=3)
+    out.append(("bias", x, w, 2, 64,
+                dict(bias=np.linspace(-1.0, 1.0, 8).astype(np.float32),
+                     count_weights=(np.arange(64) % 2).astype(np.float32))))
+    for k in (1, 2, 3):
+        out.append(("ties", *_tie_case(), k, 12, {}))
+    return out
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_gating_dispatch_chunked_router_sum_matches_jax(jx, case):
+    name, x, w, k, cap, kw = _dispatch_cases()[case]
+    e = w.shape[1]
+    got = _chunked_dispatch(_t(x), _t(w), k, e, cap, **{a: _t(v) for a, v in kw.items()})
+    a = jx.jnp.asarray
+    want = jx.ops.gating_dispatch(a(x), a(w), k, n_buckets=e, capacity=cap,
+                                  **{n: a(v) for n, v in kw.items()})
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    _close(got[1], want[1])
+
+
+def test_gating_dispatch_launches_by_token_count():
+    assert [gd_mod.dispatch_launches(t) for t in (1, 4, 16, 17, 128)] == [1, 1, 1, 2, 2]
 
 
 # ---------------------------------------------------------------- grouped matmul
@@ -536,7 +636,33 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, hd,
     _close(got, want.float().cpu().numpy(), tol)
     kc, vc, cpos = [_t(a).to(cuda) for a in dense]
     dense_out = kops.decode_attention(q, kc.to(dtype), vc.to(dtype), cpos, pos, **kw)
-    _close(got, dense_out.float().cpu().numpy(), tol)
+    assert torch.equal(got, dense_out)      # one split plan, one kernel body
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [4, 8, 32, 64])
+@pytest.mark.parametrize("kw", [{}, dict(window=40), dict(attn_softcap=30.0)])
+def test_paged_decode_attention_kernel_equals_decode_attention_on_the_gathered_view(
+        cuda, dtype, ps, kw):
+    """At the serving shape (48 / 8 heads, hd 128, 256 logical slots) and
+    pages smaller than, equal to and larger than a 32-slot tile, the
+    paged kernel is bit-identical to decode_attention over the pool's
+    gathered view, and within tolerance of its plain version."""
+    args, _ = _paged_case(4, 48, 8, 128, ps, 256 // ps)
+    q, pk, pv, ppos, bt, pos = [_t(a).to(cuda) for a in args]
+    q, pk, pv = q.to(dtype), pk.to(dtype), pv.to(dtype)
+    n0 = da_mod.PAGED_KERNEL.launches
+    got = kops.paged_decode_attention(q, pk, pv, ppos, bt, pos, **kw)
+    again = kops.paged_decode_attention(q, pk, pv, ppos, bt, pos, **kw)
+    k, v, cpos = _gathered(pk, pv, ppos, bt)
+    dense = kops.decode_attention(q, k, v, cpos, pos, **kw)
+    want = paged_decode_attention_plain(q, pk, pv, ppos, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert da_mod.PAGED_KERNEL.launches == n0 + 2
+    assert torch.equal(got, dense) and torch.equal(got, again)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    _close(got, want.float().cpu().numpy(), tol)
 
 
 @pytest.mark.cuda
@@ -579,6 +705,57 @@ def test_gating_dispatch_kernel_matches_plain(cuda, dtype, t, d, e, k, cap):
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[2], want[2])
     _close(got[1], want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 8, 16, 17, 128])
+@pytest.mark.parametrize("e", [4, 8, 16, 256])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_gating_dispatch_kernel_token_and_expert_counts(cuda, t, e, k):
+    """One launch (t <= 16) and two (t > 16), with a bias, 0/1 count
+    weights and a capacity below the mean load (drops where the routing
+    allows them); two calls on the same inputs are bit-identical."""
+    x, w = _dispatch_case(t, 96, e, seed=k)
+    xt, wt = _t(x).to(cuda, torch.bfloat16), _t(w).to(cuda)
+    cap = max(1, t * k // e)
+    kw = dict(bias=torch.linspace(-0.5, 0.5, e, device=cuda),
+              count_weights=(torch.arange(t, device=cuda) % 3 > 0).float())
+    n0 = gd_mod.KERNEL.launches
+    got = kops.gating_dispatch(xt, wt, k, e, cap, **kw)
+    again = kops.gating_dispatch(xt, wt, k, e, cap, **kw)
+    want = gating_dispatch_plain(xt, wt, k, e, cap, **kw)
+    torch.cuda.synchronize()
+    assert gd_mod.KERNEL.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+    _close(got[1], want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(4, 37), (20, 37), (3, 6144), (16, 16384)])
+def test_gating_dispatch_kernel_widths(cuda, dtype, t, d):
+    """d not a multiple of 8 (rows of x copied element by element) and
+    chunks larger than one shared-memory tile; no bias, no weights."""
+    x, w = _dispatch_case(t, d, 8)
+    xt, wt = _t(x).to(cuda, dtype), _t((w / np.sqrt(d)).astype(np.float32)).to(cuda)
+    got = kops.gating_dispatch(xt, wt, 2, 8, t)
+    want = gating_dispatch_plain(xt, wt, 2, 8, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _close(got[1], want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_gating_dispatch_kernel_refuses_a_misaligned_view(cuda):
+    x, w = _dispatch_case(4, 64, 8)
+    xt = _t(x).to(cuda, torch.bfloat16)
+    base = torch.empty(xt.numel() + 1, dtype=xt.dtype, device=cuda)
+    xm = base[1:].view(xt.shape)
+    xm.copy_(xt)
+    with pytest.raises(ValueError, match="16-byte"):
+        kops.gating_dispatch(xm, _t(w).to(cuda), 2, 8, 4)
 
 
 @pytest.mark.cuda
