@@ -22,13 +22,22 @@ then:
      one gating-dispatch call there and in the f32 case at T = 128,
      which must be one, one and two (``dispatch_launches``), the
      grouped matmul at the up and the down projection with each of
-     its two compute bodies (beside ``torch.bmm``);
+     its two compute bodies (beside ``torch.bmm``).  Gating dispatch's
+     placement-table and owner-filter branches are held against the
+     plain version in bf16 and f32 at T = 4, 8 and 128 (tables only,
+     owner only over padded buckets, both for each of 4 owners, and a
+     call whose last token's hash rounds to 1.0), and timed on the
+     rebalanced and m2n paths' calls;
   2. serves mixtral-8x22b at full width (2 layers, f32 weights, TF32
      off) in ``pingpong`` (m = 2) and ``monolithic`` mode on the same
      requests, each run with the launch counts set to 0 just before and
      read just after, and requires identical greedy tokens, decode
      attention launched by both paths and the MoE kernels by ping-pong
-     only;
+     only.  Then, under a zipf(1.2) router bias over 4 expert nodes, it
+     serves static ping-pong, ping-pong rebalanced every 2 decode
+     iterations and m2n with rebalancing, and requires identical greedy
+     tokens, at least one rebalance and one replicated expert, and an
+     imbalance below the static run's;
   3. serves mixtral-8x22b at full width (4 layers, bf16 weights, f32
      router) through the ``pingpong`` engine (max_batch 8, m = 2, 64 new
      tokens per request), with the kernel launch counts set to 0 just
@@ -47,7 +56,15 @@ then:
      pool and block tables and ``gating_topk`` on layer 0's router input,
      then checks and times both there against their plain versions, and
      requires the paged kernel's output to be bit-identical to
-     ``decode_attention`` over the gathered view on every layer.
+     ``decode_attention`` over the gathered view on every layer;
+  5. serves phase 3's bf16 model under the zipf(1.2) router bias over 4
+     expert nodes through the rebalanced ping-pong path, static m2n and
+     m2n with rebalancing, each with the launch counts set to 0 just before
+     and read just after: decode rate, ms per iteration, t_a and t_e,
+     transport bytes per kind, a profiled window that counts and times
+     the gating-dispatch launches (4 per micro-batch and layer under
+     m2n), and one decode step with the placement installed held against
+     a static ping-pong runtime (routing compared first, as phase 3).
 
 Phase 2 also serves the paged layout (monolithic and ping-pong, prefix
 cache on) on shared-prefix prompts, whose tokens must equal the
@@ -58,9 +75,12 @@ spills from ``nvcc -Xptxas -v``.  Each decode profile (phases 3 and 4)
 requires one device kernel per ``gating_dispatch`` call.  Before the
 last line it prints the card's name and power limit and a
 ``{"kernels": [...]}`` line (decode attention, gating dispatch and the
-grouped matmul carry a ``shapes`` list, one entry per timed shape); the
-last line is the contract line ``{"ok": true, "device": {...}}``.  Any
-failure exits non-zero before that line.  It imports nothing of JAX or
+grouped matmul carry a ``shapes`` list, one entry per timed shape;
+``gating_dispatch[tables]`` and ``gating_dispatch[owner]`` are the
+kernel's two branches, their launches counted on phase 5's rebalanced
+and m2n + rebalanced runs); the last line is the contract line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
+that line.  It imports nothing of JAX or
 of the JAX package.
 """
 from __future__ import annotations
@@ -93,6 +113,17 @@ F32 = dict(max_batch=8, microbatches=2, max_seq=64, n_requests=4,
 # serve_bench entries (page size 8, 24 of 32 prompt tokens shared) at
 # phase 3's width, depth and batch
 PAGED = dict(MAIN, prompt_len=32, shared_prefix_len=24, page_size=8)
+# phases 2 and 5: live expert placement and m2n over 4 expert nodes under
+# a zipf(1.2) router bias, re-solved every 2 decode iterations (the JAX
+# package's tests/test_multidevice.py:143-186 setting)
+PLACE = dict(expert_nodes=4, zipf=1.2, rebalance_every=2)
+PLACE_F32 = dict(F32, shared_prefix_len=0, max_new=8)
+# the three engines of the placement phases: (use_m2n, rebalance)
+PLACE_RUNS = {"static": (False, False), "rebalanced": (False, True),
+              "m2n+rebalanced": (True, True)}
+# phase 5's timed runs: the two placement paths, and static m2n beside them
+TIMED_RUNS = {"rebalanced": (False, True), "m2n": (True, False),
+              "m2n+rebalanced": (True, True)}
 LIVE_ITER = 16          # decode iteration at which phase 4 reads the live pool
 SPIN_CYCLES = 1_000_000  # device spin before each timed call (~0.5 ms)
 
@@ -235,6 +266,136 @@ def paged_pool(torch, gen, k, v, cache_pos, pos, ps):
     kp[flat], vp[flat] = k.reshape(shape), v.reshape(shape)
     pp[flat] = cache_pos.reshape(B * npg, ps)
     return kp, vp, pp, table
+
+
+def placement_case(torch, dev, loads, nodes):
+    """Device tables of the placement solved for ``loads`` over ``nodes``
+    expert nodes under the runtime's slot budget, and that budget S."""
+    from repro_torch.core import load_balance as lb
+    E = len(loads)
+    e_loc = -(-E // nodes)
+    S = min(E, max(e_loc, round(e_loc * 2.0)))
+    tbl = lb.placement_tables(lb.balance_experts(loads, nodes), S)
+    return tbl, S, dict(
+        slots_per_node=S,
+        rep_node=torch.from_numpy(tbl.rep_node).to(dev),
+        rep_slot=torch.from_numpy(tbl.rep_slot).to(dev),
+        rep_cum=torch.from_numpy(tbl.rep_cum).to(dev))
+
+
+def dispatch_branches(torch, dev, gen, flush, randn):
+    """Phase 1's placement-table and owner-filter cases of gating_dispatch
+    against its plain version: bf16 and f32 at T = 4, 8 and 128 (one and
+    two launches), mixtral's router (d 6144, 8 experts, top-2) with a bias
+    and 0/1 count weights.  Tables only (4 nodes x 4 slots, hot expert 0
+    replicated), owner only (6 experts padded to 8 buckets over 4 shards,
+    every owner), tables and owner for each of the 4 owners, and a call
+    of 10939237 tokens whose last token's hash rounds to 1.0.  idx_buf
+    and counts identical, gates within 1e-5, two launches bit-identical.
+    Times the rebalanced path's call (tables) and the m2n paths' calls
+    (owner, with and without tables) at T = 4 behind the L2 flush.
+    Returns the kernels-line rows of the two variants."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
+    from repro_torch.models import moe as moe_lib
+    d, K, N = 6144, 2, 4
+    tbl8, S8, tk8 = placement_case(torch, dev, [100.0] + [4.0] * 7, N)
+    require(int((tbl8.fractions > 1e-9).sum(1).max()) > 1,
+            "phase 1: the hot expert is not replicated")
+    routers = {E: randn(d, E, dtype=torch.float32, scale=d ** -0.5) for E in (6, 8)}
+
+    def check(label, x, E, n_buckets, C, **kw):
+        kw = dict(kw, bias=torch.linspace(-0.5, 0.5, E, device=dev),
+                  count_weights=(torch.arange(x.shape[0], device=dev) % 3 > 0).float())
+        got = kops.gating_dispatch(x, routers[E], K, n_buckets, C, **kw)
+        again = kops.gating_dispatch(x, routers[E], K, n_buckets, C, **kw)
+        want = gating_dispatch_plain(x, routers[E], K, n_buckets, C, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]), f"{label}: idx_buf differs")
+        require(torch.equal(got[2], want[2]), f"{label}: counts differ")
+        check_close(torch, f"{label} gates", got[1], want[1], 1e-5, 1e-5)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{label}: two launches on the same inputs differ")
+        return max_err(torch, got[1], want[1])
+
+    errs = []
+    for dt in (torch.bfloat16, torch.float32):
+        for T in (4, 8, 128):
+            x = randn(T, d, dtype=dt)
+            errs.append(check(f"gating_dispatch tables {dt} T={T}", x, 8, N * S8, T,
+                              **tk8))
+            for j in range(N):
+                errs.append(check(f"gating_dispatch owner {j} {dt} T={T}", x, 6, 8,
+                                  T, owner=j, slots_per_node=2))
+                errs.append(check(f"gating_dispatch tables+owner {j} {dt} T={T}", x,
+                                  8, N * S8, T, owner=j, **tk8))
+    print(f"gating_dispatch branches (bf16 and f32, T = 4, 8, 128): tables "
+          f"(4 nodes x {S8} slots, expert 0 on {int((tbl8.fractions[0] > 1e-9).sum())} "
+          f"nodes), owner (6 experts in 8 buckets, owners 0-3), tables + owner "
+          f"(owners 0-3): idx_buf and counts identical, gates max |err| "
+          f"{max(errs):.3e}, two launches bit-identical")
+
+    # the token hash of row 10939236 rounds to u = 1.0: its replica of the
+    # hot expert is clamped to the last one (x tiny, the router zero, the
+    # bias sending every token to expert 0; two launches)
+    T, tok = 10939237, 10939236
+    require(float(moe_lib.token_hash01(torch.tensor([tok]))[0]) == 1.0,
+            "phase 1: token 10939236 does not hash to 1.0")
+    tbl4, S4, tk4 = placement_case(torch, dev, [100.0, 1.0, 1.0, 1.0], 2)
+    xh = torch.randn(T, 8, device=dev, generator=gen)
+    wh = torch.zeros(8, 4, device=dev)
+    hk = dict(tk4, bias=torch.tensor([10.0, 0.0, 0.0, 0.0], device=dev))
+    got = kops.gating_dispatch(xh, wh, 1, 2 * S4, T, **hk)
+    want = gating_dispatch_plain(xh, wh, 1, 2 * S4, T, **hk)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+            "gating_dispatch hash rounding to 1.0: differs from plain")
+    last = int(tbl4.rep_node[0, -1]) * S4 + int(tbl4.rep_slot[0, -1])
+    filled = int((got[0][last] < T).sum())
+    require(int(got[0][last, filled - 1]) == tok,
+            "gating_dispatch: the token hashing to 1.0 did not take the last replica")
+    print(f"gating_dispatch tables, T = {T} (two launches): token {tok} hashes to "
+          f"1.0 and takes the last replica of expert 0 (bucket {last}, slot "
+          f"{filled - 1}); idx_buf and counts identical to plain")
+    del xh, got, want
+
+    # timing: the call of each path at one serving micro-batch (T = 4, C = 4)
+    T = 4
+    x = randn(T, d)
+    cw = torch.ones(T, device=dev)
+    tk_m2n = dict(slots_per_node=2)
+
+    def timed(shape, n_buckets, rows, R, **kw):
+        args = (x, routers[8], K, n_buckets, T)
+        kw = dict(kw, count_weights=cw)
+        got = kops.gating_dispatch(*args, **kw)
+        want = gating_dispatch_plain(*args, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+                f"gating_dispatch {shape}: differs from plain")
+        nbytes = (x.numel() * 2 + routers[8].numel() * 4 + T * 4 + 3 * 8 * R * 4
+                  + 2 * rows * T * 4 + 8 * 4)
+        r = dict(shape=shape, err=max_err(torch, got[1], want[1]),
+                 ms=time_ms(torch, lambda: kops.gating_dispatch(*args, **kw),
+                            flush=flush),
+                 plain_ms=time_ms(torch, lambda: gating_dispatch_plain(*args, **kw),
+                                  flush=flush),
+                 library_ms=None, bound=bound_ms(nbytes, 2 * T * d * 8, "float32"))
+        print(f"gating_dispatch {shape}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound'][0]:.6f} ms")
+        return r
+
+    R = tbl8.rep_node.shape[1]
+    t_tables = timed(f"tables: x ({T},{d}) bf16, 8 experts, top-2, {N} nodes x "
+                     f"{S8} slots (R = {R}), C = {T}", N * S8, N * S8, R, **tk8)
+    t_both = timed(f"owner 0 + tables: x ({T},{d}) bf16, {N} nodes x {S8} slots, "
+                   f"C = {T}", N * S8, S8, R, owner=0, **tk8)
+    t_owner = timed(f"owner 0: x ({T},{d}) bf16, 8 experts over {N} shards, "
+                    f"C = {T}", 8, 2, 0, owner=0, **tk_m2n)
+    src = "src/repro/kernels/gating_topk.py:255"
+    return {"gating_dispatch[tables]": dict(t_tables, shapes=[t_tables], replaces=src),
+            "gating_dispatch[owner]": dict(t_both, shapes=[t_both, t_owner],
+                                           replaces=src)}
 
 
 # ----------------------------------------------------------------- phase 1
@@ -444,6 +605,7 @@ def phase_kernels(torch, dev):
     print(f"gating_dispatch f32 x {tuple(xs.shape)}, 4 experts, top-2, C = 8 "
           f"({n} device kernels per call, profiled), bias and weights: "
           f"idx_buf and counts identical, two launches bit-identical")
+    rows.update(dispatch_branches(torch, dev, gen, flush, randn))
 
     # -- gating_topk on the same router inputs: experts and counts exact,
     # gates f32 sums -> 1e-5
@@ -527,7 +689,10 @@ MOE_KERNELS = ("gating_dispatch", "grouped_matmul")
 
 
 def build_engine(torch, cfg, params, spec, runtime, kv_layout="contiguous",
-                 prefix_cache=True):
+                 prefix_cache=True, use_m2n=False, rebalance=False, nodes=1):
+    """An engine of the port for ``spec``; its ping-pong runtime is solved
+    for ``nodes`` expert nodes, with the m2n dispatch and rebalancing
+    every PLACE["rebalance_every"] decode iterations when asked."""
     from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
     from repro_torch.serving.config import ServingConfig
     from repro_torch.serving.engine import Engine
@@ -535,10 +700,72 @@ def build_engine(torch, cfg, params, spec, runtime, kv_layout="contiguous",
                        runtime=runtime, microbatches=spec["microbatches"],
                        kv_layout=kv_layout, page_size=spec.get("page_size", 16),
                        prefix_cache=prefix_cache, verbose=False,
-                       device=str(params["embed"].device))
-    inst = (DisaggregatedInstance(cfg, params, DisaggPlan(sc.microbatches))
+                       device=str(params["embed"].device), use_m2n=use_m2n,
+                       expert_nodes=nodes,
+                       expert_rebalance_every=PLACE["rebalance_every"] * rebalance)
+    inst = (DisaggregatedInstance(cfg, params,
+                                  DisaggPlan(sc.microbatches, use_m2n=use_m2n),
+                                  expert_nodes=nodes)
             if runtime == "pingpong" else None)
     return Engine(cfg, params, config=sc, runtime=inst)
+
+
+def zipf_params(torch, cfg, params):
+    """A copy of ``params`` (the same weight tensors) with PLACE's zipf
+    router bias on every MoE layer."""
+    from repro_torch.launch.serve import inject_router_bias, zipf_router_bias
+    out = dict(params, layers=[dict(lp) for lp in params["layers"]])
+    return inject_router_bias(out, cfg, zipf_router_bias(cfg.moe.n_experts,
+                                                         PLACE["zipf"]))
+
+
+def phase_placement_parity(torch, dev, cfg, params):
+    """Phase 2's placement runs: static ping-pong, rebalanced ping-pong
+    and m2n with rebalancing (f32, full width, TF32 off) on the same
+    requests under the zipf router bias, each with the launch counts set
+    to 0 just before and read just after.  Greedy tokens identical across
+    the three, the rebalanced runs re-solved at least once, replicated a
+    hot expert and priced below the static run's imbalance."""
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    pz = zipf_params(torch, cfg, params)
+    prompts = prompts_for(PLACE_F32, cfg.vocab)
+    toks, st = {}, {}
+    for name, (m2n, rebal) in PLACE_RUNS.items():
+        eng = build_engine(torch, cfg, pz, PLACE_F32, "pingpong", use_m2n=m2n,
+                           rebalance=rebal, nodes=PLACE["expert_nodes"])
+        reset_launch_counts()
+        toks[name] = serve(torch, eng, prompts, PLACE_F32["max_new"])[0]
+        counts = launch_counts()
+        st[name] = eng.stats()
+        require(len(toks[name]) == PLACE_F32["n_requests"],
+                f"f32 {name}: requests unfinished")
+        require(toks[name] == toks["static"],
+                f"f32 placement: {name} tokens {toks[name]} != static "
+                f"{toks['static']}")
+        for k in ("decode_attention", "gating_dispatch", "grouped_matmul"):
+            require(counts[k] > 0, f"f32 {name}: {k} was not launched")
+        require((counts["gating_dispatch[tables]"] > 0) == rebal
+                and (counts["gating_dispatch[owner]"] > 0) == m2n,
+                f"f32 {name}: gating_dispatch branch launches {counts}")
+        if rebal:
+            require(st[name]["rebalances"] > 0, f"f32 {name}: never rebalanced")
+            require(st[name]["replicated_experts"] >= 1,
+                    f"f32 {name}: no expert replicated")
+            require(st[name]["imbalance"] < st["static"]["imbalance"],
+                    f"f32 {name}: imbalance {st[name]['imbalance']} not below "
+                    f"static {st['static']['imbalance']}")
+        print(f"phase 2 [{name}]: imbalance {st[name]['imbalance']:.4f}, "
+              f"rebalances {st[name]['rebalances']} "
+              f"({st[name]['placement_updates']} installed), replicated experts "
+              f"{st[name]['replicated_experts']}, loads "
+              f"{[round(v) for v in st[name]['expert_loads']]}; launches "
+              + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        del eng
+        torch.cuda.empty_cache()
+    print(f"phase 2 placement (f32, {cfg.n_layers} layers, {PLACE['expert_nodes']} "
+          f"expert nodes, zipf({PLACE['zipf']}), rebalance every "
+          f"{PLACE['rebalance_every']}): " + ", ".join(PLACE_RUNS)
+          + f" give identical greedy tokens for {len(prompts)} requests")
 
 
 def serve(torch, eng, prompts, max_new):
@@ -613,14 +840,17 @@ def phase_f32_parity(torch, dev, base_cfg):
     for name, counts in launches.items():
         print(f"phase 2 launches [{name}]: "
               + " ".join(f"{k}={v}" for k, v in counts.items()))
+    torch.cuda.empty_cache()
+    phase_placement_parity(torch, dev, cfg, params)
 
 
 class record_routing:
     """Within the block, record the top-k routing of each MoE layer: the
     monolithic path's ``moe.route`` calls into ``mono.calls`` and the
-    ping-pong runtime's ``gating_dispatch`` launches, re-routed by
-    ``moe.route`` on the same router input, into ``pp.calls``, each as
-    (experts (T, k), probabilities (T, E)) while its ``active`` is set."""
+    ping-pong runtime's ``gating_dispatch`` launches (shard 0's under
+    m2n), re-routed by ``moe.route`` on the same router input, into
+    ``pp.calls``, each as (experts (T, k), probabilities (T, E)) while
+    its ``active`` is set."""
 
     def __init__(self):
         from repro_torch.kernels import ops as kops
@@ -641,7 +871,8 @@ class record_routing:
             return r
 
         def rec_dispatch(x, w, k, *args, **kw):
-            if pp.active:
+            # under m2n every shard routes the same tokens: record one
+            if pp.active and kw.get("owner") in (None, 0):
                 r = route(x, w, k, kw.get("bias"))
                 pp.calls.append((r.experts, r.probs))
             return dispatch(x, w, k, *args, **kw)
@@ -651,6 +882,59 @@ class record_routing:
 
     def __exit__(self, *exc):
         self.moe.route, self.kops.gating_dispatch = self.route, self.dispatch
+
+
+def check_bf16_logits(torch, label, want, got, calls_want, calls_got, L):
+    """Hold bf16 logits ``got`` against ``want`` of another path on the
+    same input, routing compared first.  bf16 weights and activations
+    round at different places in the two paths -> logits within 5% of
+    their range, and finite.  Top-k routing is not continuous: a token
+    whose k-th and (k+1)-th expert probabilities nearly tie may take
+    another expert on one path after a rounding difference, and its
+    logits then differ by more.  So each path's routing is recorded
+    (``record_routing``: per layer, one call or one per micro-batch),
+    every row routed alike in every layer is held to 5%, and a row
+    routed otherwise must show that the two paths' router probabilities
+    leave it at a near-tie (margin < 1e-2) in that layer.  Returns the
+    summary line."""
+    require(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    scale = float(want.float().abs().max())
+    row_rel = ((got.float() - want.float()).abs().amax(-1) / scale).tolist()
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    def per_layer(calls):
+        n = len(calls) // L
+        return [(torch.cat([e for e, _ in calls[l * n:(l + 1) * n]]),
+                 torch.cat([p for _, p in calls[l * n:(l + 1) * n]]))
+                for l in range(L)]
+
+    flips = {}
+    for l, ((m_e, m_p), (p_e, p_p)) in enumerate(zip(per_layer(calls_want),
+                                                     per_layer(calls_got))):
+        same = (m_e.sort(-1).values == p_e.sort(-1).values).all(-1)
+        K = m_e.shape[1]
+        for row in (~same).nonzero().flatten().tolist():
+            margin = min(float(pr[row, K - 1] - pr[row, K])
+                         for pr in (m_p.sort(-1, descending=True).values,
+                                    p_p.sort(-1, descending=True).values))
+            flips.setdefault(row, []).append((l, margin))
+    for row, rel in enumerate(row_rel):
+        if row in flips:
+            require(all(m < 1e-2 for _, m in flips[row]),
+                    f"{label}: row {row} routed differently away from a near-tie: "
+                    f"{flips[row]}")
+        else:
+            require(rel < 5e-2, f"{label}: logits of row {row} differ by {rel:.3e} "
+                    f"with the same routing")
+    require(len(flips) <= len(row_rel) // 2,
+            f"{label}: {len(flips)} of {len(row_rel)} rows routed differently")
+    same_rel = max([r for i, r in enumerate(row_rel) if i not in flips], default=0.0)
+    return (f"logits max rel diff {max(row_rel):.3e} over all rows, {same_rel:.3e} "
+            f"over the {len(row_rel) - len(flips)} rows routed alike in every "
+            f"layer; argmax agreement {agree:.2f}; near-tie routing flips "
+            + (", ".join(f"row {r} layer {l} margin {m:.2e} (rel {row_rel[r]:.3e})"
+                         for r, fl in sorted(flips.items()) for l, m in fl)
+               or "none"))
 
 
 def phase_bf16_serving(torch, dev, cfg, params):
@@ -663,16 +947,7 @@ def phase_bf16_serving(torch, dev, cfg, params):
     inst = eng.runtime
 
     # in-situ check: one ping-pong decode step against the monolithic
-    # decode_step on copies of one prefilled cache.  bf16 weights and
-    # activations round at different places in the two paths -> logits
-    # within 5% of their range, and finite.  Top-k routing is not
-    # continuous: a token whose k-th and (k+1)-th expert probabilities
-    # nearly tie may take another expert on one path after a rounding
-    # difference, and its logits then differ by more.  So each path's
-    # routing is recorded (the same top-k rule on each path's router
-    # input), every row routed alike in every layer is held to 5%, and a
-    # row routed otherwise must show that the two paths' router
-    # probabilities leave it at a near-tie (margin < 1e-2) in that layer
+    # decode_step on copies of one prefilled cache (check_bf16_logits)
     toks = torch.randint(2, cfg.vocab, (MAIN["max_batch"], MAIN["prompt_len"]),
                          device=dev, generator=torch.Generator(dev).manual_seed(1))
     _, c_ref = prefill(params, cfg, toks, max_seq=MAIN["max_seq"])
@@ -684,42 +959,9 @@ def phase_bf16_serving(torch, dev, cfg, params):
         want, _ = decode_step(params, cfg, toks[:, -1], c_ref, pos)
         mono.active, pp.active = False, True
         got, _ = inst.decode_microbatched(toks[:, -1], c_pp, pos, eng.mb_slices)
-    require(bool(torch.isfinite(got).all()), "bf16: non-finite logits")
-    scale = float(want.float().abs().max())
-    row_rel = ((got.float() - want.float()).abs().amax(-1) / scale).tolist()
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    # per layer: the monolithic step routes all rows at once, ping-pong one
-    # micro-batch at a time, in layer order
-    n_mb = len(pp.calls) // len(mono.calls)
-    flips = {}
-    for l, (m_e, m_p) in enumerate(mono.calls):
-        p_e = torch.cat([e for e, _ in pp.calls[l * n_mb:(l + 1) * n_mb]])
-        p_p = torch.cat([p for _, p in pp.calls[l * n_mb:(l + 1) * n_mb]])
-        same = (m_e.sort(-1).values == p_e.sort(-1).values).all(-1)
-        K = m_e.shape[1]
-        for row in (~same).nonzero().flatten().tolist():
-            margin = min(float(pr[row, K - 1] - pr[row, K])
-                         for pr in (m_p.sort(-1, descending=True).values,
-                                    p_p.sort(-1, descending=True).values))
-            flips.setdefault(row, []).append((l, margin))
-    for row, rel in enumerate(row_rel):
-        if row in flips:
-            require(all(m < 1e-2 for _, m in flips[row]),
-                    f"bf16: row {row} routed differently away from a near-tie: "
-                    f"{flips[row]}")
-        else:
-            require(rel < 5e-2, f"bf16: pingpong logits of row {row} differ from "
-                    f"monolithic by {rel:.3e} with the same routing")
-    require(len(flips) <= len(row_rel) // 2,
-            f"bf16: {len(flips)} of {len(row_rel)} rows routed differently")
-    same_rel = max([r for i, r in enumerate(row_rel) if i not in flips], default=0.0)
-    print(f"phase 3 check: bf16 pingpong vs monolithic logits max rel diff "
-          f"{max(row_rel):.3e} over all rows, {same_rel:.3e} over the "
-          f"{len(row_rel) - len(flips)} rows routed alike in every layer; "
-          f"argmax agreement {agree:.2f}; near-tie routing flips "
-          + (", ".join(f"row {r} layer {l} margin {m:.2e} (rel {row_rel[r]:.3e})"
-                       for r, fl in sorted(flips.items()) for l, m in fl)
-             or "none"))
+    line = check_bf16_logits(torch, "bf16", want, got, mono.calls, pp.calls,
+                             cfg.n_layers)
+    print(f"phase 3 check: bf16 pingpong vs monolithic {line}")
     del c_ref, c_pp
 
     # warm-up request (allocator pools, cuBLAS handles), then the main path
@@ -876,6 +1118,112 @@ def phase_paged_serving(torch, dev, cfg, params):
     return check_live_state(torch, cfg, live, lv)
 
 
+def phase_placement_serving(torch, dev, cfg, params):
+    """Phase 5: phase 3's bf16 model, width, batch and micro-batches under
+    the zipf router bias over 4 expert nodes, served by the rebalanced
+    ping-pong path, by static m2n and by m2n with rebalancing.  Each run
+    is driven with
+    the launch counts set to 0 just before and read just after, and
+    reports its decode rate, ms per iteration, t_a and t_e, transport
+    bytes per kind, and a profiled window whose gating_dispatch launches
+    are counted (4 per micro-batch and layer under m2n) and timed.  Then
+    one decode step of its runtime, placement installed, is held against
+    a static ping-pong runtime on the same cache (check_bf16_logits).
+    Returns the kernels-line launches of the two gating_dispatch
+    variants."""
+    from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import format_transport
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving.engine import Request
+    pz = zipf_params(torch, cfg, params)
+    L, B = cfg.n_layers, MAIN["max_batch"]
+    toks = torch.randint(2, cfg.vocab, (B, MAIN["prompt_len"]), device=dev,
+                         generator=torch.Generator(dev).manual_seed(6))
+    _, c0 = prefill(pz, cfg, toks, max_seq=MAIN["max_seq"])
+    pos = torch.full((B,), MAIN["prompt_len"], dtype=torch.int32, device=dev)
+
+    def step(inst, slices):
+        cache = [{k: v.clone() for k, v in e.items()} for e in c0]
+        with record_routing() as (_, pp):
+            pp.active = True
+            logits, _ = inst.decode_microbatched(toks[:, -1], cache, pos, slices)
+        return logits, pp.calls
+
+    static = DisaggregatedInstance(cfg, pz, DisaggPlan(MAIN["microbatches"]))
+    prompts = prompts_for(MAIN, cfg.vocab, seed=1)
+    card = card_line()
+    res = {}
+    for name, (m2n, rebal) in TIMED_RUNS.items():
+        eng = build_engine(torch, cfg, pz, MAIN, "pingpong", use_m2n=m2n,
+                           rebalance=rebal, nodes=PLACE["expert_nodes"])
+        inst = eng.runtime
+        eng.submit(Request(rid=-1, prompt=list(range(2, 2 + MAIN["prompt_len"])),
+                           max_new_tokens=2))
+        eng.run_until_done()
+        eng.finished.clear()
+        pre = eng.stats()
+        inst.reset_stage_times()
+        eng.transport.reset_stats()
+        reset_launch_counts()
+        out, wall = serve(torch, eng, prompts, MAIN["max_new"])
+        launches = launch_counts()
+        st = eng.stats()
+        require(len(out) == MAIN["n_requests"]
+                and all(len(g) == MAIN["max_new"] for g in out.values())
+                and all(0 <= t < cfg.vocab for g in out.values() for t in g),
+                f"phase 5 {name}: requests unfinished or bad tokens")
+        for k in SERVING_KERNELS:
+            require(launches[k] > 0, f"phase 5 {name}: {k} was not launched")
+        require((launches["gating_dispatch[tables]"] > 0) == rebal
+                and (launches["gating_dispatch[owner]"] > 0) == m2n,
+                f"phase 5 {name}: gating_dispatch branch launches {launches}")
+        rebalances = st["rebalances"] - pre["rebalances"]
+        require(not rebal or (rebalances > 0 and st["replicated_experts"] >= 1),
+                f"phase 5 {name}: {rebalances} rebalances, "
+                f"{st['replicated_experts']} replicated experts")
+        iters = st["decode_iters"] - pre["decode_iters"]
+        dec_s = st["phases"]["decode_s"] - pre["phases"]["decode_s"]
+        dec_tokens = sum(map(len, out.values())) - len(out)
+        stages = st["stages"]
+        print(f"phase 5 [{name}] (bf16, {L} layers, pingpong m = "
+              f"{MAIN['microbatches']}, batch {B}, {PLACE['expert_nodes']} expert "
+              f"nodes{f' x {inst.placement_slots} slots' if rebal else ''}) on "
+              f"{card}: {dec_tokens} decode "
+              f"tokens in {dec_s:.3f} s = {dec_tokens / dec_s:.2f} tok/s decoding, "
+              f"{dec_s / max(1, iters) * 1e3:.2f} ms/iter over {iters} iters; "
+              f"t_a={stages['t_a'] * 1e6:.1f}us t_e={stages['t_e'] * 1e6:.1f}us; "
+              f"{rebalances} rebalances ({st['placement_updates'] - pre['placement_updates']}"
+              f" installed, {(st['rebalance_s'] - pre['rebalance_s']) * 1e3:.1f} ms), "
+              f"imbalance {st['imbalance']:.4f}, replicated experts "
+              f"{st['replicated_experts']}")
+        print(f"phase 5 [{name}] {format_transport(st['transport'])}")
+        print(f"phase 5 [{name}] launches: "
+              + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+        prof = profile_decode(torch, eng, prompts_for(MAIN, cfg.vocab, seed=2),
+                              label=f"phase 5 profile [{name}]")
+        per_call = PLACE["expert_nodes"] if m2n else 1
+        want_calls = 3 * L * len(eng.mb_slices) * per_call
+        require(prof["calls"] == want_calls,
+                f"phase 5 {name}: {prof['calls']} gating_dispatch calls in the "
+                f"window, expected {want_calls}")
+        print(f"phase 5 [{name}] profile: gating_dispatch {prof['kernels']} launches "
+              f"({per_call} per micro-batch and layer) in 3 iters, "
+              f"{prof['us'] / prof['kernels']:.2f} us each, "
+              f"{prof['us'] / 1e3:.3f} ms in all; device busy {prof['busy_ms']:.2f} "
+              f"ms of {prof['window_ms']:.2f} ms")
+        want, calls_want = step(static, eng.mb_slices)
+        got, calls_got = step(inst, eng.mb_slices)
+        line = check_bf16_logits(torch, f"phase 5 {name}", want, got, calls_want,
+                                 calls_got, L)
+        print(f"phase 5 check [{name}] vs static pingpong: {line}")
+        res[name] = launches
+        del eng, inst
+        torch.cuda.empty_cache()
+    return {"gating_dispatch[tables]": res["rebalanced"]["gating_dispatch[tables]"],
+            "gating_dispatch[owner]": res["m2n+rebalanced"]["gating_dispatch[owner]"]}
+
+
 def launch_on_live_state(torch, dev, cfg, params, eng):
     """At a decode iteration of the paged engine: launch the paged kernel
     on every layer of its live pool through its block tables, with a
@@ -988,7 +1336,9 @@ def check_live_state(torch, cfg, live, launches):
 def profile_decode(torch, eng, prompts, label="profile"):
     """Trace three decode iterations of a full batch with torch.profiler:
     the device's busy share of the window (union of kernel intervals on
-    both streams) and the kernels that take the most device time."""
+    both streams) and the kernels that take the most device time.
+    Returns the gating_dispatch calls of the window, their device kernels
+    and those kernels' summed time (us)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.cuda_build import launch_counts
     from repro_torch.serving.engine import Request
@@ -1007,9 +1357,7 @@ def profile_decode(torch, eng, prompts, label="profile"):
     eng.run_until_done()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        print(f"{label}: the profiler recorded no device time")
-        return
+    require(bool(spans), f"{label}: the profiler recorded no device time")
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -1022,10 +1370,12 @@ def profile_decode(torch, eng, prompts, label="profile"):
           f"{busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window "
           f"({len(spans)} device ops)")
     # each gating_dispatch call of the decode step (T = 4) is one kernel
-    gd_kernels = sum(1 for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "gating_dispatch" in e.name)
-    print(f"{label}: gating_dispatch {calls} calls, {gd_kernels} device kernels")
+    gd = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "gating_dispatch" in e.name]
+    gd_kernels = len(gd)
+    print(f"{label}: gating_dispatch {calls} calls, {gd_kernels} device kernels, "
+          f"{sum(gd) / max(1, gd_kernels):.2f} us each")
     require(calls > 0 and gd_kernels == calls,
             f"{label}: {gd_kernels} gating_dispatch kernels for {calls} calls")
     by_name = {}
@@ -1039,6 +1389,8 @@ def profile_decode(torch, eng, prompts, label="profile"):
                           if "attention" in kv[0] or "gating" in kv[0]]
     for name, (us, n) in shown:
         print(f"{label}:   {us / 1e3:8.3f} ms = {n:4d} x {us / n:8.2f} us  {name[:80]}")
+    return dict(calls=calls, kernels=gd_kernels, us=sum(gd), busy_ms=busy / 1e3,
+                window_ms=wall_us / 1e3)
 
 
 def main() -> int:
@@ -1081,13 +1433,17 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, n_layers=MAIN["n_layers"])
         params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
         launches = phase_bf16_serving(torch, dev, cfg, params)
-        for name, r in rows.items():
-            r["launches"] = launches[name]
+        for name in launches.keys() & rows.keys():
+            rows[name]["launches"] = launches[name]
         rows.update(phase_paged_serving(torch, dev, cfg, params))
+        torch.cuda.empty_cache()
+        for name, n in phase_placement_serving(torch, dev, cfg, params).items():
+            rows[name]["launches"] = n
         kernels = []
         for name in ("decode_attention", "paged_decode_attention", "gating_topk",
-                     "gating_dispatch", "grouped_matmul"):
-            r, src = rows[name], f"{name}.cu"
+                     "gating_dispatch", "gating_dispatch[tables]",
+                     "gating_dispatch[owner]", "grouped_matmul"):
+            r, src = rows[name], f"{name.split('[')[0]}.cu"
             require(src in REGISTRY, f"{src} not registered")
             kernels.append({
                 "name": name, "route": "cuda",
@@ -1102,7 +1458,8 @@ def main() -> int:
                      "bound_by": sh["bound"][1], "library_ms": sh["library_ms"],
                      **{k: sh[k] for k in ("fma_ms", "mma_ms") if k in sh}}
                     for sh in r["shapes"]]
-        require(len(kernels) == len(REGISTRY), "a registered kernel has no row")
+        require({Path(k["source"]).name for k in kernels} == set(REGISTRY),
+                "a registered kernel has no row")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

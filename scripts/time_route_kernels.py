@@ -23,8 +23,11 @@ before each), once with an L2 flush before every call (as
 ``chip_smoke.py`` times it) and once without (inputs warm in L2), at
 mixtral-8x22b's router for one decode micro-batch: x (T, 6144) bf16,
 router (6144, 8) f32, top-2, ``gating_topk`` at T = 4 and
-``gating_dispatch`` at T = 4 and 8 with capacity C = T.  It prints the
-card's name and power limit, then one JSON line per tree.
+``gating_dispatch`` at T = 4 and 8 with capacity C = T; then
+``gating_dispatch``'s two branches at T = 4: the placement tables of
+4 nodes x 4 slots (the rebalanced path's call) and the owner filter of
+shard 0 of 4 (the m2n path's), null for a tree without them.  It prints
+the card's name and power limit, then one JSON line per tree.
 """
 from __future__ import annotations
 
@@ -92,6 +95,25 @@ def worker(tree: Path) -> dict:
                                1e-5, 1e-5)
         out[f"gating_dispatch T={T}"] = times(
             lambda: kops.gating_dispatch(x, wr, K, E, T, count_weights=cw))
+    # the kernel's placement-table and owner-filter branches at T = 4, after
+    # the rows above so they leave them as they were; null where the
+    # tree's kernel or package has no such branch
+    x, cw = torch.randn(4, d, device=dev, generator=gen).bfloat16(), cw[:4]
+    cases = {"gating_dispatch tables T=4": 16, "gating_dispatch owner T=4": 8}
+    try:
+        _, S, tk = chip_smoke.placement_case(torch, dev, [100.0] + [4.0] * 7, 4)
+        kws = {"gating_dispatch tables T=4": tk,
+               "gating_dispatch owner T=4": dict(owner=0, slots_per_node=2)}
+        for label, nb in cases.items():
+            kw = dict(kws[label], count_weights=cw)
+            got = kops.gating_dispatch(x, wr, K, nb, 4, **kw)
+            want = gating_dispatch_plain(x, wr, K, nb, 4, **kw)
+            chip_smoke.require(torch.equal(got[0], want[0])
+                               and torch.equal(got[2], want[2]),
+                               f"{label}: idx_buf or counts differ")
+            out[label] = times(lambda: kops.gating_dispatch(x, wr, K, nb, 4, **kw))
+    except (ImportError, NotImplementedError):
+        out.update(dict.fromkeys(cases))
     return out
 
 

@@ -8,7 +8,9 @@ one H100 the two stages run on two CUDA streams instead:
     the fused router/top-k/dispatch kernel and the combine;
   * the expert stream runs the grouped expert MLP;
   * the M2N hop is an event recorded on the attention stream that the
-    expert stream waits on, the N2M hop the reverse.
+    expert stream waits on, the N2M hop the reverse.  Both go through
+    the runtime's ``core.transport`` ledger, which counts the bytes the
+    hop would carry between nodes.
 
 Work is issued in the order of ``pingpong.build_schedule``, double
 buffered: after attn(mb) and expert(mb) are issued, the previous
@@ -17,6 +19,21 @@ stream computes expert(mb) the attention stream computes attn(mb+1).
 A tensor made on one stream and read on the other is marked with
 ``record_stream`` so the caching allocator does not hand its memory out
 again before the reader is done.
+
+``expert_nodes`` is the count of expert nodes the placement and the m2n
+dispatch are solved for: the one-card counterpart of the JAX runtime's
+expert devices.  Two options follow the JAX runtime:
+
+  * ``DisaggPlan.use_m2n``: the expert stream runs the M2N dispatch
+    (``core.m2n``) over ``expert_nodes`` shards, routing included; the
+    attention stream sends it the (T, d) activations and gets back the
+    combined (T, d) output and the shard's routing counts;
+  * live expert placement (``apply_placement``, paper §6): the expert
+    weights are regathered node-major into ``expert_nodes *
+    placement_slots`` virtual slots, hot experts replicated, and the
+    dispatch maps each (token, k) to one replica by the token hash
+    (``gating_dispatch``'s placement tables).  The output stays
+    token-identical to the static placement.
 
 On the CPU (``device="cpu"`` parameters) there are no streams and the
 same schedule runs in order; the kernels take their plain versions.
@@ -32,10 +49,14 @@ from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.config import SUPPORTED_KINDS, ModelConfig
+from repro_torch.core import load_balance as lb_lib
+from repro_torch.core import m2n as m2n_lib
 from repro_torch.core import pingpong
+from repro_torch.core.transport import InProcessTransport
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import rms_norm
@@ -54,13 +75,27 @@ STAGES = ("attn", "expert", "combine")
 class DisaggPlan:
     n_microbatches: int = 3
     capacity_mode: str = "full"
+    # route MoE layers through the M2N dispatch (core.m2n) on the expert
+    # stream: routing per expert shard, only the shard's tokens gathered,
+    # the combine the sum of the shards' partials
+    use_m2n: bool = False
+    # per-node virtual expert slot budget for live placements, as a
+    # multiple of ceil(E/N): headroom for hot-expert replicas (§6)
+    replication_slots: float = 2.0
 
 
 class DisaggregatedInstance:
     """One model replica served with disaggregated expert parallelism."""
 
     def __init__(self, cfg: ModelConfig, params: dict,
-                 plan: Optional[DisaggPlan] = None):
+                 plan: Optional[DisaggPlan] = None, *, expert_nodes: int = 1,
+                 transport=None):
+        """``expert_nodes``: the expert nodes the placement and the m2n
+        dispatch are solved for.  ``transport``: the ledger every hop
+        goes through (default a private ``InProcessTransport``); the
+        serving engine reports the same one."""
+        if expert_nodes < 1:
+            raise ValueError(f"expert_nodes must be >= 1, got {expert_nodes}")
         for kind in cfg.layer_kinds:
             if kind not in SUPPORTED_KINDS:
                 raise NotImplementedError(
@@ -68,6 +103,9 @@ class DisaggregatedInstance:
                     f"{kind!r} ({cfg.name})")
         self.cfg = cfg
         self.plan = plan if plan is not None else DisaggPlan()
+        self.transport = (transport if transport is not None
+                          else InProcessTransport())
+        self.n_expert_nodes = expert_nodes
         self.device = params["embed"].device
         # the two stages share the caller's parameter tensors (no copy)
         split = EXPERT_KEYS if cfg.moe is not None else DENSE_KEYS
@@ -80,27 +118,53 @@ class DisaggregatedInstance:
         self.expert_stream = (torch.cuda.Stream(self.device)
                               if self.device.type == "cuda" else None)
         E = cfg.moe.n_experts if cfg.moe is not None else 0
+        # the live traffic trace: per-expert routed-token counts of the
+        # live rows, added on the attention stream
         self.expert_counts = torch.zeros(E, dtype=torch.float32,
                                          device=self.device)
         self._active: Optional[torch.Tensor] = None
+        # live expert placement (§6): static (contiguous expert blocks)
+        # until apply_placement installs tables and virtual-slot weights
+        self.placement: Optional[lb_lib.Placement] = None
+        self.tables: Optional[lb_lib.PlacementTables] = None
+        self.layers_expert_placed: Optional[List[dict]] = None
+        self._slot_experts: Optional[np.ndarray] = None   # expert in each slot
+        self._tables_dev: Optional[dict] = None
+        if cfg.moe is not None:
+            e_loc = -(-E // expert_nodes)
+            self.placement_slots = min(
+                E, max(e_loc, int(round(e_loc * self.plan.replication_slots))))
+        else:
+            self.placement_slots = 0
         self.reset_stage_times()
         self.last_trace: List[tuple] = []
 
     # ------------------------------------------------------------ stages
-    def _attn_phase(self, p, x, act, cache, pos, window):
+    def _attn_phase(self, p, x, act, cache, pos, window, tbl=None):
         cfg = self.cfg
         x = x + self_attn_decode_sublayer(p, cfg, x, pos, cache, window)
         h = rms_norm(x, p["ln2"])
-        if cfg.moe is None:
+        if cfg.moe is None or self.plan.use_m2n:
+            # m2n: routing and dispatch run on the expert stream; only the
+            # (T, d) activations cross
             return x, h, None
         cap = moe_lib.expert_capacity(h.shape[0], cfg.moe,
                                       self.plan.capacity_mode)
+        if tbl is None:
+            n_buckets, spn, tk = cfg.moe.n_experts, 0, {}
+        else:
+            # live placement: each (token, k) goes to one replica of its
+            # expert, a virtual slot of the node-major (N*S, ...) weights.
+            # Same expert weights, same combine: token-identical output
+            n_buckets = self.n_expert_nodes * self.placement_slots
+            spn, tk = self.placement_slots, tbl
         # fused router + top-k + capacity dispatch; act (the live-row
         # weights) keeps idle KV rows out of the traffic counts
         idx_buf, gate_buf, counts = kops.gating_dispatch(
-            h, p["router"], cfg.moe.top_k, n_buckets=cfg.moe.n_experts,
-            capacity=cap, bias=p.get("router_bias"), count_weights=act)
-        xe = moe_lib.gather_tokens(h, idx_buf)                 # (E, C, d)
+            h, p["router"], cfg.moe.top_k, n_buckets=n_buckets,
+            capacity=cap, bias=p.get("router_bias"), count_weights=act,
+            slots_per_node=spn, **tk)
+        xe = moe_lib.gather_tokens(h, idx_buf)                 # (rows, C, d)
         return x, h, {"xe": xe, "idx": idx_buf, "gates": gate_buf,
                       "counts": counts}
 
@@ -110,9 +174,25 @@ class DisaggregatedInstance:
                                     self.cfg.act)
         return gated_ffn(payload, pe["w1"], pe["w3"], pe["w2"], self.cfg.act)
 
+    def _expert_phase_m2n(self, pe, pa, h, act, tbl=None):
+        """The M2N dispatch over the expert nodes, routing included: (T, d)
+        output in h's dtype and one shard's (E,) routing counts."""
+        router = {k: pa[k] for k in ("router", "router_bias") if k in pa}
+        tables = (None if tbl is None
+                  else dict(tbl, slots_per_node=self.placement_slots))
+        y, counts = m2n_lib.sharded_routed_experts(
+            dict(pe, **router), h, self.cfg.moe, self.cfg.act,
+            self.plan.capacity_mode, n_shards=self.n_expert_nodes,
+            tables=tables, with_counts=True, count_weights=act)
+        return {"y": y, "counts": counts}
+
     def _combine_phase(self, p, x, h, out, disp):
         cfg = self.cfg
-        if cfg.moe is not None:
+        if cfg.moe is not None and self.plan.use_m2n:
+            # out["y"]: the routed output, gate-weighted and combined over
+            # the expert shards already
+            y = moe_lib.add_dense_extras(p, h, out["y"], cfg.act)
+        elif cfg.moe is not None:
             y = moe_lib.combine(out, disp["idx"], disp["gates"],
                                 x.shape[0]).to(x.dtype)
             # shared experts / dense residual stay with attention
@@ -166,22 +246,139 @@ class DisaggregatedInstance:
         return rep
 
     # ------------------------------------------------------ stream hops
-    def _hop(self, tensor, src, dst):
-        """Hand ``tensor`` from stream ``src`` to stream ``dst``: ``dst``
-        waits for everything issued on ``src`` so far, and the allocator
-        keeps the tensor's memory until ``dst`` is done with it."""
+    def _hop(self, payload, src, dst, *, fanout: int = 1, also=()):
+        """Hand ``payload`` from stream ``src`` to stream ``dst`` through
+        the transport: ``dst`` waits for everything issued on ``src`` so
+        far, the allocator keeps the memory of ``payload`` and of the
+        tensors in ``also`` until ``dst`` is done with them, and the
+        ledger counts ``payload``'s bytes times ``fanout``."""
         self.n_hops += 1
-        if src is None:
-            return
-        dst.wait_stream(src)
-        tensor.record_stream(dst)
+        self.transport.send_tokens(payload, dst, src=src, fanout=fanout)
+        if dst is not None:
+            for t in also:
+                t.record_stream(dst)
+
+    def _account_combine(self, t_tokens: int, d_model: int, itemsize: int):
+        """The m2n combine (a reduce-scatter plus an all-gather over the
+        expert nodes: 2 T d (N-1)/N bytes) as a collective hop, as the
+        JAX runtime accounts it."""
+        n = self.n_expert_nodes
+        if n > 1:
+            nbytes = 2 * t_tokens * d_model * itemsize * (n - 1) // n
+            self.transport.record_collective(nbytes, fanout=n)
+
+    # ----------------------------------------------- live expert placement
+    def apply_placement(self, placement: lb_lib.Placement) -> bool:
+        """Install a (possibly replicated) expert placement (paper §6).
+
+        The fractional ``Placement`` is compiled to lookup tables under
+        the fixed per-node slot budget ``placement_slots``, and every MoE
+        layer's expert weights are regathered node-major into
+        (N*S, ...) virtual-slot tensors: a replicated hot expert holds
+        one slot on each node that hosts it.  The shapes do not depend on
+        the placement, so a later placement is written into the same
+        tensors, after the card has drained (no stage still reads the old
+        slots): at full width a second placed copy would not fit beside
+        the first.  Only the slots whose expert changed are rewritten,
+        one copy per slot and weight (a gather of whole experts with
+        ``index_select`` ran at ~0.26 TB/s on the H100), and the ledger's
+        "weights" hop counts those bytes (the JAX runtime uploads every
+        slot).  The replica of a (token, k) is picked by the token hash,
+        so the output stays token-identical to the static placement.
+
+        Returns True when the placement was installed, False when the
+        solved tables match the ones being served (steady state) and the
+        regather was skipped."""
+        if self.cfg.moe is None:
+            raise ValueError("expert placement needs an MoE config")
+        if self.plan.capacity_mode != "full":
+            # a replicated expert's tokens are split over several buckets,
+            # so bounded capacity would drop other tokens than the static
+            # path: token identity holds for the drop-free capacity only
+            raise ValueError(
+                f"live placement requires capacity_mode='full' (drop-free); "
+                f"got {self.plan.capacity_mode!r}")
+        tables = lb_lib.placement_tables(placement, self.placement_slots)
+        if tables.n_nodes != self.n_expert_nodes:
+            raise ValueError(f"placement solved for {tables.n_nodes} nodes, "
+                             f"runtime has {self.n_expert_nodes}")
+        if self._placement_unchanged(tables):
+            return False
+        flat = tables.slot_experts.reshape(-1)
+        src = np.where(flat < 0, 0, flat)          # pad slots hold expert 0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self.layers_expert_placed is None:
+            self.layers_expert_placed = [
+                {k: raw[k].new_empty((flat.size,) + tuple(raw[k].shape[1:]))
+                 for k in EXPERT_KEYS} for raw in self.layers_expert]
+            changed = np.arange(flat.size)
+        else:
+            changed = np.nonzero(src != self._slot_experts)[0]
+        moved = []
+        for raw, placed in zip(self.layers_expert, self.layers_expert_placed):
+            for k in EXPERT_KEYS:
+                for slot in changed.tolist():
+                    placed[k][slot].copy_(raw[k][int(src[slot])])
+                    moved.append(placed[k][slot])
+        self._slot_experts = src
+        # the regather is the "weights" hop of the ledger
+        self.transport.regather_weights(moved)
+        self._tables_dev = {
+            k: torch.as_tensor(getattr(tables, k), dtype=dt, device=self.device)
+            for k, dt in (("rep_node", torch.int32), ("rep_slot", torch.int32),
+                          ("rep_cum", torch.float32))}
+        self.placement = placement
+        self.tables = tables
+        return True
+
+    def _placement_unchanged(self, tables: lb_lib.PlacementTables,
+                             cum_tol: float = 0.05) -> bool:
+        """True when ``tables`` would serve (essentially) the placement
+        already installed: the same expert->slot layout and replica
+        traffic splits within ``cum_tol``.  Any placement is correct, so
+        keeping a split that moved by less only leaves the traffic shares
+        slightly stale."""
+        cur = self.tables
+        return (cur is not None
+                and np.array_equal(cur.slot_experts, tables.slot_experts)
+                and np.array_equal(cur.rep_node, tables.rep_node)
+                and np.array_equal(cur.rep_slot, tables.rep_slot)
+                and np.abs(cur.rep_cum - tables.rep_cum).max() <= cum_tol)
+
+    @property
+    def placement_fractions(self) -> np.ndarray:
+        """The (E, N) expert->node fractions the runtime serves: the
+        applied placement's, or the static contiguous blocks before any
+        rebalance."""
+        if self.tables is not None:
+            return self.tables.fractions
+        return lb_lib.static_placement(self.cfg.moe.n_experts,
+                                       self.n_expert_nodes).fractions
 
     # ------------------------------------------------------ routing counts
     def set_active_slots(self, active):
         """Mark which KV rows serve a request ((B,) 0/1); idle rows are
-        decoded anyway but kept out of the per-expert counts."""
-        self._active = torch.as_tensor(active, dtype=torch.float32,
-                                       device=self.device)
+        decoded anyway but kept out of the per-expert counts.  ``None``
+        counts every row again."""
+        self._active = (None if active is None else torch.as_tensor(
+            active, dtype=torch.float32, device=self.device))
+
+    def reset_expert_counts(self):
+        """Zero the accumulated per-expert routed-token counts."""
+        self.expert_counts.zero_()
+
+    def peek_expert_counts(self) -> np.ndarray:
+        """Per-expert routed-token counts since the last reset (waits
+        for the attention stream)."""
+        return self.expert_counts.double().cpu().numpy()
+
+    def take_expert_counts(self) -> np.ndarray:
+        """``peek_expert_counts`` and a reset: one interval of live
+        expert traffic for ``balance_experts``."""
+        counts = self.peek_expert_counts()
+        self.reset_expert_counts()
+        return counts
 
     # ------------------------------------------------------------ decode
     def decode_microbatched(self, tokens, cache: List[dict], pos,
@@ -209,15 +406,26 @@ class DisaggregatedInstance:
         act = (self._active if self._active is not None else
                torch.ones(B, dtype=torch.float32, device=self.device))
         acts = [act[s] for s in mbs]
+        m2n = cfg.moe is not None and self.plan.use_m2n
+        placed = self.layers_expert_placed is not None
+        tbl = self._tables_dev if placed else None
 
         for l, kind in enumerate(cfg.layer_kinds):
             window = cfg.window if kind == "local" else 0
-            pa, pe = self.layers_attn[l], self.layers_expert[l]
+            pa = self.layers_attn[l]
+            pe = (self.layers_expert_placed[l] if placed
+                  else self.layers_expert[l])
             inflight: deque = deque()
 
             def drain_one():
                 i, x, h, out, disp = inflight.popleft()
-                self._hop(out, exp_s, attn_s)                    # N2M
+                if m2n:                                          # N2M
+                    self._hop(out["y"], exp_s, attn_s, also=(out["counts"],))
+                    # every shard counted the same tokens: one shard's
+                    # counts, added once, after the hop
+                    self.expert_counts += out["counts"]
+                else:
+                    self._hop(out, exp_s, attn_s)
                 xs[i] = self._timed("combine", attn_s, self._combine_phase,
                                     pa, x, h, out, disp)
 
@@ -225,14 +433,23 @@ class DisaggregatedInstance:
                 entry = {k: v[s] for k, v in cache[l].items()}   # row views
                 x, h, disp = self._timed("attn", attn_s, self._attn_phase,
                                          pa, xs[i], acts[i], entry, poss[i],
-                                         window)
+                                         window, tbl)
                 if disp is not None:
                     self.expert_counts += disp["counts"]
                 trace.append(("attn", i, l))
-                payload = h if disp is None else disp["xe"]
-                self._hop(payload, attn_s, exp_s)                # M2N
-                out = self._timed("expert", exp_s, self._expert_phase, pe,
-                                  payload)
+                if m2n:
+                    # the (T, d) activations go to every expert node
+                    self._hop(h, attn_s, exp_s, fanout=self.n_expert_nodes,
+                              also=(acts[i],))                   # M2N
+                    out = self._timed("expert", exp_s, self._expert_phase_m2n,
+                                      pe, pa, h, acts[i], tbl)
+                    self._account_combine(h.shape[0], h.shape[1],
+                                          h.element_size())
+                else:
+                    payload = h if disp is None else disp["xe"]
+                    self._hop(payload, attn_s, exp_s)            # M2N
+                    out = self._timed("expert", exp_s, self._expert_phase, pe,
+                                      payload)
                 trace.append(("expert", i, l))
                 inflight.append((i, x, h, out, disp))
                 # double buffer: one micro-batch on the expert stream, one

@@ -92,15 +92,19 @@ class CudaKernel:
     """One C entry point of one CUDA source, bound with ctypes.
 
     ``launches`` counts the launches made through ``launch`` and nothing
-    else, so a run can show which kernels its path went through.  The C
-    function takes the stream last and returns ``cudaGetLastError()``.
+    else, so a run can show which kernels its path went through;
+    ``variant_launches`` counts them again by the named branches of the
+    kernel a launch took.  The C function takes the stream last and
+    returns ``cudaGetLastError()``.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: List):
+    def __init__(self, source: str, symbol: str, argtypes: List,
+                 variants: Sequence[str] = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
+        self.variant_launches = dict.fromkeys(variants, 0)
         self._fn = None
         self._errstr = None
         REGISTRY[source] = self
@@ -115,9 +119,9 @@ class CudaKernel:
         self._errstr.restype = ctypes.c_char_p
         self._fn = fn
 
-    def launch(self, device: torch.device, *args):
+    def launch(self, device: torch.device, *args, variants: Sequence[str] = ()):
         """Launch on the current stream of ``device``; raises if the
-        launch was refused."""
+        launch was refused.  ``variants``: the branches this launch takes."""
         if self._fn is None:
             self._bind()
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -127,15 +131,25 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} launch failed: "
                                f"{self._errstr(rc).decode()} ({rc})")
         self.launches += 1
+        for v in variants:
+            self.variant_launches[v] += 1
 
 
 def reset_launch_counts():
     for k in REGISTRY.values():
         k.launches = 0
+        k.variant_launches = dict.fromkeys(k.variant_launches, 0)
 
 
 def launch_counts() -> Dict[str, int]:
-    return {Path(s).stem: k.launches for s, k in REGISTRY.items()}
+    """Launches by kernel, and by ``kernel[variant]`` for the kernels
+    that count their branches."""
+    out = {}
+    for s, k in REGISTRY.items():
+        out[Path(s).stem] = k.launches
+        out.update({f"{Path(s).stem}[{v}]": n
+                    for v, n in k.variant_launches.items()})
+    return out
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -10,6 +10,9 @@ Usage:
   python -m repro_torch.launch.serve --reduced --device cpu \\
       --runtime pingpong --microbatches 2 --kv-layout paged --page-size 8 \\
       --prompt-len 32 --shared-prefix-len 24
+  python -m repro_torch.launch.serve --reduced --device cpu \\
+      --runtime pingpong --microbatches 2 --expert-nodes 4 \\
+      --zipf-route-bias 1.2 --expert-rebalance-every 2 --use-m2n
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.config import get_config, reduced
 from repro_torch.core.disagg import STAGES, DisaggPlan, DisaggregatedInstance
+from repro_torch.core.transport import HOP_KINDS, TRANSPORTS, make_transport
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.config import (DTYPES, KV_LAYOUTS, RUNTIMES,
                                         ServingConfig)
@@ -55,6 +59,53 @@ def format_pages(stats: dict) -> str:
     return line
 
 
+def format_transport(tr: dict) -> str:
+    parts = []
+    for kind in HOP_KINDS:
+        h = tr.get(kind)
+        if h and h["hops"]:
+            p = f"{kind}={h['bytes'] / 1e6:.3f}MB/{h['hops']}"
+            if h["sim_s"]:
+                p += f"~{h['sim_s'] * 1e3:.2f}ms"
+            parts.append(p)
+    return f"transport[{tr['backend']}]: " + (" ".join(parts) or "no hops")
+
+
+def format_experts(stats: dict) -> str:
+    costs = " ".join(f"{c:.0f}" for c in stats["expert_node_cost"])
+    return (f"experts: imbalance={stats['imbalance']:.2f} node-cost=[{costs}] "
+            f"rebalances={stats['rebalances']} "
+            f"replicated={stats['replicated_experts']}")
+
+
+def zipf_router_bias(n_experts: int, alpha: float,
+                     scale: float = 1.5) -> torch.Tensor:
+    """A (E,) f32 router-logit bias that skews expert selection toward
+    the low-index experts along a zipf(alpha) popularity curve: the
+    controlled stand-in for the routing skew the §6 load balancer
+    absorbs (centered log-popularity, ``scale`` logit standard
+    deviations)."""
+    ranks = np.arange(1, n_experts + 1, dtype=np.float64)
+    p = ranks ** -alpha
+    p /= p.sum()
+    bias = np.log(p)
+    bias = (bias - bias.mean()) * scale / max(1e-9, bias.std())
+    return torch.from_numpy(bias.astype(np.float32))
+
+
+def inject_router_bias(params: dict, cfg, bias: torch.Tensor) -> dict:
+    """Attach ``bias`` as ``router_bias`` to every MoE layer of
+    ``params`` in place (the serving paths read it beside ``router``)."""
+    n = 0
+    for lp in params["layers"]:
+        if "router" in lp:
+            lp["router_bias"] = bias.to(lp["router"].device, torch.float32)
+            n += 1
+    if not n:
+        raise ValueError(f"{cfg.name} has no MoE router to bias")
+    return params
+
+
 def build(sc: ServingConfig):
     """(model config, engine) for one serving config."""
     cfg = get_config(sc.arch)
@@ -64,11 +115,24 @@ def build(sc: ServingConfig):
         cfg = dataclasses.replace(cfg, n_layers=sc.n_layers)
     dtype = getattr(torch, sc.dtype)
     params = init_params(cfg, sc.seed, dtype, device=sc.device)
+    if sc.zipf_route_bias > 0.0:
+        if cfg.moe is None:
+            raise ValueError("--zipf-route-bias needs an MoE arch")
+        inject_router_bias(params, cfg,
+                           zipf_router_bias(cfg.moe.n_experts,
+                                            sc.zipf_route_bias))
+    if sc.expert_rebalance_every and sc.runtime != "pingpong":
+        raise ValueError("--expert-rebalance-every needs --runtime pingpong")
+    # one ledger for every hop of the run
+    transport = make_transport(sc.transport)
     runtime = None
     if sc.runtime == "pingpong":
         runtime = DisaggregatedInstance(
-            cfg, params, plan=DisaggPlan(n_microbatches=sc.microbatches))
-    return cfg, Engine(cfg, params, config=sc, runtime=runtime)
+            cfg, params, plan=DisaggPlan(n_microbatches=sc.microbatches,
+                                         use_m2n=sc.use_m2n),
+            expert_nodes=sc.expert_nodes, transport=transport)
+    return cfg, Engine(cfg, params, config=sc, runtime=runtime,
+                       transport=transport)
 
 
 def prompt_maker(sc: ServingConfig, vocab: int, rng):
@@ -131,6 +195,14 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
     if "kv_pages" in stats:
         for k in ("allocs", "forks", "released"):
             stats["kv_pages"][k] -= pre["kv_pages"][k]
+    for k in ("rebalances", "placement_updates", "rebalance_s"):
+        if k in stats:
+            stats[k] -= pre[k]
+    # transport hop counters are cumulative per kind, too
+    for kind, hop in stats["transport"].items():
+        if isinstance(hop, dict) and kind in pre["transport"]:
+            for k in hop:
+                hop[k] -= pre["transport"][kind][k]
     stats["wall_s"] = dt
     # serve rate counts prefill and the first tokens it samples; decode
     # rate counts only tokens of decode iterations over their host time
@@ -145,10 +217,13 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
               f"{stats['decode_tok_per_s']:.2f} tok/s decoding, "
               f"{stats['decode_iters']} decode iters)")
         print(format_phases(stats["phases"]))
+        print(format_transport(stats["transport"]))
         if "kv_pages" in stats:
             print(format_pages(stats))
         if "stages" in stats:
             print(format_stages(stats["stages"]))
+        if "imbalance" in stats:
+            print(format_experts(stats))
         print("kernel launches: " + " ".join(
             f"{k}={v}" for k, v in sorted(stats["kernel_launches"].items())))
     return stats
@@ -169,6 +244,27 @@ def main():
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=3)
+    ap.add_argument("--use-m2n", action="store_true",
+                    help="route MoE layers through the M2N dispatch "
+                         "(core.m2n) over --expert-nodes shards on the "
+                         "expert stream")
+    ap.add_argument("--expert-nodes", type=int, default=1,
+                    help="expert nodes the placement and the m2n dispatch "
+                         "are solved for (all on this one device)")
+    ap.add_argument("--expert-rebalance-every", type=int, default=0,
+                    help="re-solve the expert placement from live routing "
+                         "counts every N decode iterations (0 = static "
+                         "contiguous placement; needs --runtime pingpong)")
+    ap.add_argument("--expert-replication",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="let hot experts be replicated across expert "
+                         "nodes when rebalancing (paper §6)")
+    ap.add_argument("--zipf-route-bias", type=float, default=0.0,
+                    help="inject a zipf(alpha) router-logit bias to skew "
+                         "expert traffic (0 = off)")
+    ap.add_argument("--transport", default="inproc", choices=sorted(TRANSPORTS),
+                    help="hop ledger: inproc = the stream hop, simrdma = the "
+                         "same plus a per-hop RDMA cost model")
     ap.add_argument("--kv-layout", default="contiguous", choices=KV_LAYOUTS,
                     help="KV-cache layout: contiguous = one (B, W) ring-"
                          "buffer row per request; paged = block tables "

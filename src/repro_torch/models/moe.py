@@ -156,6 +156,20 @@ def combine(out: torch.Tensor, idx_buf: torch.Tensor, gate_buf: torch.Tensor,
     return y[:n_tokens]
 
 
+_ROUTED_IMPL = None
+
+
+def set_routed_impl(fn):
+    """Install fn(params, x, cfg, act, capacity_mode) -> y (T, d) as the
+    routed-expert computation of every ``moe_ffn`` (``core.m2n.use_m2n``
+    installs the M2N dispatch), or None for ``routed_experts_dense``.
+    Returns the previous one."""
+    global _ROUTED_IMPL
+    prev = _ROUTED_IMPL
+    _ROUTED_IMPL = fn
+    return prev
+
+
 def routed_experts_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
                          act: str, capacity_mode: str) -> torch.Tensor:
     """Plain routed-expert computation (monolithic scatter/gather)."""
@@ -174,7 +188,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
             capacity_mode: str = "train") -> torch.Tensor:
     """MoE FFN over a flat token batch x: (T, d) -> (T, d).  Includes the
     always-on shared experts and the dense residual where configured."""
-    y = routed_experts_dense(params, x, cfg, act, capacity_mode)
+    impl = _ROUTED_IMPL if _ROUTED_IMPL is not None else routed_experts_dense
+    y = impl(params, x, cfg, act, capacity_mode)
     return add_dense_extras(params, x, y, act)
 
 

@@ -1,12 +1,15 @@
 """Typed serving configuration of the port: the fields of the JAX
 package's ``ServingConfig`` that the port supports, under the same
 names and defaults, plus what running at full width on one card needs
-(the layer count cut, the weight dtype, the device)."""
+(the layer count cut, the weight dtype, the device) and the count of
+expert nodes the placement and the m2n dispatch are solved for (the
+JAX package takes it from its expert devices)."""
 from __future__ import annotations
 
 import argparse
 from dataclasses import dataclass, fields, replace
 
+from repro_torch.core.transport import TRANSPORTS
 from repro_torch.serving.sampler import SamplingParams
 
 RUNTIMES = ("monolithic", "pingpong")
@@ -27,9 +30,14 @@ class ServingConfig:
     max_new: int = 8
     prompt_len: int = 0                # 0 = random lengths
     warmup_requests: int = 0
+    zipf_route_bias: float = 0.0
     verbose: bool = True
     # ---- decode runtime ------------------------------------------------
     microbatches: int = 3
+    use_m2n: bool = False
+    # ---- transport / expert nodes (paper §3-§4) -------------------------
+    transport: str = "inproc"          # inproc | simrdma
+    expert_nodes: int = 1              # expert nodes placement and m2n see
     # ---- KV cache layout (paged subsystem) ------------------------------
     kv_layout: str = "contiguous"      # contiguous | paged
     page_size: int = 16                # token slots per KV page (paged)
@@ -43,6 +51,9 @@ class ServingConfig:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    expert_rebalance_every: int = 0
+    expert_replication: bool = True
+    expert_window: int = 8
 
     def __post_init__(self):
         if self.runtime not in RUNTIMES:
@@ -50,6 +61,15 @@ class ServingConfig:
                              f"got {self.runtime!r}")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {self.dtype!r}")
+        if self.transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {sorted(TRANSPORTS)}, "
+                             f"got {self.transport!r}")
+        if self.expert_nodes < 1:
+            raise ValueError(f"expert_nodes must be >= 1, "
+                             f"got {self.expert_nodes}")
+        if self.expert_rebalance_every < 0:
+            raise ValueError(f"expert_rebalance_every must be >= 0, "
+                             f"got {self.expert_rebalance_every}")
         self.microbatches = int(self.microbatches)
         if self.microbatches < 1:
             raise ValueError("microbatches must be >= 1")

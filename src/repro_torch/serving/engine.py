@@ -11,6 +11,11 @@ The decode iteration runs in one of two modes:
     ``DisaggregatedInstance`` runs each iteration through the ping-pong
     schedule on two CUDA streams, with all three kernels.
 
+In ``pingpong`` mode with ``expert_rebalance_every`` > 0 the engine
+also re-solves the expert placement (paper §6) from the runtime's live
+routing counts every that many decode iterations, over a sliding window
+of the last ``expert_window`` intervals, and applies it to the runtime.
+
 The KV cache has one of two layouts (``ServingConfig.kv_layout``):
   * ``contiguous`` — one dense ``(B, W)`` ring-buffer row per KV slot;
   * ``paged`` — rows are virtual: per-request block tables over a
@@ -23,6 +28,7 @@ The KV cache has one of two layouts (``ServingConfig.kv_layout``):
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -30,7 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.load_balance import balance_experts, evaluate_placement
 from repro_torch.core.pingpong import even_partition
+from repro_torch.core.transport import InProcessTransport
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cuda_build import launch_counts
 from repro_torch.models.transformer import decode_step, init_cache, prefill
@@ -64,11 +72,15 @@ class Request:
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params: dict, *,
-                 config: Optional[ServingConfig] = None, runtime=None):
+                 config: Optional[ServingConfig] = None, runtime=None,
+                 transport=None):
         """``config`` sets every scalar knob (``ServingConfig``; its
         ``runtime`` field picks the mode, its ``device`` field where the
         params live and the KV cache is made).  ``runtime``: the
-        ``DisaggregatedInstance`` the pingpong mode drives."""
+        ``DisaggregatedInstance`` the pingpong mode drives.
+        ``transport``: the hop ledger ``stats()`` reports; by default
+        the runtime's (its M2N / N2M / weight hops), else a private
+        ``InProcessTransport``."""
         base = config if config is not None else ServingConfig(max_batch=8,
                                                                max_seq=256)
         self.device = resolve_device(base.device)
@@ -78,11 +90,27 @@ class Engine:
         if base.runtime == "pingpong" and runtime is None:
             raise ValueError("pingpong mode needs a DisaggregatedInstance "
                              "runtime")
+        if base.expert_rebalance_every:
+            if (base.runtime != "pingpong"
+                    or not hasattr(runtime, "apply_placement")):
+                raise ValueError("expert_rebalance_every needs the pingpong "
+                                 "mode's runtime (live placement support, "
+                                 "core.disagg.DisaggregatedInstance)")
+            if cfg.moe is None:
+                raise ValueError("expert rebalancing needs an MoE config")
+            if runtime.plan.capacity_mode != "full":
+                # fail here, not at the first rebalance mid-serve
+                raise ValueError("expert rebalancing requires the runtime "
+                                 "plan's capacity_mode='full' (drop-free)")
         self.serving_config = base
         self.cfg = cfg
         self.params = params
         self.mode = base.runtime
         self.runtime = runtime if self.mode == "pingpong" else None
+        if transport is None:
+            transport = getattr(self.runtime, "transport", None)
+        self.transport = (transport if transport is not None
+                          else InProcessTransport())
         self.max_batch, self.max_seq = base.max_batch, base.max_seq
         self.sampling = base.sampling_params()
         self.kv_layout = base.kv_layout
@@ -121,6 +149,13 @@ class Engine:
         self.t_transfer = 0.0
         self.t_decode = 0.0
         self.n_transfers = 0
+        # live expert load balancing (paper §6)
+        self.expert_rebalance_every = base.expert_rebalance_every
+        self.expert_replication = base.expert_replication
+        self._load_window: deque = deque(maxlen=max(1, base.expert_window))
+        self.n_rebalances = 0
+        self.n_placement_updates = 0
+        self.t_rebalance = 0.0
 
     # ------------------------------------------------------------- frontend
     def submit(self, req: Request):
@@ -246,6 +281,19 @@ class Engine:
             self.n_transfers += 1
             self._start_request(req, slot, last_logits)
 
+    def _rebalance(self):
+        """Drain one interval of live routing counts, re-solve the
+        placement over the sliding window, and apply it (§6)."""
+        t0 = time.perf_counter()
+        self._load_window.append(self.runtime.take_expert_counts())
+        loads = np.sum(self._load_window, axis=0)
+        placement = balance_experts(loads, self.runtime.n_expert_nodes,
+                                    allow_replication=self.expert_replication)
+        if self.runtime.apply_placement(placement):
+            self.n_placement_updates += 1
+        self.n_rebalances += 1
+        self.t_rebalance += time.perf_counter() - t0
+
     def _retire(self):
         for rid in [r for r, q in self.running.items() if q.done]:
             req = self.running.pop(rid)
@@ -345,6 +393,9 @@ class Engine:
             req.generated.append(nxt[req.slot])
             self._last_token[req.slot] = nxt[req.slot]
         self.n_decode_iters += 1
+        if (self.expert_rebalance_every
+                and self.n_decode_iters % self.expert_rebalance_every == 0):
+            self._rebalance()
         n_active = len(self.running)
         self._retire()
         return n_active
@@ -362,8 +413,9 @@ class Engine:
     # ------------------------------------------------------------- metrics
     def stats(self) -> dict:
         """Tokens, iterations, per-phase host time (decode includes the
-        wait for the sampled tokens), per-stage device time (pingpong)
-        and the kernel launch counts."""
+        wait for the sampled tokens), the transport ledger, per-stage
+        device time and the expert-balance report (pingpong) and the
+        kernel launch counts."""
         lat = [r.t_done - r.t_submit for r in self.finished]
         out = {
             "finished": len(self.finished),
@@ -381,6 +433,9 @@ class Engine:
                        "decode_n": self.n_decode_iters},
             "kernel_launches": launch_counts(),
             "kv_layout": self.kv_layout,
+            # per-hop traffic by kind (tokens / weights / collective), the
+            # ledger shared with the runtime
+            "transport": self.transport.stats(),
         }
         if self.page_pool is not None:
             out["kv_pages"] = self.page_pool.stats()
@@ -389,5 +444,21 @@ class Engine:
         if self.mode == "pingpong":
             out["n_microbatches"] = len(self.mb_slices)
             out["stages"] = self.runtime.stage_report()
-            out["expert_loads"] = self.runtime.expert_counts.tolist()
+        if self.cfg.moe is not None and self.runtime is not None:
+            # the placement served now, priced on the latest traffic
+            # window (intervals drained at rebalances plus the remainder;
+            # also the never-rebalanced static case)
+            loads = (np.sum(self._load_window, axis=0)
+                     if self._load_window else 0.0)
+            loads = loads + self.runtime.peek_expert_counts()
+            fractions = self.runtime.placement_fractions
+            pl = evaluate_placement(fractions, loads)
+            out["imbalance"] = pl.imbalance
+            out["expert_node_cost"] = pl.node_cost.tolist()
+            out["expert_loads"] = loads.tolist()
+            out["rebalances"] = self.n_rebalances
+            out["placement_updates"] = self.n_placement_updates
+            out["rebalance_s"] = self.t_rebalance
+            out["replicated_experts"] = int(
+                ((fractions > 1e-9).sum(axis=1) > 1).sum())
         return out

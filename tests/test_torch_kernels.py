@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import load_balance as lb
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import gating_dispatch as gd_mod
@@ -758,12 +759,129 @@ def test_gating_dispatch_kernel_refuses_a_misaligned_view(cuda):
         kops.gating_dispatch(xm, _t(w).to(cuda), 2, 8, 4)
 
 
+def _branch_kwargs(cuda, case, e, owner=None):
+    """gating_dispatch keyword arguments of one branch case: "tables"
+    (4 nodes x 4 slots, hot expert 0 replicated), "owner" (e experts
+    padded to 8 buckets over 4 shards, one shard's rows), "both", or
+    "padded" (no owner, 8 buckets for e < 8 experts).  Returns (kwargs,
+    n_buckets)."""
+    if case == "padded":
+        return {}, 8
+    if case == "owner":
+        return dict(owner=owner, slots_per_node=2), 8
+    tbl = lb.placement_tables(lb.balance_experts([100.0] + [4.0] * (e - 1), 4), 4)
+    assert (tbl.fractions > 1e-9).sum(1).max() > 1          # R > 1 in use
+    kw = dict(slots_per_node=4,
+              rep_node=torch.from_numpy(tbl.rep_node).to(cuda),
+              rep_slot=torch.from_numpy(tbl.rep_slot).to(cuda),
+              rep_cum=torch.from_numpy(tbl.rep_cum).to(cuda))
+    if case == "both":
+        kw["owner"] = owner
+    return kw, 16
+
+
 @pytest.mark.cuda
-def test_gating_dispatch_kernel_refuses_tables(cuda):
-    x, w = _dispatch_case(8, 16, 4)
-    with pytest.raises(NotImplementedError):
-        kops.gating_dispatch(_t(x).to(cuda), _t(w).to(cuda), 2, 4, 8, owner=0,
-                             slots_per_node=2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 4, 8, 16, 17, 128])
+@pytest.mark.parametrize("case,e,owner", [
+    ("tables", 8, None), ("owner", 6, 0), ("owner", 6, 2), ("owner", 6, 3),
+    ("both", 8, 0), ("both", 8, 1), ("both", 8, 2), ("both", 8, 3),
+    ("padded", 6, None)])
+def test_gating_dispatch_kernel_branches_match_plain(cuda, dtype, t, case, e,
+                                                     owner):
+    """The placement-table and owner-filter branches, one launch (t <=
+    16) and two (t > 16), with a bias, 0/1 count weights and a capacity
+    below the mean load: idx_buf and counts identical to the plain
+    version, gates at 1e-5, two launches bit-identical, and each launch
+    counted under its branches."""
+    x, w = _dispatch_case(t, 96, e, seed=e)
+    xt, wt = _t(x).to(cuda, dtype), _t(w).to(cuda)
+    bk, n_buckets = _branch_kwargs(cuda, case, e, owner)
+    cap = max(1, t * 2 // e)
+    kw = dict(bias=torch.linspace(-0.5, 0.5, e, device=cuda),
+              count_weights=(torch.arange(t, device=cuda) % 3 > 0).float(), **bk)
+    n0 = dict(gd_mod.KERNEL.variant_launches)
+    got = kops.gating_dispatch(xt, wt, 2, n_buckets, cap, **kw)
+    again = kops.gating_dispatch(xt, wt, 2, n_buckets, cap, **kw)
+    want = gating_dispatch_plain(xt, wt, 2, n_buckets, cap, **kw)
+    torch.cuda.synchronize()
+    rows = bk.get("slots_per_node", n_buckets) if "owner" in bk else n_buckets
+    assert tuple(got[0].shape) == (rows, cap)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+    _close(got[1], want[1].cpu().numpy())
+    took = {"tables": "rep_node" in bk, "owner": "owner" in bk}
+    for v, n in took.items():
+        assert gd_mod.KERNEL.variant_launches[v] == n0[v] + 2 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 17])
+def test_gating_dispatch_kernel_largest_tables(cuda, t):
+    """256 experts over 16 nodes: (256, 16) tables, 48 KB in shared
+    memory beside the cluster kernel's 40 KB of tiles (the launch raises
+    its shared-memory limit) and all of the slot kernel's; owner 5's 32
+    slots against the plain version."""
+    e, nodes = 256, 16
+    loads = 1000.0 / np.arange(1, e + 1) ** 1.2
+    tbl = lb.placement_tables(lb.balance_experts(loads, nodes), 32)
+    assert tbl.rep_node.shape == (e, 16)
+    x, w = _dispatch_case(t, 64, e, seed=1)
+    xt, wt = _t(x).to(cuda, torch.bfloat16), _t(w).to(cuda)
+    kw = dict(owner=5, slots_per_node=32,
+              rep_node=torch.from_numpy(tbl.rep_node).to(cuda),
+              rep_slot=torch.from_numpy(tbl.rep_slot).to(cuda),
+              rep_cum=torch.from_numpy(tbl.rep_cum).to(cuda))
+    got = kops.gating_dispatch(xt, wt, 4, nodes * 32, t, **kw)
+    want = gating_dispatch_plain(xt, wt, 4, nodes * 32, t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _close(got[1], want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_gating_dispatch_kernel_owners_cover_the_tables_path(cuda):
+    """The four owners' rows stacked are the no-owner call's buffers with
+    the same tables (every entry lands on exactly one node)."""
+    x, w = _dispatch_case(12, 64, 8, seed=3)
+    xt, wt = _t(x).to(cuda, torch.bfloat16), _t(w).to(cuda)
+    bk, n_buckets = _branch_kwargs(cuda, "tables", 8)
+    full = kops.gating_dispatch(xt, wt, 2, n_buckets, 12, **bk)
+    parts = [kops.gating_dispatch(xt, wt, 2, n_buckets, 12, owner=j, **bk)
+             for j in range(4)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([p[0] for p in parts]), full[0])
+    assert torch.equal(torch.cat([p[1] for p in parts]), full[1])
+    assert all(torch.equal(p[2], full[2]) for p in parts)
+
+
+@pytest.mark.cuda
+def test_gating_dispatch_kernel_hash_rounding_to_one_takes_the_last_replica(cuda):
+    """Token 10939236 hashes to u = 1.0 in f32 (h rounds up to 2**32), so
+    ``sum(u >= cum)`` reaches R and is clamped to the last replica.  One
+    call over T = 10939237 tokens, every token routed to the replicated
+    expert 0 (two launches: the slot kernel hashes the token's row in the
+    call), against the plain version."""
+    T, tok = 10939237, 10939236
+    assert float(moe_lib.token_hash01(torch.tensor([tok]))[0]) == 1.0
+    x = torch.randn(T, 8, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    w = torch.zeros(8, 4, device=cuda)
+    tbl = lb.placement_tables(lb.balance_experts([100.0, 1.0, 1.0, 1.0], 2), 4)
+    assert tbl.rep_node[0, 0] != tbl.rep_node[0, 1]
+    kw = dict(bias=torch.tensor([10.0, 0.0, 0.0, 0.0], device=cuda),
+              slots_per_node=4,
+              rep_node=torch.from_numpy(tbl.rep_node).to(cuda),
+              rep_slot=torch.from_numpy(tbl.rep_slot).to(cuda),
+              rep_cum=torch.from_numpy(tbl.rep_cum).to(cuda))
+    got = kops.gating_dispatch(x, w, 1, 8, T, **kw)
+    want = gating_dispatch_plain(x, w, 1, 8, T, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    last = int(tbl.rep_node[0, 1]) * 4 + int(tbl.rep_slot[0, 1])
+    row = got[0][last]
+    assert int(row[(row < T).sum() - 1]) == tok        # the last token's slot
+    del x, got, want
 
 
 @pytest.mark.cuda

@@ -260,15 +260,17 @@ def test_local_layers_use_a_window_ring():
 def test_port_imports_nothing_of_jax():
     """Every module of repro_torch (and chip_smoke.py) imports, in a fresh
     interpreter, with neither jax nor any module of the JAX package.  The
-    paged serving modules and the gating_topk kernel are named, so the
-    check fails if the walk stops reaching them."""
+    paged serving modules, the gating_topk kernel and the m2n, transport
+    and load-balance modules are named, so the check fails if the walk
+    stops reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('serving.pages', 'serving.prefix_cache', 'serving.prefill',\n"
-        "          'kernels.gating_topk'):\n"
+        "          'kernels.gating_topk', 'core.m2n', 'core.transport',\n"
+        "          'core.load_balance'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
