@@ -22,7 +22,10 @@ then:
      one gating-dispatch call there and in the f32 case at T = 128,
      which must be one, one and two (``dispatch_launches``), the
      grouped matmul at the up and the down projection with each of
-     its two compute bodies (beside ``torch.bmm``).  Gating dispatch's
+     its two compute bodies (beside ``torch.bmm``).  The three serving
+     kernels are also held at the row counts of m = 3 micro-batches of
+     the 8-row batch (3 and 2), and decode attention at B = 1 (the
+     suffix prefill's decode steps).  Gating dispatch's
      placement-table and owner-filter branches are held against the
      plain version in bf16 and f32 at T = 4, 8 and 128 (tables only,
      owner only over padded buckets, both for each of 4 owners, and a
@@ -66,9 +69,27 @@ then:
      m2n), and one decode step with the placement installed held against
      a static ping-pong runtime (routing compared first, as phase 3).
 
+  6. on phase 3's bf16 model, batch and requests: the micro-batch choice
+     of paper eq. 3 from one profiled decode iteration under the
+     ``inproc`` and the ``simrdma`` transport (t_a, t_e, t_c and m; m = 2
+     where t_c = 0), then serves ping-pong with m = auto (simrdma) and
+     prefill on the prefill worker (async), the paged ping-pong engine
+     with the prefill worker and the radix prefix cache, and ``--runtime
+     disagg``, each with the launch counts and the transport ledger set
+     to 0 just before and read just after: decode rate, ms per iteration,
+     KV transfer time and hops, prefill batches, every kernel of the path
+     launched, and every "kv" hop of the bytes its shape gives (a request
+     row, or one page).  One decode step of the m = auto run's runtime,
+     at the m it chose, is held against the monolithic decode step on
+     the same cache (routing compared first, as phase 3).
+
 Phase 2 also serves the paged layout (monolithic and ping-pong, prefix
-cache on) on shared-prefix prompts, whose tokens must equal the
-contiguous monolithic ones.
+cache on) on shared-prefix prompts, the prefill worker (monolithic and
+ping-pong under sync and async KV transfer, ping-pong at m = 3, and paged
+ping-pong with the prefix cache) and ``--runtime disagg`` at m = 2, whose
+tokens must all
+equal the contiguous monolithic ones, with one "kv" hop per request
+(contiguous) or per non-shared page (paged).
 
 After the build it prints each kernel's registers, shared memory and
 spills from ``nvcc -Xptxas -v``.  Each decode profile (phases 3 and 4)
@@ -211,16 +232,24 @@ def require_dispatch_kernels(torch, gd_mod, fn, T, label):
     counted by torch.profiler, must be the wrapper's
     ``dispatch_launches(T)``; returns the count."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    # a session that records no device activity at all has not seen the
+    # call (CUPTI can miss a process's first session): it is repeated,
+    # up to 3 times; any session that sees the device decides
+    for _ in range(3):
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "gating_dispatch" in e.name)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    require(bool(names), f"{label}: torch.profiler recorded no device activity "
+            f"in 3 sessions")
+    n = sum("gating_dispatch" in name for name in names)
     require(n == gd_mod.dispatch_launches(T),
             f"{label}: one call ran {n} gating_dispatch device kernels, "
-            f"expected {gd_mod.dispatch_launches(T)}")
+            f"expected {gd_mod.dispatch_launches(T)} (device events {names})")
     return n
 
 
@@ -478,6 +507,21 @@ def phase_kernels(torch, dev):
                                  f"{tuple(fargs[1].shape)}", fargs))
     rows["decode_attention"] = dict(
         shapes[0], shapes=shapes, replaces="src/repro/kernels/decode_attention.py:85")
+    # the other row counts of the serving paths: B = 3 and 2 (m = 3
+    # micro-batches of the 8-row batch) and B = 1 (the prefix-cache
+    # suffix prefill's decode steps on one request row, at the last
+    # prompt position)
+    for Bs, Ps in ((3, P), (2, P), (1, PAGED["prompt_len"] - 1)):
+        cs = torch.arange(W, dtype=torch.int32, device=dev).repeat(Bs, 1)
+        cs[cs > Ps] = -1
+        sargs = (randn(Bs, H, hd), randn(Bs, W, Hkv, hd), randn(Bs, W, Hkv, hd), cs,
+                 torch.full((Bs,), Ps, dtype=torch.int32, device=dev))
+        got = kops.decode_attention(*sargs)
+        want = attn_plain(*sargs)
+        check_close(torch, f"decode_attention bf16 B={Bs}", got, want, 2e-2, 2e-2)
+        print(f"decode_attention bf16 q {tuple(sargs[0].shape)} ring "
+              f"{tuple(sargs[1].shape)}, {Ps + 1} valid slots per row: max |err| "
+              f"{max_err(torch, got, want):.3e}")
     # f32 small shape: window, softcap, ragged W, GQA rep 4
     qf, kf, vf = (randn(2, 8, 64, dtype=torch.float32),
                   randn(2, 37, 2, 64, dtype=torch.float32),
@@ -582,6 +626,16 @@ def phase_kernels(torch, dev):
         return r, x
 
     (r4, x), (r8, _) = dispatch_shape(T), dispatch_shape(2 * T)
+    # the m = 3 micro-batches' token counts
+    for Ts in (3, 2):
+        xt, gk = randn(Ts, d), dict(count_weights=torch.ones(Ts, device=dev))
+        got = kops.gating_dispatch(xt, wr, K, E, Ts, **gk)
+        want = gating_dispatch_plain(xt, wr, K, E, Ts, **gk)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+                f"gating_dispatch T={Ts}: idx_buf or counts differ")
+        check_close(torch, f"gating_dispatch T={Ts} gates", got[1], want[1], 1e-5, 1e-5)
+        print(f"gating_dispatch x ({Ts},{d}) bf16, C = {Ts}: idx_buf and counts "
+              f"identical, gates max |err| {max_err(torch, got[1], want[1]):.3e}")
     shapes = [r4, r8]
     rows["gating_dispatch"] = dict(
         shapes[0], shapes=shapes, replaces="src/repro/kernels/gating_topk.py:255")
@@ -656,6 +710,16 @@ def phase_kernels(torch, dev):
     shapes = [gm_shape("up", xe, w1), gm_shape("down", he, w2)]
     rows["grouped_matmul"] = dict(
         shapes[0], shapes=shapes, replaces="src/repro/kernels/grouped_matmul.py:56")
+    # the m = 3 micro-batches' capacities, M = C = 3 and 2, with the body
+    # the wrapper picks
+    for Ms in (3, 2):
+        for label, a, b in (("up", xe[:, :Ms], w1), ("down", he[:, :Ms], w2)):
+            a = a.contiguous()
+            got, want = kops.grouped_matmul(a, b), grouped_matmul_plain(a, b)
+            check_close(torch, f"grouped_matmul bf16 {label} M={Ms}", got, want,
+                        2e-2, 2e-2)
+            print(f"grouped_matmul bf16 {label} {tuple(a.shape)} @ {tuple(b.shape)}: "
+                  f"max |err| {max_err(torch, got, want):.3e}")
     for shape in ((3, 17, 130, 257), (2, 1, 64, 8)):
         g_, m_, k_, n_ = shape
         a_, b_ = randn(g_, m_, k_, dtype=torch.float32), randn(
@@ -689,25 +753,27 @@ MOE_KERNELS = ("gating_dispatch", "grouped_matmul")
 
 
 def build_engine(torch, cfg, params, spec, runtime, kv_layout="contiguous",
-                 prefix_cache=True, use_m2n=False, rebalance=False, nodes=1):
-    """An engine of the port for ``spec``; its ping-pong runtime is solved
-    for ``nodes`` expert nodes, with the m2n dispatch and rebalancing
-    every PLACE["rebalance_every"] decode iterations when asked."""
-    from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
+                 prefix_cache=True, use_m2n=False, rebalance=False, nodes=1,
+                 transfer=None, microbatches=None, transport="inproc"):
+    """An engine of the port for ``spec``, made by the launcher's
+    ``engine_for``: its disaggregated runtime (disagg / pingpong) is
+    solved for ``nodes`` expert nodes, with the m2n dispatch and
+    rebalancing every PLACE["rebalance_every"] decode iterations when
+    asked; ``transfer`` ("sync" / "async") puts prefill on the prefill
+    worker; ``microbatches`` ("auto" or a count) overrides spec's."""
+    from repro_torch.launch.serve import engine_for
     from repro_torch.serving.config import ServingConfig
-    from repro_torch.serving.engine import Engine
     sc = ServingConfig(max_batch=spec["max_batch"], max_seq=spec["max_seq"],
-                       runtime=runtime, microbatches=spec["microbatches"],
+                       runtime=runtime,
+                       microbatches=microbatches or spec["microbatches"],
                        kv_layout=kv_layout, page_size=spec.get("page_size", 16),
                        prefix_cache=prefix_cache, verbose=False,
                        device=str(params["embed"].device), use_m2n=use_m2n,
-                       expert_nodes=nodes,
+                       expert_nodes=nodes, transport=transport,
+                       prefill_devices=int(transfer is not None),
+                       transfer=transfer or "async",
                        expert_rebalance_every=PLACE["rebalance_every"] * rebalance)
-    inst = (DisaggregatedInstance(cfg, params,
-                                  DisaggPlan(sc.microbatches, use_m2n=use_m2n),
-                                  expert_nodes=nodes)
-            if runtime == "pingpong" else None)
-    return Engine(cfg, params, config=sc, runtime=inst)
+    return engine_for(sc, cfg, params)
 
 
 def zipf_params(torch, cfg, params):
@@ -841,7 +907,105 @@ def phase_f32_parity(torch, dev, base_cfg):
         print(f"phase 2 launches [{name}]: "
               + " ".join(f"{k}={v}" for k, v in counts.items()))
     torch.cuda.empty_cache()
+    phase_prefill_worker_parity(torch, cfg, params, prompts, toks["monolithic"])
     phase_placement_parity(torch, dev, cfg, params)
+
+
+def warm_prompt(prompt, spec):
+    """A prompt that shares ``prompt``'s system prompt and nothing after
+    it: served first, it publishes the shared pages to the radix tree, so
+    every later request hits them (a burst on a cold tree all misses)."""
+    n = spec["shared_prefix_len"]
+    return list(prompt[:n]) + list(range(2, 2 + spec["prompt_len"] - n))
+
+
+def kv_hop_bytes(cfg, params, slots: int) -> int:
+    """Bytes of one KV hop of ``slots`` token slots: every layer's K and V
+    (``n_kv_heads`` x head_dim in the weights' dtype) and its int32
+    positions."""
+    itemsize = params["embed"].element_size()
+    return cfg.n_layers * slots * (2 * cfg.n_kv_heads * cfg.resolved_head_dim
+                                   * itemsize + 4)
+
+
+def check_kv_hops(label, st, spec, layout, transfer, prompts, cfg, params):
+    """Require the ledger's "kv" hops of one run: none without the prefill
+    worker, one per non-shared page (paged) or per request row
+    (contiguous) with it, each of the bytes its shape gives.  Returns
+    (the ledger's kv entry, expected hops, bytes per hop)."""
+    from repro_torch.serving.pages import n_pages_for
+    kv = st["transport"].get("kv", {"hops": 0, "bytes": 0})
+    if transfer is None:
+        want_hops, per_hop = 0, 0
+    elif layout == "paged":
+        ps = spec["page_size"]
+        shared = spec["shared_prefix_len"] // ps
+        want_hops = sum(n_pages_for(len(p), ps) - shared for p in prompts)
+        per_hop = kv_hop_bytes(cfg, params, ps)
+    else:
+        want_hops, per_hop = len(prompts), kv_hop_bytes(cfg, params, spec["max_seq"])
+    require(kv["hops"] == want_hops and kv["bytes"] == want_hops * per_hop,
+            f"{label}: kv hops {kv}, expected {want_hops} x {per_hop} B")
+    return kv, want_hops, per_hop
+
+
+# phase 2's prefill-worker engines: (runtime, layout, transfer,
+# microbatches; None for the spec's).  m = 3 splits the 8-row batch as
+# 3 / 3 / 2, the shapes of phase 6's m = auto run
+WORKER_RUNS = {"worker sync": ("monolithic", "contiguous", "sync", None),
+               "worker async": ("monolithic", "contiguous", "async", None),
+               "pingpong worker sync": ("pingpong", "contiguous", "sync", None),
+               "pingpong worker async": ("pingpong", "contiguous", "async", None),
+               "pingpong m=3 worker async": ("pingpong", "contiguous", "async", 3),
+               "paged pingpong worker+prefix": ("pingpong", "paged", "async", None),
+               "disagg": ("disagg", "contiguous", None, None)}
+
+
+def phase_prefill_worker_parity(torch, cfg, params, prompts, want):
+    """Phase 2's prefill-cluster and disagg engines (f32, TF32 off) on the
+    same requests, each with the launch counts and the transport ledger
+    set to 0 just before and read just after: greedy tokens identical to
+    the inline monolithic run, one "kv" hop per request (contiguous) or
+    per non-shared page (paged; the tree seeded by ``warm_prompt`` first),
+    each hop of the bytes its shape gives."""
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import Request
+    for name, (rt, layout, transfer, mb) in WORKER_RUNS.items():
+        eng = build_engine(torch, cfg, params, F32, rt, layout, transfer=transfer,
+                           microbatches=mb)
+        if layout == "paged":
+            eng.submit(Request(rid=-1, prompt=warm_prompt(prompts[0], F32),
+                               max_new_tokens=2))
+            eng.run_until_done()
+            eng.finished.clear()
+        eng.transport.reset_stats()
+        reset_launch_counts()
+        got = serve(torch, eng, prompts, F32["max_new"])[0]
+        counts = launch_counts()
+        st = eng.stats()
+        require(got == want, f"f32 {name}: tokens {got} != monolithic {want}")
+        require(counts["decode_attention"] > 0,
+                f"f32 {name}: decode_attention was not launched")
+        for k in MOE_KERNELS:
+            require((counts[k] > 0) == (rt != "monolithic"),
+                    f"f32 {name}: launched {k} {counts[k]} times")
+        kv, _, per_hop = check_kv_hops(f"f32 {name}", st, F32, layout, transfer,
+                                       prompts, cfg, params)
+        if layout == "paged":
+            require(st["prefix_cache"]["hits"] >= len(prompts),
+                    f"f32 {name}: prefix cache {st['prefix_cache']}")
+        if mb is not None:
+            require(len(eng.mb_slices) == mb,
+                    f"f32 {name}: served in {len(eng.mb_slices)} micro-batches")
+        require(st["disagg_prefill"] == (transfer is not None)
+                and st["phases"]["transfer_mode"] == (transfer or "async"),
+                f"f32 {name}: stats {st['disagg_prefill']} {st['phases']}")
+        print(f"phase 2 [{name}]: tokens identical to monolithic; kv hops "
+              f"{kv['hops']} x {per_hop} B; prefill batches "
+              f"{st['phases'].get('prefill_batches', '(inline)')}; launches "
+              + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        del eng
+    torch.cuda.empty_cache()
 
 
 class record_routing:
@@ -937,17 +1101,13 @@ def check_bf16_logits(torch, label, want, got, calls_want, calls_got, L):
                or "none"))
 
 
-def phase_bf16_serving(torch, dev, cfg, params):
-    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+def check_step_vs_monolithic(torch, dev, cfg, params, inst, slices, label):
+    """In-situ check of a ping-pong runtime: one decode step of ``inst``
+    over the micro-batch ``slices`` against the monolithic decode_step on
+    copies of one prefilled cache of MAIN's batch (check_bf16_logits), so
+    its kernels are held at the shapes those micro-batches give them.
+    Returns the summary line."""
     from repro_torch.models.transformer import decode_step, prefill
-    from repro_torch.serving.engine import Request
-    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"]]
-                   + [v for lp in params["layers"] for v in lp.values()])
-    eng = build_engine(torch, cfg, params, MAIN, "pingpong")
-    inst = eng.runtime
-
-    # in-situ check: one ping-pong decode step against the monolithic
-    # decode_step on copies of one prefilled cache (check_bf16_logits)
     toks = torch.randint(2, cfg.vocab, (MAIN["max_batch"], MAIN["prompt_len"]),
                          device=dev, generator=torch.Generator(dev).manual_seed(1))
     _, c_ref = prefill(params, cfg, toks, max_seq=MAIN["max_seq"])
@@ -958,11 +1118,21 @@ def phase_bf16_serving(torch, dev, cfg, params):
         mono.active = True
         want, _ = decode_step(params, cfg, toks[:, -1], c_ref, pos)
         mono.active, pp.active = False, True
-        got, _ = inst.decode_microbatched(toks[:, -1], c_pp, pos, eng.mb_slices)
-    line = check_bf16_logits(torch, "bf16", want, got, mono.calls, pp.calls,
+        got, _ = inst.decode_microbatched(toks[:, -1], c_pp, pos, slices)
+    return check_bf16_logits(torch, label, want, got, mono.calls, pp.calls,
                              cfg.n_layers)
+
+
+def phase_bf16_serving(torch, dev, cfg, params):
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import Request
+    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"]]
+                   + [v for lp in params["layers"] for v in lp.values()])
+    eng = build_engine(torch, cfg, params, MAIN, "pingpong")
+    inst = eng.runtime
+    line = check_step_vs_monolithic(torch, dev, cfg, params, inst, eng.mb_slices,
+                                    "bf16")
     print(f"phase 3 check: bf16 pingpong vs monolithic {line}")
-    del c_ref, c_pp
 
     # warm-up request (allocator pools, cuBLAS handles), then the main path
     eng.submit(Request(rid=-1, prompt=list(range(2, 2 + MAIN["prompt_len"])),
@@ -1224,6 +1394,120 @@ def phase_placement_serving(torch, dev, cfg, params):
             "gating_dispatch[owner]": res["m2n+rebalanced"]["gating_dispatch[owner]"]}
 
 
+# phase 6's serving runs: (runtime, layout, transfer, microbatches,
+# transport, spec).  The m = auto run prices its hops with the RDMA model,
+# so eq. 3 picks an m other than the other runs' 2; the run after it
+# differs from it only in m
+CLUSTER_RUNS = {
+    "pingpong m=auto simrdma + worker async": ("pingpong", "contiguous", "async",
+                                               "auto", "simrdma", MAIN),
+    "pingpong m=2 simrdma + worker async": ("pingpong", "contiguous", "async",
+                                            2, "simrdma", MAIN),
+    "paged pingpong + worker + prefix": ("pingpong", "paged", "async", None,
+                                         "inproc", PAGED),
+    "disagg": ("disagg", "contiguous", None, None, "inproc", MAIN)}
+
+
+def phase_prefill_cluster(torch, dev, cfg, params):
+    """Phase 6: phase 3's bf16 model, width, batch and requests.  First the
+    micro-batch choice of paper eq. 3 from one profiled decode iteration
+    under each transport (t_a, t_e, t_c and the m chosen), then the
+    CLUSTER_RUNS, each after a warm-up request (for the paged run one
+    that seeds the radix tree) with the launch counts and the ledger set
+    to 0 just before and read just after: decode rate, ms per iteration,
+    KV transfer time and hops, prefill batches, every kernel of the path
+    launched, and each kv hop of the bytes its shape gives."""
+    from repro_torch.core import pingpong
+    from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
+    from repro_torch.core.transport import make_transport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import Request
+    B, L = MAIN["max_batch"], cfg.n_layers
+    card = card_line()
+    chosen = {}
+    for backend in ("inproc", "simrdma"):
+        inst = DisaggregatedInstance(cfg, params, DisaggPlan(2),
+                                     transport=make_transport(backend))
+        rep = inst.measure_stage_times(B)
+        m = pingpong.choose_microbatches(rep["t_a"], rep["t_e"], rep["t_c"],
+                                         max_m=B)
+        chosen[backend] = m
+        require(rep["attn_n"] == rep["m2n_n"] == rep["expert_n"] == rep["n2m_n"]
+                == 2 * L, f"phase 6 {backend}: stage counts {rep}")
+        require((rep["t_c"] == 0.0) == (backend == "inproc"),
+                f"phase 6 {backend}: t_c {rep['t_c']}")
+        print(f"phase 6 eq. 3 [{backend}] (bf16, {L} layers, batch {B}, one "
+              f"profiled decode iteration at m = 2) on {card}: "
+              f"t_a={rep['t_a'] * 1e6:.1f}us t_e={rep['t_e'] * 1e6:.1f}us "
+              f"t_c={rep['t_c'] * 1e6:.3f}us -> m = {m} "
+              f"(2 (1 + t_c / t_f) = "
+              f"{2 * (1 + rep['t_c'] / max(rep['t_a'], rep['t_e'])):.4f})")
+        del inst
+    require(chosen["inproc"] == 2, f"phase 6: inproc chose m = {chosen['inproc']}")
+    for name, (rt, layout, transfer, mb, backend, spec) in CLUSTER_RUNS.items():
+        eng = build_engine(torch, cfg, params, spec, rt, layout, transfer=transfer,
+                           microbatches=mb, transport=backend)
+        prompts = prompts_for(spec, cfg.vocab, seed=1)
+        warm = (warm_prompt(prompts[0], spec) if layout == "paged"
+                else list(range(2, 2 + spec["prompt_len"])))
+        eng.submit(Request(rid=-1, prompt=warm, max_new_tokens=2))
+        eng.run_until_done()
+        eng.finished.clear()
+        pre = eng.stats()
+        eng.transport.reset_stats()
+        if eng.mode == "pingpong":
+            eng.runtime.reset_stage_times()
+        reset_launch_counts()
+        out, wall = serve(torch, eng, prompts, spec["max_new"])
+        launches = launch_counts()
+        st = eng.stats()
+        require(len(out) == spec["n_requests"]
+                and all(len(g) == spec["max_new"] for g in out.values())
+                and all(0 <= t < cfg.vocab for g in out.values() for t in g),
+                f"phase 6 {name}: requests unfinished or bad tokens")
+        for k in SERVING_KERNELS:
+            require(launches[k] > 0, f"phase 6 {name}: {k} was not launched")
+        kv, want_hops, per_hop = check_kv_hops(f"phase 6 {name}", st, spec, layout,
+                                               transfer, prompts, cfg, params)
+        ph = {k: st["phases"][k] - pre["phases"][k]
+              for k in ("decode_s", "decode_n", "transfer_s", "transfer_n")}
+        batches = (st["phases"]["prefill_batches"] - pre["phases"]["prefill_batches"]
+                   if transfer else "(inline)")
+        dec_tokens = sum(map(len, out.values())) - len(out)
+        m = (len(eng.mb_slices) if eng.mb_slices is not None
+             else eng.runtime.plan.n_microbatches)
+        require(mb != "auto" or m == chosen[backend],
+                f"phase 6 {name}: served at m = {m}, eq. 3 chose {chosen[backend]}")
+        print(f"phase 6 [{name}] (bf16, {L} layers, {rt} m = {m}, batch {B}, "
+              f"transfer {transfer or 'inline'}) on {card}: {dec_tokens} decode "
+              f"tokens in {ph['decode_s']:.3f} s = {dec_tokens / ph['decode_s']:.2f} "
+              f"tok/s decoding, {ph['decode_s'] / max(1, ph['decode_n']) * 1e3:.2f} "
+              f"ms/iter over {ph['decode_n']} iters; serve wall {wall:.3f} s")
+        print(f"phase 6 [{name}] transfer_s={ph['transfer_s'] * 1e3:.2f}ms "
+              f"transfer_n={ph['transfer_n']} prefill_batches={batches}; kv hops "
+              f"{kv['hops']}, {kv['bytes']} B = {want_hops} x {per_hop} B expected"
+              + (f"; prefix {st['prefix_cache']['hits']} hits" if layout == "paged"
+                 else ""))
+        if "stages" in st:
+            sr = st["stages"]
+            print(f"phase 6 [{name}] device stages per micro-batch and layer: "
+                  f"t_a={sr['t_a'] * 1e6:.1f}us t_e={sr['t_e'] * 1e6:.1f}us "
+                  f"t_c={sr['t_c'] * 1e6:.3f}us over {sr['attn_n']} micro-batch "
+                  f"layers")
+        print(f"phase 6 [{name}] launches: " + " ".join(
+            f"{k}={launches[k]}" for k in SERVING_KERNELS))
+        if eng.mode == "pingpong" and m != MAIN["microbatches"]:
+            # micro-batches of other row counts than phases 1 and 3 hold
+            line = check_step_vs_monolithic(
+                torch, dev, cfg, params, eng.runtime, eng.mb_slices,
+                f"phase 6 {name}")
+            print(f"phase 6 check [{name}] m = {m} "
+                  f"({[s.stop - s.start for s in eng.mb_slices]} rows) vs "
+                  f"monolithic: {line}")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def launch_on_live_state(torch, dev, cfg, params, eng):
     """At a decode iteration of the paged engine: launch the paged kernel
     on every layer of its live pool through its block tables, with a
@@ -1439,6 +1723,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, n in phase_placement_serving(torch, dev, cfg, params).items():
             rows[name]["launches"] = n
+        torch.cuda.empty_cache()
+        phase_prefill_cluster(torch, dev, cfg, params)
         kernels = []
         for name in ("decode_attention", "paged_decode_attention", "gating_topk",
                      "gating_dispatch", "gating_dispatch[tables]",

@@ -38,6 +38,12 @@ expert devices.  Two options follow the JAX runtime:
 On the CPU (``device="cpu"`` parameters) there are no streams and the
 same schedule runs in order; the kernels take their plain versions.
 
+Per-stage times (``stage_report``) are device times from CUDA events on
+the card and host times on the CPU.  The M2N and N2M hops are timed as
+what the transport prices them at (``TransportHandle.sim_s``): a stream
+wait moves no bytes, so its device time is 0.  That sets T_c, and with
+T_a and T_e the micro-batch count of paper eq. 3 (``auto_microbatches``).
+
 Per-micro-batch cache rows are views of the engine's cache, and the
 attention sublayer writes the new K/V token into them in place, so no
 cache merge follows the step (the JAX runtime rebuilt the cache).
@@ -61,14 +67,14 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import gated_ffn
-from repro_torch.models.transformer import (embed_tokens, lm_head,
+from repro_torch.models.transformer import (embed_tokens, init_cache, lm_head,
                                             self_attn_decode_sublayer)
 
 EXPERT_KEYS = ("we1", "we3", "we2")
 DENSE_KEYS = ("w1", "w3", "w2")
-# pipeline stages timed by the runtime (the M2N/N2M hops are event waits
-# between streams on one card, and take no time of their own)
-STAGES = ("attn", "expert", "combine")
+# pipeline stages timed by the runtime (attention compute, M2N dispatch
+# hop, expert compute, N2M return hop, attention-side combine)
+STAGES = ("attn", "m2n", "expert", "n2m", "combine")
 
 
 @dataclass
@@ -79,6 +85,10 @@ class DisaggPlan:
     # stream: routing per expert shard, only the shard's tokens gathered,
     # the combine the sum of the shards' partials
     use_m2n: bool = False
+    # wait for each stage's end event as it is issued, so stage_report()
+    # gives each stage's device time alone (serialises the pipeline; off,
+    # the stages overlap and the events are read lazily)
+    profile_stages: bool = False
     # per-node virtual expert slot budget for live placements, as a
     # multiple of ceil(E/N): headroom for hot-expert replicas (§6)
     replication_slots: float = 2.0
@@ -207,13 +217,13 @@ class DisaggregatedInstance:
     def reset_stage_times(self):
         self.stage_times = {s: 0.0 for s in STAGES}
         self.stage_counts = {s: 0 for s in STAGES}
-        self.n_hops = 0
         self._pending_events = []
 
     def _timed(self, stage: str, stream, fn, *args):
         """Run one stage on ``stream``.  On the card its device time is
         taken with CUDA events (read lazily by ``stage_report``, so the
-        pipeline never blocks); on the CPU with the host clock."""
+        pipeline never blocks, unless ``plan.profile_stages``); on the
+        CPU with the host clock."""
         self.stage_counts[stage] += 1
         if stream is None:
             t0 = time.perf_counter()
@@ -226,34 +236,86 @@ class DisaggregatedInstance:
             start.record(stream)
             out = fn(*args)
             end.record(stream)
+        if self.plan.profile_stages:
+            end.synchronize()
         self._pending_events.append((stage, start, end))
         return out
 
     def stage_report(self) -> dict:
-        """Cumulative per-stage seconds and counts, plus the per-op
-        T_a (attention + combine) and T_e (expert) of the paper."""
+        """Cumulative per-stage seconds and counts, plus the paper's
+        per-op T_a (attention + combine), T_e (expert) and T_c (one
+        hop), and the port's count of stream hops.
+
+        T_c differs in origin from the JAX runtime's: there it is the
+        host wall time of a cross-mesh ``device_put``, which has no
+        counterpart on one card.  Here a hop is a stream wait, so its
+        seconds are what the transport prices it at: 0 under
+        ``inproc``, the ``RdmaCostModel`` latency under ``simrdma``."""
         for stage, start, end in self._pending_events:
             end.synchronize()
             self.stage_times[stage] += start.elapsed_time(end) / 1e3
         self._pending_events = []
         rep = {f"{s}_s": self.stage_times[s] for s in STAGES}
         rep.update({f"{s}_n": self.stage_counts[s] for s in STAGES})
-        rep["hops"] = self.n_hops
         rep["t_a"] = ((self.stage_times["attn"] + self.stage_times["combine"])
                       / max(1, self.stage_counts["attn"]))
         rep["t_e"] = (self.stage_times["expert"]
                       / max(1, self.stage_counts["expert"]))
+        rep["hops"] = self.stage_counts["m2n"] + self.stage_counts["n2m"]
+        rep["t_c"] = ((self.stage_times["m2n"] + self.stage_times["n2m"])
+                      / max(1, rep["hops"]))
         return rep
 
+    def measure_stage_times(self, batch: int, max_seq: int = 32) -> dict:
+        """Profile one decode iteration of ``batch`` rows on a throwaway
+        cache, after one warm-up iteration, and return its
+        ``stage_report()`` with device-accurate stage times.  The cache
+        is made in the parameters' dtype (the JAX runtime makes it in
+        f32; the CUDA kernels take the cache in the weights' dtype).
+        The live traffic trace (its routing counts and active rows) is
+        left as it was."""
+        cfg = self.cfg
+        tokens = torch.zeros(batch, dtype=torch.int64, device=self.device)
+        pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        cache = init_cache(cfg, batch, max_seq, dtype=self.head["embed"].dtype,
+                           device=self.device)
+        counts, active = self.expert_counts.clone(), self._active
+        prev = self.plan.profile_stages
+        self.plan.profile_stages = True
+        self._active = None
+        try:
+            self.decode_step(tokens, cache, pos)       # warm-up
+            self.reset_stage_times()
+            self.decode_step(tokens, cache, pos)
+            report = self.stage_report()
+        finally:
+            self.plan.profile_stages = prev
+            self.reset_stage_times()
+            self.expert_counts.copy_(counts)
+            self._active = active
+        return report
+
+    def auto_microbatches(self, batch: int, *, max_m: Optional[int] = None,
+                          max_seq: int = 32) -> int:
+        """The micro-batch count from measured T_a / T_e / T_c (the
+        feasibility bound of paper eq. 3)."""
+        rep = self.measure_stage_times(batch, max_seq)
+        return pingpong.choose_microbatches(rep["t_a"], rep["t_e"], rep["t_c"],
+                                            max_m=max_m)
+
     # ------------------------------------------------------ stream hops
-    def _hop(self, payload, src, dst, *, fanout: int = 1, also=()):
-        """Hand ``payload`` from stream ``src`` to stream ``dst`` through
-        the transport: ``dst`` waits for everything issued on ``src`` so
-        far, the allocator keeps the memory of ``payload`` and of the
-        tensors in ``also`` until ``dst`` is done with them, and the
-        ledger counts ``payload``'s bytes times ``fanout``."""
-        self.n_hops += 1
-        self.transport.send_tokens(payload, dst, src=src, fanout=fanout)
+    def _hop(self, stage: str, payload, src, dst, *, fanout: int = 1,
+             also=()):
+        """The ``stage`` hop ("m2n" or "n2m"): hand ``payload`` from
+        stream ``src`` to stream ``dst`` through the transport.  ``dst``
+        waits for everything issued on ``src`` so far, the allocator
+        keeps the memory of ``payload`` and of the tensors in ``also``
+        until ``dst`` is done with them, the ledger counts ``payload``'s
+        bytes times ``fanout``, and the stage is timed at the hop's
+        priced latency."""
+        h = self.transport.send_tokens(payload, dst, src=src, fanout=fanout)
+        self.stage_counts[stage] += 1
+        self.stage_times[stage] += h.sim_s
         if dst is not None:
             for t in also:
                 t.record_stream(dst)
@@ -381,6 +443,12 @@ class DisaggregatedInstance:
         return counts
 
     # ------------------------------------------------------------ decode
+    def decode_step(self, tokens, cache: List[dict], pos):
+        """One decode iteration of the whole batch, split into
+        ``plan.n_microbatches`` near-even micro-batches: the decode step
+        of the ``disagg`` runtime.  Returns (logits (B, V), cache)."""
+        return self.decode_microbatched(tokens, cache, pos)
+
     def decode_microbatched(self, tokens, cache: List[dict], pos,
                             mb_slices: Optional[Sequence[slice]] = None):
         """Schedule-driven ping-pong decode.  tokens/pos: (B,); cache: the
@@ -419,13 +487,14 @@ class DisaggregatedInstance:
 
             def drain_one():
                 i, x, h, out, disp = inflight.popleft()
-                if m2n:                                          # N2M
-                    self._hop(out["y"], exp_s, attn_s, also=(out["counts"],))
+                if m2n:
+                    self._hop("n2m", out["y"], exp_s, attn_s,
+                              also=(out["counts"],))
                     # every shard counted the same tokens: one shard's
                     # counts, added once, after the hop
                     self.expert_counts += out["counts"]
                 else:
-                    self._hop(out, exp_s, attn_s)
+                    self._hop("n2m", out, exp_s, attn_s)
                 xs[i] = self._timed("combine", attn_s, self._combine_phase,
                                     pa, x, h, out, disp)
 
@@ -439,15 +508,15 @@ class DisaggregatedInstance:
                 trace.append(("attn", i, l))
                 if m2n:
                     # the (T, d) activations go to every expert node
-                    self._hop(h, attn_s, exp_s, fanout=self.n_expert_nodes,
-                              also=(acts[i],))                   # M2N
+                    self._hop("m2n", h, attn_s, exp_s,
+                              fanout=self.n_expert_nodes, also=(acts[i],))
                     out = self._timed("expert", exp_s, self._expert_phase_m2n,
                                       pe, pa, h, acts[i], tbl)
                     self._account_combine(h.shape[0], h.shape[1],
                                           h.element_size())
                 else:
                     payload = h if disp is None else disp["xe"]
-                    self._hop(payload, attn_s, exp_s)            # M2N
+                    self._hop("m2n", payload, attn_s, exp_s)
                     out = self._timed("expert", exp_s, self._expert_phase, pe,
                                       payload)
                 trace.append(("expert", i, l))

@@ -2,10 +2,11 @@
 
 Every hop of the serving path goes through one ``Transport`` with per-
 kind bytes and latency accounting, as in the JAX package's
-``core/transport.py``.  On one card the attention stage and the expert
-stage are two CUDA streams, so a hop moves no bytes: it orders the
-destination stream after the source (``wait_stream``) and marks the
-tensors that cross with ``record_stream``, so the caching allocator
+``core/transport.py``.  On one card the attention stage, the expert
+stage and the prefill worker run on CUDA streams of the same device, so
+a hop moves no bytes: the destination stream waits on an event recorded
+on the source (with ``sync`` the host waits on it too), and the tensors
+that cross are marked with ``record_stream``, so the caching allocator
 keeps their memory until the destination is done with them.  The
 ledger still counts what the hop would carry between nodes (payload
 bytes times the fan-out), the same numbers the JAX package records.
@@ -21,7 +22,7 @@ raises until the multi-process slice of the port brings it.
 Hop kinds:
 
   ``tokens``      M2N dispatch / N2M return of token activations
-  ``kv``          prefill->decode KV migration (with the prefill cluster)
+  ``kv``          prefill->decode KV migration (a row or one page a hop)
   ``weights``     expert-weight regathers (live placement)
   ``collective``  the m2n combine, accounted analytically
 """
@@ -74,9 +75,9 @@ def _empty_stats() -> dict:
 
 
 class Transport(abc.ABC):
-    """Hops of token activations and weight regathers, accounted per
-    kind in ``stats()``; the serving engine reports the snapshot in
-    ``Engine.stats()["transport"]``."""
+    """Hops of token activations, KV rows or pages and weight
+    regathers, accounted per kind in ``stats()``; the serving engine
+    reports the snapshot in ``Engine.stats()["transport"]``."""
 
     name = "abstract"
 
@@ -85,15 +86,28 @@ class Transport(abc.ABC):
 
     @abc.abstractmethod
     def send(self, tree, dst=None, *, src=None, kind: str = "tokens",
-             fanout: int = 1) -> TransportHandle:
+             sync: bool = False, fanout: int = 1) -> TransportHandle:
         """Hand ``tree`` from stream ``src`` to stream ``dst`` (both None
-        on the CPU, or for a hop that only needs accounting); ``fanout``
+        on the CPU, or for a hop that only needs accounting); ``sync``
+        makes the host wait until ``src`` has made ``tree``; ``fanout``
         is the number of peers receiving a copy."""
 
     def send_tokens(self, x, dst=None, *, src=None,
                     fanout: int = 1) -> TransportHandle:
         """M2N dispatch / N2M return hop of token activations."""
         return self.send(x, dst, src=src, kind="tokens", fanout=fanout)
+
+    def migrate_kv(self, request_kv, dst=None, *, src=None,
+                   sync: bool = False) -> TransportHandle:
+        """Prefill->decode KV hop: one request's cache rows."""
+        return self.send(request_kv, dst, src=src, kind="kv", sync=sync)
+
+    def migrate_pages(self, page_chunk, dst=None, *, src=None,
+                      sync: bool = False) -> TransportHandle:
+        """Page-granular prefill->decode KV hop: one page's worth of
+        cache across all layers.  Same kind as ``migrate_kv``, so the
+        ledger counts one "kv" hop per page moved."""
+        return self.send(page_chunk, dst, src=src, kind="kv", sync=sync)
 
     def regather_weights(self, tree, dst=None, *, src=None,
                          fanout: int = 1) -> TransportHandle:
@@ -139,12 +153,15 @@ class InProcessTransport(Transport):
     name = "inproc"
 
     def send(self, tree, dst=None, *, src=None, kind: str = "tokens",
-             fanout: int = 1) -> TransportHandle:
+             sync: bool = False, fanout: int = 1) -> TransportHandle:
         t0 = time.perf_counter()
         if dst is not None:
-            dst.wait_stream(src)
+            ready = src.record_event()
+            dst.wait_event(ready)
             for t in _leaves(tree):
                 t.record_stream(dst)
+            if sync:
+                ready.synchronize()
         h = TransportHandle(kind=kind,
                             nbytes=tree_nbytes(tree) * max(1, fanout),
                             issue_s=time.perf_counter() - t0,

@@ -1,6 +1,7 @@
 """Serving launcher of the port: the continuous-batching engine over the
-monolithic decode path or the ping-pong disaggregated runtime, on the
-card unless ``--device cpu`` is given.
+monolithic decode path, the disaggregated runtime (``disagg``) or the
+ping-pong pipeline, optionally with prefill on the prefill worker
+(``--prefill-devices``), on the card unless ``--device cpu`` is given.
 
 Usage:
   python -m repro_torch.launch.serve --reduced --runtime pingpong \\
@@ -13,6 +14,9 @@ Usage:
   python -m repro_torch.launch.serve --reduced --device cpu \\
       --runtime pingpong --microbatches 2 --expert-nodes 4 \\
       --zipf-route-bias 1.2 --expert-rebalance-every 2 --use-m2n
+  python -m repro_torch.launch.serve --reduced --device cpu \
+      --runtime pingpong --microbatches auto --prefill-devices 1 \
+      --transfer async
 """
 from __future__ import annotations
 
@@ -29,20 +33,22 @@ from repro_torch.core.disagg import STAGES, DisaggPlan, DisaggregatedInstance
 from repro_torch.core.transport import HOP_KINDS, TRANSPORTS, make_transport
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.config import (DTYPES, KV_LAYOUTS, RUNTIMES,
-                                        ServingConfig)
+                                        TRANSFERS, ServingConfig)
 from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.prefill import PrefillWorker
 
 
 def format_stages(report: dict) -> str:
     per_stage = " ".join(f"{s}={report[f'{s}_s'] * 1e3:.3f}ms/{report[f'{s}_n']}"
                          for s in STAGES)
     return (f"stages: {per_stage} | per-op t_a={report['t_a'] * 1e6:.1f}us "
-            f"t_e={report['t_e'] * 1e6:.1f}us")
+            f"t_e={report['t_e'] * 1e6:.1f}us t_c={report['t_c'] * 1e6:.1f}us")
 
 
 def format_phases(ph: dict) -> str:
     return (f"phases: prefill={ph['prefill_s'] * 1e3:.1f}ms/{ph['prefills']} "
-            f"transfer={ph['transfer_s'] * 1e3:.1f}ms/{ph['transfer_n']} "
+            f"transfer[{ph['transfer_mode']}]={ph['transfer_s'] * 1e3:.1f}ms/"
+            f"{ph['transfer_n']} "
             f"decode={ph['decode_s'] * 1e3:.1f}ms/{ph['decode_n']}")
 
 
@@ -121,18 +127,48 @@ def build(sc: ServingConfig):
         inject_router_bias(params, cfg,
                            zipf_router_bias(cfg.moe.n_experts,
                                             sc.zipf_route_bias))
-    if sc.expert_rebalance_every and sc.runtime != "pingpong":
-        raise ValueError("--expert-rebalance-every needs --runtime pingpong")
-    # one ledger for every hop of the run
+    return cfg, engine_for(sc, cfg, params)
+
+
+def engine_for(sc: ServingConfig, cfg, params: dict) -> Engine:
+    """The engine of ``sc`` over ``params``: the disaggregated runtime
+    (``disagg`` / ``pingpong``; with ``microbatches="auto"`` its m is
+    chosen from one profiled decode iteration first), the prefill worker
+    with ``prefill_devices``, and one transport ledger for all hops."""
+    if sc.expert_rebalance_every and sc.runtime == "monolithic":
+        raise ValueError("--expert-rebalance-every needs --runtime "
+                         "disagg|pingpong")
+    # one ledger for every hop of the run: M2N / N2M, KV, weights
     transport = make_transport(sc.transport)
     runtime = None
-    if sc.runtime == "pingpong":
+    if sc.runtime in ("disagg", "pingpong"):
+        auto = sc.microbatches == "auto"
         runtime = DisaggregatedInstance(
-            cfg, params, plan=DisaggPlan(n_microbatches=sc.microbatches,
-                                         use_m2n=sc.use_m2n),
+            cfg, params, plan=DisaggPlan(n_microbatches=2 if auto
+                                         else sc.microbatches,
+                                         use_m2n=sc.use_m2n,
+                                         profile_stages=sc.profile_stages),
             expert_nodes=sc.expert_nodes, transport=transport)
-    return cfg, Engine(cfg, params, config=sc, runtime=runtime,
-                       transport=transport)
+        if auto:
+            # T_a / T_e / T_c of one profiled decode iteration, then the
+            # paper's m >= 2 (1 + T_c / T_f) feasibility bound
+            m = runtime.auto_microbatches(sc.max_batch, max_m=sc.max_batch)
+            runtime.plan.n_microbatches = m
+            if sc.verbose:
+                print(f"auto-selected m={m} micro-batches")
+    worker = None
+    if sc.prefill_devices:
+        # one card: the prefill cluster is a stream of the decode side's
+        # device (the JAX launcher's single-device fallback)
+        if sc.verbose:
+            print("prefill cluster: 1 device(s), decode cluster: 1 device(s) "
+                  "(overlapping, single-device fallback)")
+        worker = PrefillWorker(
+            cfg, params, max_seq=sc.max_seq,
+            chunk_tokens=sc.prefill_chunk_tokens,
+            page_size=sc.page_size if sc.kv_layout == "paged" else 0)
+    return Engine(cfg, params, config=sc, runtime=runtime, transport=transport,
+                  prefill_worker=worker)
 
 
 def prompt_maker(sc: ServingConfig, vocab: int, rng):
@@ -179,9 +215,12 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
     stats = eng.stats()
     for k in ("tokens", "decode_iters", "prefills", "finished"):
         stats[k] -= pre[k]
-    for k in ("prefill_s", "prefills", "transfer_s", "transfer_n", "decode_s",
-              "decode_n"):
-        stats["phases"][k] -= pre["phases"][k]
+    # cumulative phase counters only (transfer_mode and prefill_devices
+    # are not counters)
+    for k in ("prefill_s", "prefills", "prefill_batches", "prefill_tokens",
+              "transfer_s", "transfer_n", "decode_s", "decode_n"):
+        if k in stats["phases"]:
+            stats["phases"][k] -= pre["phases"][k]
     stats["kernel_launches"] = {k: v - pre["kernel_launches"][k]
                                 for k, v in stats["kernel_launches"].items()}
     # prefix-cache and page counters are cumulative too (warm-up may seed
@@ -210,7 +249,8 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
     stats["decode_tok_per_s"] = ((stats["tokens"] - stats["prefills"])
                                  / max(stats["phases"]["decode_s"], 1e-9))
     if sc.verbose:
-        print(f"{cfg.name} x{cfg.n_layers} layers {sc.dtype} [{sc.runtime}] on "
+        print(f"{cfg.name} x{cfg.n_layers} layers {sc.dtype} [{sc.runtime}"
+              f"{'+disagg-prefill' if sc.prefill_devices else ''}] on "
               f"{stats['device']}: served {stats['finished']} requests, "
               f"{stats['tokens']} tokens in {dt:.3f}s "
               f"({stats['serve_tok_per_s']:.2f} tok/s served, "
@@ -243,18 +283,35 @@ def main():
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
-    ap.add_argument("--microbatches", type=int, default=3)
+    ap.add_argument("--microbatches", default="3",
+                    help="micro-batch count, or 'auto' to pick m from "
+                         "measured T_a/T_e/T_c (paper eq. 3)")
     ap.add_argument("--use-m2n", action="store_true",
                     help="route MoE layers through the M2N dispatch "
                          "(core.m2n) over --expert-nodes shards on the "
                          "expert stream")
+    ap.add_argument("--prefill-devices", type=int, default=0,
+                    help="prefill on the prefill worker (N >= 1; on one card "
+                         "a stream of its own on the decode side's device) "
+                         "and move each request's KV into the decode cache "
+                         "at admission (0 = inline prefill)")
+    ap.add_argument("--transfer", default="async", choices=TRANSFERS,
+                    help="KV migration: async = only the decode stream waits "
+                         "for the KV, sync = the host waits per row or page")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=512,
+                    help="token budget of one batched prefill call")
+    ap.add_argument("--profile-stages", action="store_true",
+                    help="wait for each stage as it is issued, so the stage "
+                         "times are each stage's device time alone "
+                         "(serialises the pipeline)")
     ap.add_argument("--expert-nodes", type=int, default=1,
                     help="expert nodes the placement and the m2n dispatch "
                          "are solved for (all on this one device)")
     ap.add_argument("--expert-rebalance-every", type=int, default=0,
                     help="re-solve the expert placement from live routing "
                          "counts every N decode iterations (0 = static "
-                         "contiguous placement; needs --runtime pingpong)")
+                         "contiguous placement; needs --runtime "
+                         "disagg|pingpong)")
     ap.add_argument("--expert-replication",
                     action=argparse.BooleanOptionalAction, default=True,
                     help="let hot experts be replicated across expert "

@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import argparse
 from dataclasses import dataclass, fields, replace
+from typing import Union
 
 from repro_torch.core.transport import TRANSPORTS
 from repro_torch.serving.sampler import SamplingParams
 
-RUNTIMES = ("monolithic", "pingpong")
+RUNTIMES = ("monolithic", "disagg", "pingpong")
+TRANSFERS = ("sync", "async")
 DTYPES = ("float32", "bfloat16")
 KV_LAYOUTS = ("contiguous", "paged")
 
@@ -25,7 +27,7 @@ class ServingConfig:
     n_layers: int = 0                  # 0 = the config's depth
     dtype: str = "float32"             # weights and KV cache
     device: str = "cuda"
-    runtime: str = "monolithic"        # monolithic | pingpong
+    runtime: str = "monolithic"        # monolithic | disagg | pingpong
     n_requests: int = 8
     max_new: int = 8
     prompt_len: int = 0                # 0 = random lengths
@@ -33,11 +35,15 @@ class ServingConfig:
     zipf_route_bias: float = 0.0
     verbose: bool = True
     # ---- decode runtime ------------------------------------------------
-    microbatches: int = 3
+    microbatches: Union[int, str] = 3  # int, or "auto" (paper eq. 3)
     use_m2n: bool = False
-    # ---- transport / expert nodes (paper §3-§4) -------------------------
+    profile_stages: bool = False
+    # ---- transport / clusters (paper §3-§4) ----------------------------
     transport: str = "inproc"          # inproc | simrdma
     expert_nodes: int = 1              # expert nodes placement and m2n see
+    prefill_devices: int = 0           # 0 = inline prefill
+    transfer: str = "async"            # KV migration: sync | async
+    prefill_chunk_tokens: int = 512
     # ---- KV cache layout (paged subsystem) ------------------------------
     kv_layout: str = "contiguous"      # contiguous | paged
     page_size: int = 16                # token slots per KV page (paged)
@@ -61,6 +67,12 @@ class ServingConfig:
                              f"got {self.runtime!r}")
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {self.dtype!r}")
+        if self.transfer not in TRANSFERS:
+            raise ValueError(f"transfer must be one of {TRANSFERS}, "
+                             f"got {self.transfer!r}")
+        if self.prefill_devices < 0:
+            raise ValueError(f"prefill_devices must be >= 0, "
+                             f"got {self.prefill_devices}")
         if self.transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {sorted(TRANSPORTS)}, "
                              f"got {self.transport!r}")
@@ -70,9 +82,10 @@ class ServingConfig:
         if self.expert_rebalance_every < 0:
             raise ValueError(f"expert_rebalance_every must be >= 0, "
                              f"got {self.expert_rebalance_every}")
-        self.microbatches = int(self.microbatches)
-        if self.microbatches < 1:
-            raise ValueError("microbatches must be >= 1")
+        if self.microbatches != "auto":
+            self.microbatches = int(self.microbatches)
+            if self.microbatches < 1:
+                raise ValueError("microbatches must be >= 1 or 'auto'")
         if self.kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"got {self.kv_layout!r}")
@@ -92,6 +105,12 @@ class ServingConfig:
         if self.kv_pool_pages:
             return self.kv_pool_pages
         return (self.max_batch + 2) * (self.max_seq // self.page_size)
+
+    @property
+    def engine_mode(self) -> str:
+        """The engine mode of the runtime: ``disagg`` is a monolithic
+        engine whose decode step is the disaggregated runtime's."""
+        return "pingpong" if self.runtime == "pingpong" else "monolithic"
 
     def sampling_params(self) -> SamplingParams:
         return SamplingParams(temperature=self.temperature,

@@ -2,19 +2,31 @@
 scheduling): between decode iterations finished requests leave the batch
 and waiting requests are prefilled inline into the freed KV rows.
 
-The decode iteration runs in one of two modes:
+The decode iteration runs under one of three runtimes
+(``ServingConfig.runtime``):
   * ``monolithic`` — one batched ``models.transformer.decode_step`` over
     every KV row (decode attention on its CUDA kernel; the MoE layer in
-    plain torch).  The token-parity oracle of the ping-pong mode.
+    plain torch).  The token-parity oracle of the other two.
+  * ``disagg`` — the same monolithic engine whose decode step is a
+    ``core.disagg.DisaggregatedInstance``'s ``decode_step``: the whole
+    batch split into the runtime plan's m micro-batches.
   * ``pingpong`` — the paper's runtime: the KV rows are split into m
-    contiguous micro-batch groups and a ``core.disagg``
-    ``DisaggregatedInstance`` runs each iteration through the ping-pong
-    schedule on two CUDA streams, with all three kernels.
+    contiguous micro-batch groups and a ``DisaggregatedInstance`` runs
+    each iteration through the ping-pong schedule on two CUDA streams,
+    with all three kernels.
 
-In ``pingpong`` mode with ``expert_rebalance_every`` > 0 the engine
-also re-solves the expert placement (paper §6) from the runtime's live
+With a runtime and ``expert_rebalance_every`` > 0 the engine also
+re-solves the expert placement (paper §6) from the runtime's live
 routing counts every that many decode iterations, over a sliding window
 of the last ``expert_window`` intervals, and applies it to the runtime.
+
+Prefill runs inline on the decode side, or, the paper's §3 split, on a
+prefill cluster: with a ``prefill_worker`` (``serving.prefill``) waiting
+requests are prefilled on the worker's stream and admission takes
+completed results from its transfer queue, moving each request's KV
+over the transport (``kvcache.migrate_kv``, or one hop per non-shared
+page with ``migrate_pages``).  Admission order equals submission order
+on both paths, so under greedy sampling the tokens are identical.
 
 The KV cache has one of two layouts (``ServingConfig.kv_layout``):
   * ``contiguous`` — one dense ``(B, W)`` ring-buffer row per KV slot;
@@ -37,18 +49,19 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.load_balance import balance_experts, evaluate_placement
-from repro_torch.core.pingpong import even_partition
 from repro_torch.core.transport import InProcessTransport
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cuda_build import launch_counts
 from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.kvcache import (MicrobatchSlotAllocator, SlotAllocator,
-                                         insert_rows, reset_row)
+                                         insert_rows, mb_slot_ranges, migrate_kv,
+                                         migrate_pages, reset_row)
 from repro_torch.serving.pages import PagePool, n_pages_for
 from repro_torch.serving.prefill import suffix_prefill
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import sample, sample_rows
+from repro_torch.serving.stats import STATS_SCHEMA_VERSION, EngineStats
 
 
 @dataclass
@@ -73,28 +86,35 @@ class Request:
 class Engine:
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  config: Optional[ServingConfig] = None, runtime=None,
-                 transport=None):
+                 transport=None, prefill_worker=None):
         """``config`` sets every scalar knob (``ServingConfig``; its
         ``runtime`` field picks the mode, its ``device`` field where the
-        params live and the KV cache is made).  ``runtime``: the
-        ``DisaggregatedInstance`` the pingpong mode drives.
+        params live and the KV cache is made, its ``transfer`` field
+        whether the host waits for each KV hop).  ``runtime``: the
+        ``DisaggregatedInstance`` the disagg and pingpong runtimes drive.
         ``transport``: the hop ledger ``stats()`` reports; by default
         the runtime's (its M2N / N2M / weight hops), else a private
-        ``InProcessTransport``."""
+        ``InProcessTransport``.  ``prefill_worker``: a
+        ``serving.prefill.PrefillWorker`` that prefills on its own
+        stream (the prefill cluster); without one prefill runs inline."""
         base = config if config is not None else ServingConfig(max_batch=8,
                                                                max_seq=256)
         self.device = resolve_device(base.device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
-        if base.runtime == "pingpong" and runtime is None:
-            raise ValueError("pingpong mode needs a DisaggregatedInstance "
-                             "runtime")
+        if (prefill_worker is not None
+                and prefill_worker.device.type != self.device.type):
+            raise ValueError(f"prefill worker runs on {prefill_worker.device}, "
+                             f"engine device is {self.device}")
+        if base.runtime in ("disagg", "pingpong") and runtime is None:
+            raise ValueError(f"{base.runtime} mode needs a "
+                             f"DisaggregatedInstance runtime")
         if base.expert_rebalance_every:
-            if (base.runtime != "pingpong"
+            if (base.runtime == "monolithic"
                     or not hasattr(runtime, "apply_placement")):
-                raise ValueError("expert_rebalance_every needs the pingpong "
-                                 "mode's runtime (live placement support, "
+                raise ValueError("expert_rebalance_every needs a runtime with "
+                                 "live placement support (disagg or pingpong, "
                                  "core.disagg.DisaggregatedInstance)")
             if cfg.moe is None:
                 raise ValueError("expert rebalancing needs an MoE config")
@@ -105,8 +125,8 @@ class Engine:
         self.serving_config = base
         self.cfg = cfg
         self.params = params
-        self.mode = base.runtime
-        self.runtime = runtime if self.mode == "pingpong" else None
+        self.mode = base.engine_mode
+        self.runtime = runtime if base.runtime != "monolithic" else None
         if transport is None:
             transport = getattr(self.runtime, "transport", None)
         self.transport = (transport if transport is not None
@@ -130,8 +150,17 @@ class Engine:
             self.cache = init_cache(cfg, self.max_batch, self.max_seq,
                                     dtype=params["embed"].dtype,
                                     device=self.device)
+        # the paged prefill worker shares the engine's pool and prefix tree
+        if self.page_pool is not None and prefill_worker is not None \
+                and prefill_worker.page_size:
+            if prefill_worker.page_pool is None:
+                prefill_worker.page_pool = self.page_pool
+            if prefill_worker.prefix_cache is None and self.prefix is not None:
+                prefill_worker.prefix_cache = self.prefix
+        self.prefill_worker = prefill_worker
+        self.transfer = base.transfer
         if self.mode == "pingpong":
-            self.mb_slices = even_partition(self.max_batch,
+            self.mb_slices = mb_slot_ranges(self.max_batch,
                                             runtime.plan.n_microbatches)
             self.slots = MicrobatchSlotAllocator(self.max_batch, self.mb_slices)
         else:
@@ -261,10 +290,85 @@ class Engine:
             self._install_pages(req, shared, fresh)
             self._start_request(req, slot, last_logits)
 
+    def _hop_streams(self):
+        """(source, destination) streams of a KV hop: the worker's and
+        the engine's current one on the card, (None, None) on the CPU."""
+        if self.device.type != "cuda":
+            return None, None
+        return (self.prefill_worker.stream,
+                torch.cuda.current_stream(self.device))
+
+    def _pump_worker(self):
+        """Feed the prefill worker the whole waiting queue (queueing is
+        free: no KV exists until a batch is pumped), then run prefill
+        batches with bounded work-ahead: at most one batch width of ready
+        results past the free rows, so a burst cannot pile up KV on the
+        prefill side (more is pumped as rows free up each step)."""
+        w = self.prefill_worker
+        while self.waiting:
+            w.submit(self.waiting.pop(0))
+        lookahead = len(self.slots.free) + self.max_batch
+        while w.pending_count and w.ready_count < lookahead:
+            w.pump(max_batches=1)
+
+    def _admit_from_transfer_queue(self):
+        """Disaggregated prefill (paper §3): admit completed prefills
+        from the worker's transfer queue into free KV rows, each
+        request's KV moved over the transport as one "kv" hop."""
+        w = self.prefill_worker
+        self._pump_worker()
+        src, dst = self._hop_streams()
+        while self.slots.free and w.ready_count:
+            res = w.pop()
+            req = res.request
+            slot = self.slots.alloc(req.rid)
+            t0 = time.perf_counter()
+            migrate_kv(self.cache, res.kv, slot, src=src, dst=dst,
+                       sync=self.transfer == "sync", transport=self.transport)
+            self.t_transfer += time.perf_counter() - t0
+            self.n_transfers += 1
+            self._start_request(req, slot, res.last_logits)
+
+    def _admit_paged_from_transfer_queue(self):
+        """Disaggregated paged admission: the worker emits per-page
+        chunks, and only the non-shared pages cross to the decode side
+        (``kvcache.migrate_pages``, one "kv" hop per page).  A result
+        whose pages cannot be reserved goes back to the head of the
+        queue (FIFO order is part of the parity contract)."""
+        w = self.prefill_worker
+        self._pump_worker()
+        src, dst = self._hop_streams()
+        while self.slots.free and w.ready_count:
+            res = w.pop()
+            req = res.request
+            shared = list(res.shared_pages)
+            needed = self._pages_for_request(req) - len(shared)
+            if not self._reserve_pages(req.rid, needed):
+                w.ready.appendleft(res)
+                break
+            slot = self.slots.alloc(req.rid)
+            fresh = [self._take_page(req.rid)
+                     for _ in range(len(res.page_chunks))]
+            t0 = time.perf_counter()
+            migrate_pages(self.page_pool, res.page_chunks, fresh, src=src,
+                          dst=dst, sync=self.transfer == "sync",
+                          transport=self.transport)
+            self.t_transfer += time.perf_counter() - t0
+            self.n_transfers += 1
+            self._install_pages(req, shared, fresh)
+            self._start_request(req, slot, res.last_logits)
+
     def _admit(self):
-        """Inline prefill of waiting requests into free KV rows (FIFO)."""
+        """Prefill of waiting requests into free KV rows (FIFO): inline,
+        or from the prefill worker's transfer queue."""
         if self.kv_layout == "paged":
-            self._admit_paged()
+            if self.prefill_worker is not None:
+                self._admit_paged_from_transfer_queue()
+            else:
+                self._admit_paged()
+            return
+        if self.prefill_worker is not None:
+            self._admit_from_transfer_queue()
             return
         while self.waiting and self.slots.free:
             req = self.waiting.pop(0)
@@ -372,11 +476,14 @@ class Engine:
             cache = self.page_pool.gather(self.block_table_array())
         else:
             cache = self.cache
-        if self.mode == "pingpong":
+        if self.runtime is not None:
             # idle rows decode anyway; keep them out of the expert counts
             self.runtime.set_active_slots(active)
+        if self.mode == "pingpong":
             logits, cache = self.runtime.decode_microbatched(
                 toks, cache, pos_t, self.mb_slices)
+        elif self.runtime is not None:                           # disagg
+            logits, cache = self.runtime.decode_step(toks, cache, pos_t)
         else:
             logits, cache = decode_step(self.params, self.cfg, toks, cache,
                                         pos_t)
@@ -402,7 +509,11 @@ class Engine:
 
     @property
     def outstanding(self) -> bool:
-        return bool(self.waiting or self.running)
+        """Any request not yet finished: waiting, running, or still in
+        the prefill worker's queues."""
+        w = self.prefill_worker
+        backlog = w is not None and (w.pending_count or w.ready_count)
+        return bool(self.waiting or self.running or backlog)
 
     def run_until_done(self, max_iters: int = 10_000):
         while self.outstanding and max_iters:
@@ -411,26 +522,37 @@ class Engine:
         return self.finished
 
     # ------------------------------------------------------------- metrics
-    def stats(self) -> dict:
-        """Tokens, iterations, per-phase host time (decode includes the
-        wait for the sampled tokens), the transport ledger, per-stage
-        device time and the expert-balance report (pingpong) and the
-        kernel launch counts."""
+    def stats(self) -> EngineStats:
+        """The JAX engine's payload (``serving.stats``, schema v4):
+        tokens, iterations, per-phase host time (decode includes the wait
+        for the sampled tokens; with a prefill worker its own counters),
+        the transport ledger, per-stage device time (pingpong) and the
+        expert-balance report (with a runtime); plus the port's card name
+        and kernel launch counts.  ``use_kernels`` is true exactly on the
+        card: there the decode paths launch the CUDA kernels."""
         lat = [r.t_done - r.t_submit for r in self.finished]
+        phases = {"transfer_s": self.t_transfer,
+                  "transfer_n": self.n_transfers,
+                  "transfer_mode": self.transfer,
+                  "decode_s": self.t_decode,
+                  "decode_n": self.n_decode_iters}
+        if self.prefill_worker is not None:
+            phases.update(self.prefill_worker.stats())
+        else:
+            phases.update(prefill_s=self.t_prefill, prefills=self.n_prefills)
         out = {
+            "schema_version": STATS_SCHEMA_VERSION,
             "finished": len(self.finished),
             "tokens": sum(len(r.generated) for r in self.finished),
             "decode_iters": self.n_decode_iters,
             "prefills": self.n_prefills,
             "mean_latency_s": sum(lat) / len(lat) if lat else 0.0,
             "mode": self.mode,
+            "use_kernels": self.device.type == "cuda",
+            "disagg_prefill": self.prefill_worker is not None,
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
-            "phases": {"prefill_s": self.t_prefill, "prefills": self.n_prefills,
-                       "transfer_s": self.t_transfer,
-                       "transfer_n": self.n_transfers,
-                       "decode_s": self.t_decode,
-                       "decode_n": self.n_decode_iters},
+            "phases": phases,
             "kernel_launches": launch_counts(),
             "kv_layout": self.kv_layout,
             # per-hop traffic by kind (tokens / weights / collective), the

@@ -1,10 +1,16 @@
 """Batch-slot KV-cache management for continuous batching (contiguous
 layout): a request owns one row of every layer's (B_max, W) ring buffer
-for its lifetime.  Rows are written in place."""
+for its lifetime.  Rows are written in place.  With the prefill cluster
+(``serving.prefill.PrefillWorker``) a request's KV reaches the decode
+cache through a transport hop: a whole row (``migrate_kv``) or, in the
+paged layout, one hop per non-shared page (``migrate_pages``)."""
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.core.pingpong import even_partition
+from repro_torch.core.transport import InProcessTransport
 
 
 def insert_rows(cache: List[dict], request_cache: List[dict], row: int):
@@ -13,6 +19,44 @@ def insert_rows(cache: List[dict], request_cache: List[dict], row: int):
         for key, t in full.items():
             t[row].copy_(part[key][0])
     return cache
+
+
+def extract_row(cache: List[dict], row: int) -> List[dict]:
+    """One request's cache (batch dim 1) out of a batched cache, the
+    inverse of ``insert_rows``: views of row ``row``."""
+    return [{k: t[row:row + 1] for k, t in entry.items()} for entry in cache]
+
+
+def migrate_kv(cache: List[dict], request_cache: List[dict], row: int, *,
+               src=None, dst=None, sync: bool = False, transport=None):
+    """The prefill->decode KV hop: hand one request's cache (batch dim 1,
+    made on stream ``src``) to stream ``dst`` through ``transport`` (one
+    "kv" hop), then write it into row ``row`` of ``cache`` on the
+    caller's stream.  ``sync`` makes the host wait until the request's
+    cache is made; otherwise only ``dst`` waits.  On the CPU both streams
+    are None.  Without a ``transport`` the hop goes through a private
+    ``InProcessTransport``."""
+    if transport is None:
+        transport = InProcessTransport()
+    transport.migrate_kv(request_cache, dst, src=src, sync=sync)
+    return insert_rows(cache, request_cache, row)
+
+
+def migrate_pages(pool, chunks: Sequence[Tuple[int, List[dict]]],
+                  pages: Sequence[int], *, src=None, dst=None,
+                  sync: bool = False, transport=None):
+    """Page-granular prefill->decode KV hop: each per-page chunk (from
+    ``pages.row_to_page_chunks``) is one "kv" hop, then written into its
+    physical page of ``pool``.  With a prefix-cache hit only the
+    request's non-shared pages are in ``chunks``."""
+    if transport is None:
+        transport = InProcessTransport()
+    if len(chunks) != len(pages):
+        raise ValueError(f"{len(pages)} pages for {len(chunks)} chunks")
+    for (_, chunk), page in zip(chunks, pages):
+        transport.migrate_pages(chunk, dst, src=src, sync=sync)
+        pool.write_chunk(page, chunk)
+    return pool
 
 
 def reset_row(cache: List[dict], row: int):
@@ -50,6 +94,13 @@ class SlotAllocator:
         self._held.discard(slot)
         self.free.append(slot)
         return slot
+
+
+def mb_slot_ranges(n_slots: int, m: int) -> List[slice]:
+    """Partition ``n_slots`` KV rows into <= m contiguous micro-batch
+    groups of near-even size (``pingpong.even_partition``): each group's
+    cache is a plain view."""
+    return even_partition(n_slots, m)
 
 
 class MicrobatchSlotAllocator:

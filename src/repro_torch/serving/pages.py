@@ -76,6 +76,25 @@ def _device_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def row_to_page_chunks(row_cache: List[dict], start_slot: int, end_slot: int,
+                       page_size: int) -> List[Tuple[int, List[dict]]]:
+    """Split a dense one-request cache (per layer ``(1, W, ...)``) into
+    per-page chunks ``[(logical_page, chunk), ...]`` covering slots
+    ``[start_slot, end_slot)``; ``start_slot`` must be page-aligned.  A
+    chunk is one pool page of every layer: per layer ``{k, v: (ps, Hkv,
+    hd), pos: (ps,)}``, views of the row."""
+    if start_slot % page_size:
+        raise PageError(f"chunk start {start_slot} not page-aligned "
+                        f"(page_size={page_size})")
+    chunks = []
+    for lp in range(start_slot // page_size, n_pages_for(end_slot, page_size)):
+        s0 = lp * page_size
+        chunks.append((lp, [{k: t[0, s0:s0 + page_size]
+                             for k, t in entry.items()}
+                            for entry in row_cache]))
+    return chunks
+
+
 class PagePool:
     """Fixed-size pool of refcounted KV pages shared by every layer.
 
@@ -228,6 +247,15 @@ class PagePool:
             for key, t in full.items():
                 src = part[key][0, s0:s1]
                 t[idx] = src.reshape((n, ps) + tuple(src.shape[1:])).to(t.dtype)
+
+    def write_chunk(self, page: int, chunk: List[dict]):
+        """Install one page-shaped chunk (``row_to_page_chunks``, moved
+        by ``kvcache.migrate_pages``) into physical ``page``."""
+        if self.refcount[page] <= 0:
+            raise PageError(f"write to free page {page}")
+        for full, part in zip(self.store, chunk):
+            for key, t in full.items():
+                t[page].copy_(part[key])
 
     def write_tokens(self, dense_cache: List[dict], rows: np.ndarray,
                      slots: np.ndarray, pages: np.ndarray,

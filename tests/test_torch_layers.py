@@ -260,17 +260,18 @@ def test_local_layers_use_a_window_ring():
 def test_port_imports_nothing_of_jax():
     """Every module of repro_torch (and chip_smoke.py) imports, in a fresh
     interpreter, with neither jax nor any module of the JAX package.  The
-    paged serving modules, the gating_topk kernel and the m2n, transport
-    and load-balance modules are named, so the check fails if the walk
-    stops reaching them."""
+    paged serving modules, the prefill worker, the stats schema, the
+    gating_topk kernel and the m2n, transport, load-balance and
+    ping-pong modules are named, so the check fails if the walk stops
+    reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('serving.pages', 'serving.prefix_cache', 'serving.prefill',\n"
-        "          'kernels.gating_topk', 'core.m2n', 'core.transport',\n"
-        "          'core.load_balance'):\n"
+        "          'serving.stats', 'kernels.gating_topk', 'core.m2n',\n"
+        "          'core.transport', 'core.load_balance', 'core.pingpong'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -299,3 +300,8 @@ def test_entry_points_default_to_cuda():
     params = ttf.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, params)
+    from repro_torch.launch.serve import build
+    from repro_torch.serving.config import ServingConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(ServingConfig(runtime="pingpong", microbatches="auto",
+                            prefill_devices=1))

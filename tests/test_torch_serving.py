@@ -196,7 +196,9 @@ def test_sampling_does_not_depend_on_the_row():
 
 def test_serving_config_validates():
     with pytest.raises(ValueError):
-        ServingConfig(runtime="disagg")
+        ServingConfig(runtime="disaggregated")
+    with pytest.raises(ValueError):
+        ServingConfig(transfer="dma")
     with pytest.raises(ValueError):
         ServingConfig(dtype="float16")
     with pytest.raises(ValueError):
