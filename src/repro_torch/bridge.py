@@ -5,7 +5,10 @@ Input: the pytree of ``repro.models.init_params`` / ``init_cache``, or a
 ``repro.serving.pages.PagePool``'s ``store``, with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, tree)``).  The
 stacked ``blocks`` leading axis is unstacked into one dict per layer and
-the ``remainder`` layers follow, in execution order.  The bridge takes
+the ``remainder`` layers follow, in execution order; the whisper
+encoder's stacked ``encoder.blocks`` become ``encoder.layers``.  Every
+leaf of every layer kind crosses as it is (recurrent states, conv
+caches, cross K/V, the 0-d gates).  The bridge takes
 numpy only: it imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -46,6 +49,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     params = {k: _tensor(tree[k], dev) for k in ("embed", "final_norm", "lm_head")
               if k in tree}
     params["layers"] = _layers(tree, cfg, dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [{k: _tensor(v[i], dev) for k, v in enc["blocks"].items()}
+                       for i in range(cfg.encoder.n_layers)],
+            "pos_embed": _tensor(enc["pos_embed"], dev),
+            "final_norm": _tensor(enc["final_norm"], dev)}
     return params
 
 

@@ -2,9 +2,19 @@
 
 The port keeps its own copy of the JAX package's config dataclasses
 (``repro/config.py``) so that it imports nothing of that package; the
-fields, their defaults and ``reduced`` are the same, so a config reads
-and prints alike in both.  The port serves the ``attn``/``local`` layer
-kinds; the other kinds stay in the dataclass so configs keep one shape.
+fields, their defaults, the analytic parameter counts and ``reduced``
+are the same, so a config reads, prints and counts alike in both.
+
+Layer kinds (one token-mixing module + one FFN per layer, except noted):
+  "attn"      global causal self-attention + FFN
+  "local"     sliding-window causal self-attention + FFN
+  "cross"     (gated) cross-attention to static source embeddings + FFN
+  "selfcross" self-attention + cross-attention + FFN  (whisper decoder)
+  "rglru"     RG-LRU recurrent block + FFN            (recurrentgemma)
+  "ssd"       Mamba-2 SSD block (no separate FFN)
+
+A model's layer stack is ``block_pattern`` repeated ``n_blocks`` times
+followed by ``remainder_pattern`` (``ModelConfig.layer_kinds``).
 """
 from __future__ import annotations
 
@@ -13,8 +23,6 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 LAYER_KINDS = ("attn", "local", "cross", "selfcross", "rglru", "ssd")
-# layer kinds the port can run today
-SUPPORTED_KINDS = ("attn", "local")
 
 
 @dataclass(frozen=True)
@@ -33,22 +41,32 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
+    """Mamba-2 SSD configuration."""
     d_state: int = 128
     head_dim: int = 64
     expand: int = 2
     chunk: int = 64
     conv_width: int = 4
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclass(frozen=True)
 class RGLRUConfig:
+    """RG-LRU (Griffin / RecurrentGemma) recurrent block configuration."""
     lru_width: int
     conv_width: int = 4
-    c: float = 8.0
+    c: float = 8.0             # c exponent in a_t = a^(c * r_t)
 
 
 @dataclass(frozen=True)
 class EncoderConfig:
+    """Auxiliary encoder (whisper audio encoder) over precomputed frame
+    embeddings from the stubbed conv/mel frontend."""
     n_layers: int
     source_len: int
 
@@ -107,6 +125,81 @@ class ModelConfig:
         repeated ``n_blocks`` times, then the remainder."""
         return self.block_pattern * self.n_blocks + self.remainder_pattern
 
+    @property
+    def has_cross(self) -> bool:
+        return any(k in ("cross", "selfcross") for k in self.layer_kinds)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + all layers + encoder),
+        the JAX package's count term for term."""
+        d, hd = self.d_model, self.resolved_head_dim
+        total = self.vocab * d
+        if not self.tie_embeddings:
+            total += self.vocab * d
+        total += d                                       # final norm
+        total += sum(_layer_params(self, k) for k in self.layer_kinds)
+        if self.encoder is not None:
+            qkv = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                   + self.n_heads * hd * d)
+            enc_layer = qkv + 3 * d * self.d_ff + 2 * d
+            total += self.encoder.n_layers * enc_layer + d
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        return self.param_count() - inactive * self.n_layers
+
+
+def _ffn_params(cfg: "ModelConfig") -> int:
+    """Parameters of one layer's FFN (MoE: router, every expert, the
+    shared experts and the dense residual)."""
+    d = cfg.d_model
+    if cfg.moe is not None:
+        m = cfg.moe
+        p = d * m.n_experts + m.n_experts * 3 * d * m.d_ff_expert
+        if m.n_shared_experts:
+            p += 3 * d * m.d_ff_shared
+        if m.d_ff_dense_residual:
+            p += 3 * d * m.d_ff_dense_residual
+        return p
+    return 3 * d * cfg.d_ff
+
+
+def _layer_params(cfg: "ModelConfig", kind: str) -> int:
+    """Parameters of one layer of ``kind``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qkv = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+    if kind in ("attn", "local"):
+        return qkv + _ffn_params(cfg) + 2 * d
+    if kind == "cross":
+        return qkv + _ffn_params(cfg) + 3 * d + 2
+    if kind == "selfcross":
+        return 2 * qkv + _ffn_params(cfg) + 3 * d
+    if kind == "rglru":
+        r = cfg.rglru
+        w = r.lru_width
+        return (2 * d * w + r.conv_width * w + 2 * w * w + w
+                + w * d + _ffn_params(cfg) + 2 * d)
+    if kind == "ssd":
+        s = cfg.ssm
+        di, h = s.d_inner(d), s.n_heads(d)
+        proj_in = d * (2 * di + 2 * s.d_state + h)
+        return (proj_in + s.conv_width * (di + 2 * s.d_state)
+                + 3 * h + di + di * d + d)
+    raise ValueError(kind)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
 
 _REGISTRY: dict = {}
 
@@ -124,7 +217,14 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def list_configs() -> list:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
 def _load_all():
+    # importing the package registers every config module
     from repro_torch import configs as _  # noqa: F401
 
 

@@ -58,7 +58,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.config import SUPPORTED_KINDS, ModelConfig
+from repro_torch.config import ModelConfig
 from repro_torch.core import load_balance as lb_lib
 from repro_torch.core import m2n as m2n_lib
 from repro_torch.core import pingpong
@@ -106,11 +106,13 @@ class DisaggregatedInstance:
         serving engine reports the same one."""
         if expert_nodes < 1:
             raise ValueError(f"expert_nodes must be >= 1, got {expert_nodes}")
+        # the JAX runtime's rule: self-attention layers with an FFN only
+        # (recurrent, SSD and cross layers have no attention/expert split)
         for kind in cfg.layer_kinds:
-            if kind not in SUPPORTED_KINDS:
+            if kind not in ("attn", "local"):
                 raise NotImplementedError(
                     f"disaggregated runtime does not support layer kind "
-                    f"{kind!r} ({cfg.name})")
+                    f"{kind!r} ({cfg.name}); use the monolithic engine")
         self.cfg = cfg
         self.plan = plan if plan is not None else DisaggPlan()
         self.transport = (transport if transport is not None

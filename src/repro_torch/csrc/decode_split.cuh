@@ -47,6 +47,12 @@
 //    one block per (query head, row) and one thread per channel.
 //    A split with no valid slot holds m = -1e30, l = 0, acc = 0, so a row
 //    with no valid slot at all comes out as 0, as in the Pallas kernel.
+//  * head_dim 64, 128 and 256 (recurrentgemma-2b's local attention).  The
+//    f32 tiles (q, K, V, p) live in dynamic shared memory, sized by HD
+//    (SplitTiles<HD>): 20.5 KB at 64, 43 KB at 128, 84.5 KB at 256, past
+//    the 48 KB a block may declare statically, so the 256 instantiation
+//    raises its dynamic limit with cudaFuncSetAttribute before its first
+//    launch.  Two such blocks fit on one SM (228 KB).
 #pragma once
 
 #include "common.cuh"
@@ -95,6 +101,15 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, __nv_bfloat16) 
   }
 }
 
+// the f32 tiles of one block of the split kernel, in dynamic shared memory
+template <int HD>
+struct alignas(16) SplitTiles {
+  float q[MAX_REP][HD];
+  float k[TW][HD + 4];  // +4: float4 rows without bank conflicts
+  float v[TW][HD];
+  float p[MAX_REP][TW];
+};
+
 // scratch layout (at most MAX_SPLITS splits):
 // part[((b * Hkv + g) * nsplit + split) * rep + r][0..HD) holds acc,
 // [HD] the running max m and [HD + 1] the denominator l
@@ -114,10 +129,12 @@ __global__ void __launch_bounds__(NT) decode_attention_split_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int rep = H / Hkv;
 
-  __shared__ alignas(16) float q_s[MAX_REP][HD];
-  __shared__ alignas(16) float k_s[TW][HD + 4];  // +4: float4 rows without bank conflicts
-  __shared__ alignas(16) float v_s[TW][HD];
-  __shared__ float p_s[MAX_REP][TW];
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  SplitTiles<HD>& tiles = *reinterpret_cast<SplitTiles<HD>*>(split_smem);
+  float(*q_s)[HD] = tiles.q;
+  float(*k_s)[HD + 4] = tiles.k;
+  float(*v_s)[HD] = tiles.v;
+  float(*p_s)[TW] = tiles.p;
   __shared__ float m_s[MAX_REP], l_s[MAX_REP], alpha_s[MAX_REP];
   __shared__ long long slot_s[TW];  // memory slot of each valid slot, -1 = masked
 
@@ -288,10 +305,36 @@ __global__ void decode_attention_merge_kernel(const float* __restrict__ part,
   out[((size_t)b * H + h) * hd + d] = repro::from_f<T>(a / fmaxf(l, 1e-30f));
 }
 
+// Launches the split kernel at head_dim HD with its tiles in dynamic
+// shared memory; above the 48 KB default the function's limit is raised
+// first (once per instantiation).
+template <typename T, int HD, typename Slots>
+cudaError_t launch_split(dim3 grid, cudaStream_t s, const T* q, const T* k,
+                         const T* v, const int* slot_pos, Slots slots,
+                         const int* pos, float* part, int H, int Hkv, int W,
+                         int nsplit, int split_tiles, int window, float softcap,
+                         float scale) {
+  constexpr int smem = (int)sizeof(SplitTiles<HD>);
+  if (smem > 48 * 1024) {
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_attention_split_kernel<T, HD, Slots>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      raised = true;
+    }
+  }
+  decode_attention_split_kernel<T, HD, Slots><<<grid, NT, smem, s>>>(
+      q, k, v, slot_pos, slots, pos, part, H, Hkv, W, nsplit, split_tiles,
+      window, softcap, scale);
+  return cudaGetLastError();
+}
+
 // Checks the shapes and the split plan, launches the split kernel and the
 // merge kernel on the stream and returns cudaGetLastError().  The nsplit
 // splits of split_tiles tiles of 32 slots must cover W exactly; q, k and
-// v must start on a 16-byte boundary.
+// v must start on a 16-byte boundary; hd is 64, 128 or 256.
 template <typename Slots>
 int launch_decode_split(const void* q, const void* k, const void* v,
                         const void* slot_pos, Slots slots, const void* pos,
@@ -308,23 +351,25 @@ int launch_decode_split(const void* q, const void* k, const void* v,
     return (int)cudaErrorMisalignedAddress;
   const dim3 grid(Hkv, B, nsplit);
   float* pt = (float*)part;
+#define REPRO_SPLIT(HDV)                                                      \
+  launch_split<T, HDV, Slots>(grid, s, (const T*)q, (const T*)k, (const T*)v, \
+                              (const int*)slot_pos, slots, (const int*)pos,   \
+                              pt, H, Hkv, W, nsplit, split_tiles, window,     \
+                              softcap, scale)
   REPRO_DISPATCH_DTYPE(dtype, T, {
+    cudaError_t e;
     if (hd == 64)
-      decode_attention_split_kernel<T, 64, Slots><<<grid, NT, 0, s>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const int*)slot_pos, slots,
-          (const int*)pos, pt, H, Hkv, W, nsplit, split_tiles, window, softcap,
-          scale);
+      e = REPRO_SPLIT(64);
     else if (hd == 128)
-      decode_attention_split_kernel<T, 128, Slots><<<grid, NT, 0, s>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const int*)slot_pos, slots,
-          (const int*)pos, pt, H, Hkv, W, nsplit, split_tiles, window, softcap,
-          scale);
+      e = REPRO_SPLIT(128);
+    else if (hd == 256)
+      e = REPRO_SPLIT(256);
     else
       return (int)cudaErrorInvalidValue;
-    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     decode_attention_merge_kernel<T><<<dim3(H, B), hd, 0, s>>>(pt, (T*)out, H, Hkv, hd, nsplit);
   });
+#undef REPRO_SPLIT
   return (int)cudaGetLastError();
 }
 

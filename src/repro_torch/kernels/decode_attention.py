@@ -39,6 +39,7 @@ PAGED_KERNEL = CudaKernel(
     + [ctypes.c_int])
 
 MAX_REP = 16
+HEAD_DIMS = (64, 128, 256)   # the split kernel's instantiations
 TILE = 32                 # logical slots per tile of the split kernel
 TARGET_BLOCKS = 4 * 132   # four resident blocks on each of the H100's SMs
 MAX_SPLITS = 64           # the merge kernel's limit
@@ -89,7 +90,7 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
           and k_cache.shape[3] == hd, "decode_attention: cache shape")
     check(tuple(cache_pos.shape) == (B, W) and tuple(pos.shape) == (B,),
           "decode_attention: position shapes")
-    check(hd in (64, 128), f"decode_attention: head_dim {hd} not in (64, 128)")
+    check(hd in HEAD_DIMS, f"decode_attention: head_dim {hd} not in {HEAD_DIMS}")
     check(H % Hkv == 0 and H // Hkv <= MAX_REP,
           f"decode_attention: {H} heads over {Hkv} kv heads")
     check(_aligned(q, k_cache, v_cache),
@@ -141,8 +142,8 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
           "paged_decode_attention: page shape")
     check(tuple(pos_pages.shape) == (P, ps) and tuple(pos.shape) == (B,),
           "paged_decode_attention: position shapes")
-    check(hd in (64, 128),
-          f"paged_decode_attention: head_dim {hd} not in (64, 128)")
+    check(hd in HEAD_DIMS,
+          f"paged_decode_attention: head_dim {hd} not in {HEAD_DIMS}")
     check(H % Hkv == 0 and H // Hkv <= MAX_REP,
           f"paged_decode_attention: {H} heads over {Hkv} kv heads")
     check(_aligned(q, k_pages, v_pages),

@@ -1,6 +1,7 @@
 """Attention math: grouped-query attention for prefill (chunked over
-queries) and single-token decode attention over a ring-buffer KV cache
-or, through a block table, over a paged KV pool.
+queries), single-token decode attention over a ring-buffer KV cache
+or, through a block table, over a paged KV pool, and full cross
+attention to static source embeddings.
 
 Shapes follow the JAX package:
   q: (B, Sq, H, hd)    k, v: (B, Sk, Hkv, hd)    H = Hkv * rep (GQA).
@@ -31,9 +32,10 @@ def _grouped_out(p: torch.Tensor, v: torch.Tensor, out_dtype) -> torch.Tensor:
     return o.reshape(B, Sq, Hkv * rep, v.shape[-1]).to(out_dtype)
 
 
-def attention(q, k, v, q_pos, k_pos, *, window: int = 0,
+def attention(q, k, v, q_pos, k_pos, *, causal: bool = True, window: int = 0,
               attn_softcap: float = 0.0, q_chunk: int = 1024) -> torch.Tensor:
-    """Causal GQA attention, chunked over queries.
+    """GQA attention, chunked over queries (``causal=False``: every valid
+    key, as the whisper encoder attends).
 
     q_pos: (B, Sq), k_pos: (B, Sk) absolute positions (-1 = invalid slot).
     """
@@ -44,7 +46,9 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0,
         s = _grouped_scores(qc, k, scale)                   # (B,g,r,C,Sk)
         if attn_softcap > 0.0:
             s = softcap(s, attn_softcap)
-        ok = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= qpc[:, :, None])
+        ok = (k_pos[:, None, :] >= 0).expand(-1, qpc.shape[1], -1)
+        if causal:
+            ok = ok & (k_pos[:, None, :] <= qpc[:, :, None])
         if window > 0:
             ok = ok & (k_pos[:, None, :] > (qpc[:, :, None] - window))
         bias = torch.where(ok, 0.0, -1e30)                   # (B,C,Sk)
@@ -94,3 +98,11 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
     cache_pos = torch.where(mapped, pos_pages[bt], -1).reshape(B, W)
     return decode_attention(q, k_cache, v_cache, cache_pos, pos, window=window,
                             attn_softcap=attn_softcap)
+
+
+def cross_attention(q, k, v) -> torch.Tensor:
+    """Full (non-causal, unmasked) attention to static source embeddings.
+
+    q: (B, Sq, H, hd); k, v: (B, Ssrc, Hkv, hd).  Returns (B, Sq, H, hd)."""
+    s = _grouped_scores(q, k, q.shape[-1] ** -0.5)
+    return _grouped_out(torch.softmax(s, dim=-1), v, q.dtype)

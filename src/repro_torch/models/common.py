@@ -1,6 +1,8 @@
 """Shared model building blocks: norms, RoPE, softcap, init helpers."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -48,12 +50,29 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
     raise ValueError(act)
 
 
-def dense_init(gen: torch.Generator, shape, dtype, device,
-               scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (+-3 sigma) fan-in init, drawn in f32 then cast."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = scale if scale is not None else fan_in ** -0.5
+# an f32 draw above this many bytes, for a lower-precision tensor, is made
+# one slice of the leading axis at a time (arctic-480b's 128 experts)
+_SLICED_DRAW_BYTES = 4 * 2 ** 30
+
+
+def _trunc_normal(gen, shape, device, std) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-3.0, b=3.0,
                                 generator=gen)
-    return t.mul_(std).to(dtype)
+    return t.mul_(std)
+
+
+def dense_init(gen: torch.Generator, shape, dtype, device,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (+-3 sigma) fan-in init, drawn in f32 then cast.
+    A large tensor of a narrower dtype is drawn slice by slice along its
+    first axis, so the f32 draw never holds more than one slice."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    if (dtype != torch.float32 and len(shape) >= 3
+            and 4 * math.prod(shape) > _SLICED_DRAW_BYTES):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = _trunc_normal(gen, shape[1:], device, std).to(dtype)
+        return out
+    return _trunc_normal(gen, shape, device, std).to(dtype)

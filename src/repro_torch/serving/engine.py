@@ -52,6 +52,7 @@ from repro_torch.core.load_balance import balance_experts, evaluate_placement
 from repro_torch.core.transport import InProcessTransport
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cuda_build import launch_counts
+from repro_torch.models.stubs import extra_inputs
 from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.kvcache import (MicrobatchSlotAllocator, SlotAllocator,
@@ -203,6 +204,12 @@ class Engine:
         self.running[req.rid] = req
         self.n_prefills += 1
 
+    def _extras(self) -> dict:
+        """The modality stubs of one request (``models.stubs``): patch
+        embeddings (vision) or frames (audio), {} for text models."""
+        return extra_inputs(self.cfg, 1, dtype=self.params["embed"].dtype,
+                            device=self.device)
+
     # --------------------------------------------------------- paged helpers
     def _pages_for_request(self, req: Request) -> int:
         """Worst-case pages a request can ever touch: its prompt plus all
@@ -276,7 +283,8 @@ class Engine:
                 toks = torch.tensor([req.prompt], dtype=torch.int64,
                                     device=self.device)
                 last_logits, row = prefill(self.params, self.cfg, toks,
-                                           max_seq=self.max_seq)
+                                           max_seq=self.max_seq,
+                                           **self._extras())
             self.t_prefill += time.perf_counter() - t0
             t0 = time.perf_counter()
             n_written = n_pages_for(len(req.prompt), ps)
@@ -375,9 +383,10 @@ class Engine:
             slot = self.slots.alloc(req.rid)
             toks = torch.tensor([req.prompt], dtype=torch.int64,
                                 device=self.device)
+            extras = self._extras()
             t0 = time.perf_counter()
             last_logits, rcache = prefill(self.params, self.cfg, toks,
-                                          max_seq=self.max_seq)
+                                          max_seq=self.max_seq, **extras)
             self.t_prefill += time.perf_counter() - t0
             t0 = time.perf_counter()
             insert_rows(self.cache, rcache, slot)

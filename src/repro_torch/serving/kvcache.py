@@ -60,10 +60,17 @@ def migrate_pages(pool, chunks: Sequence[Tuple[int, List[dict]]],
 
 
 def reset_row(cache: List[dict], row: int):
-    """Invalidate a row (request finished): mark its KV positions empty,
-    so a recycled slot never exposes the previous request's cache."""
+    """Invalidate a row (request finished): mark its KV positions empty
+    and zero its recurrent states (``h``, ``ssm``), so a recycled slot
+    never exposes the previous request's cache.  As in the JAX package,
+    the conv caches and the cross K/V stay: the next request's prefill
+    overwrites them whole."""
     for entry in cache:
-        entry["pos"][row] = -1
+        if "pos" in entry:
+            entry["pos"][row] = -1
+        for key in ("h", "ssm"):
+            if key in entry:
+                entry[key][row] = 0
     return cache
 
 

@@ -29,6 +29,11 @@ Prefill results depend only on the prompt, so the worker may run ahead
 of slot availability without changing any token: admission order, not
 prefill timing, decides the decode batch, and under greedy sampling the
 tokens equal the inline-prefill engine's.
+
+Batching caveat: the modality stubs (``models.stubs.extra_inputs``) are
+drawn per batch, so the models that need them (vision, audio) are
+prefilled one request at a time, each with the stub the inline path's
+B = 1 prefill gets.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.stubs import extra_inputs
 from repro_torch.models.transformer import decode_step
 from repro_torch.models.transformer import prefill as model_prefill
 from repro_torch.serving.kvcache import extract_row
@@ -108,7 +114,7 @@ class PrefillWorker:
         consecutive same-length prompts are batched while batch * length
         stays within it (a longer prompt runs alone).  ``prefill_fn``
         replaces ``models.transformer.prefill`` (tests); it takes
-        ``(params, cfg, tokens, max_seq, capacity_mode=...)``.
+        ``(params, cfg, tokens, max_seq, capacity_mode=..., **extras)``.
 
         ``page_size`` > 0 makes the results paged: per-page chunks
         instead of whole rows.  With a ``prefix_cache`` (a
@@ -128,6 +134,7 @@ class PrefillWorker:
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
         self._prefill = prefill_fn or model_prefill
+        self._needs_extras = bool(extra_inputs(cfg, 1, device=self.device))
         self.page_size = page_size
         self.page_pool = page_pool
         self.prefix_cache = prefix_cache
@@ -172,6 +179,8 @@ class PrefillWorker:
         if self.prefix_cache is not None and self._lookup(batch[0])[0]:
             return batch
         plen = len(batch[0].prompt)
+        if self._needs_extras:
+            return batch
         while (self.pending and len(self.pending[0].prompt) == plen
                and (len(batch) + 1) * plen <= self.chunk_tokens):
             if self.prefix_cache is not None \
@@ -220,8 +229,12 @@ class PrefillWorker:
         # bounded "eval" capacity (prefill's threshold is B * T <= 2048),
         # or its tokens would differ from the inline path's
         capacity = "full" if toks.shape[1] <= 2048 else "eval"
+        extras = (extra_inputs(self.cfg, len(batch),
+                               dtype=self.params["embed"].dtype, device=self.device)
+                  if self._needs_extras else {})
         last_logits, cache = self._prefill(self.params, self.cfg, toks,
-                                           self.max_seq, capacity_mode=capacity)
+                                           self.max_seq, capacity_mode=capacity,
+                                           **extras)
         greedy = last_logits.argmax(-1)
         dt = time.perf_counter() - t0
         self.t_prefill_s += dt

@@ -90,6 +90,7 @@ ATTN_CASES = [  # (b, h, hkv, hd, w, window, softcap)
     (2, 4, 1, 64, 16, 0, 0.0),      # reduced mixtral shape: rep 4
     (3, 8, 2, 64, 20, 6, 0.0),      # sliding window
     (2, 6, 2, 128, 33, 0, 30.0),    # softcap, ragged W, hd 128
+    (2, 10, 1, 256, 40, 16, 0.0),   # recurrentgemma-2b local: hd 256, rep 10
 ]
 
 
@@ -621,7 +622,8 @@ def test_decode_attention_kernel_refuses_a_misaligned_view(cuda):
 @pytest.mark.parametrize("b,h,hkv,hd,ps,npg,window,cap", [
     (2, 8, 2, 64, 8, 4, 0, 0.0), (1, 8, 1, 128, 16, 3, 0, 0.0),
     (3, 4, 4, 64, 8, 4, 16, 0.0), (2, 8, 2, 128, 8, 4, 0, 50.0),
-    (4, 48, 8, 128, 8, 32, 0, 0.0), (3, 16, 1, 64, 64, 2, 0, 0.0)])
+    (4, 48, 8, 128, 8, 32, 0, 0.0), (3, 16, 1, 64, 64, 2, 0, 0.0),
+    (2, 10, 1, 256, 8, 6, 20, 0.0)])
 def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, h, hkv, hd,
                                                      ps, npg, window, cap):
     args, dense = _paged_case(b, h, hkv, hd, ps, npg)

@@ -262,8 +262,9 @@ def test_port_imports_nothing_of_jax():
     interpreter, with neither jax nor any module of the JAX package.  The
     paged serving modules, the prefill worker, the stats schema, the
     gating_topk kernel and the m2n, transport, load-balance and
-    ping-pong modules are named, so the check fails if the walk stops
-    reaching them."""
+    ping-pong modules, the model families (RG-LRU, SSD, stubs), the
+    registry's configs and the planner are named, so the check fails if
+    the walk stops reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -271,7 +272,13 @@ def test_port_imports_nothing_of_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('serving.pages', 'serving.prefix_cache', 'serving.prefill',\n"
         "          'serving.stats', 'kernels.gating_topk', 'core.m2n',\n"
-        "          'core.transport', 'core.load_balance', 'core.pingpong'):\n"
+        "          'core.transport', 'core.load_balance', 'core.pingpong',\n"
+        "          'core.planner', 'models.rglru', 'models.ssd', 'models.stubs',\n"
+        "          'configs.recurrentgemma_2b', 'configs.mamba2_13b',\n"
+        "          'configs.whisper_large_v3', 'configs.llama_3_2_vision_90b',\n"
+        "          'configs.qwen2_moe_a27b', 'configs.arctic_480b',\n"
+        "          'configs.gemma2_27b', 'configs.granite_3_8b',\n"
+        "          'configs.minitron_4b', 'configs.minitron_8b'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -283,7 +290,7 @@ def test_port_imports_nothing_of_jax():
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    assert int(r.stdout.strip()) >= 34
 
 
 def test_entry_points_default_to_cuda():
