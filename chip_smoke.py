@@ -103,6 +103,20 @@ then:
      read per call against those of the experts holding a token, and
      each model's peak memory (below 80 GB).
 
+  8. the trainer (``launch.train``), f32 with TF32 off.  (a) one train
+     step on the card against the same step on the CPU (same params and
+     batch) on reduced mixtral-8x22b and qwen2-moe-a2.7b: routing equal,
+     loss and aux within 1e-5 relative, every gradient within 1e-4 of
+     its leaf's max |g|, the updated params within 1e-5 of their range.
+     (b) mixtral-8x22b at its published widths cut to one layer, batch 8
+     x seq 128, 10 steps at the JAX launcher's defaults, with the launch
+     counts set to 0 just before and required to stay 0 (the kernels
+     have no backward; the path reaches none): ms/step, tokens/s,
+     forward + backward and update apart, peak memory, loss and grad
+     norm per step beside the step's bound; the losses finite and
+     falling.  (c) one step at remat "full" against "none" on the same
+     params and batch: equal loss, less memory kept for backward.
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -121,6 +135,9 @@ tokens must all
 equal the contiguous monolithic ones, with one "kv" hop per request
 (contiguous) or per non-shared page (paged).
 
+Phase 1 ends by requiring every CUDA wrapper to refuse, before any
+launch, an input that requires grad.
+
 After the build it prints each kernel's registers, shared memory and
 spills from ``nvcc -Xptxas -v``.  Each decode profile (phases 3 and 4)
 requires one device kernel per ``gating_dispatch`` call.  Before the
@@ -138,6 +155,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import shutil
 import statistics
@@ -790,7 +808,49 @@ def phase_kernels(torch, dev):
     registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
                            dispatch_shape, gm_shape)
     del flush
+    check_grad_guard(torch, dev)
     return rows
+
+
+def grad_guard_calls(torch, dev):
+    """One call per CUDA wrapper, by name, with an input that requires
+    grad (also run by ``tests/test_torch_kernels.py``)."""
+    from repro_torch.kernels import ops as kops
+    r = lambda *s, g=False: torch.randn(*s, device=dev).requires_grad_(g)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32, device=dev)
+    calls = {
+        "decode_attention": lambda: kops.decode_attention(
+            r(1, 8, 64, g=True), r(1, 32, 8, 64), r(1, 32, 8, 64),
+            torch.arange(32, dtype=torch.int32, device=dev)[None], i32(31)),
+        "paged_decode_attention": lambda: kops.paged_decode_attention(
+            r(1, 8, 64), r(2, 8, 8, 64, g=True), r(2, 8, 8, 64),
+            torch.arange(16, dtype=torch.int32, device=dev).view(2, 8),
+            i32(0, 1)[None], i32(15)),
+        "gating_topk": lambda: kops.gating_topk(r(2, 64), r(64, 8, g=True), 2),
+        "gating_dispatch": lambda: kops.gating_dispatch(r(2, 64, g=True), r(64, 8),
+                                                        2, 8, 2),
+        "grouped_matmul": lambda: kops.grouped_matmul(r(2, 4, 64),
+                                                      r(2, 64, 32, g=True)),
+    }
+    return calls
+
+
+def check_grad_guard(torch, dev):
+    """The kernels have no backward: every CUDA wrapper must raise, and
+    launch nothing, when an input requires grad while grad mode is on
+    (the training path never reaches them)."""
+    from repro_torch.kernels.cuda_build import launch_counts
+    calls = grad_guard_calls(torch, dev)
+    before = launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            require("no backward" in str(e), f"{name}: {e}")
+        else:
+            raise SmokeFailure(f"{name}: an input that requires grad was accepted")
+    require(launch_counts() == before, "the refused calls launched a kernel")
+    print(f"phase 1: {len(calls)} CUDA wrappers refuse an input that requires grad")
 
 
 def ring_positions(torch, dev, B, W, P):
@@ -1769,8 +1829,9 @@ def registry_f32(torch, dev, name, cfg, pingpong):
         logits, cache = decode_step(params, cfg, nxt, cache, pos)
         steps.append(logits)
         pos = pos + 1
-    full = lm_head(params, cfg, forward_hidden(params, cfg, seq, capacity_mode="full",
-                                               **ex))
+    hidden, _ = forward_hidden(params, cfg, seq, remat="none", capacity_mode="full",
+                               **ex)
+    full = lm_head(params, cfg, hidden)
     rng = float(full.max() - full.min())
     err = max(float((full[:, T - 1 + i] - st).abs().max()) for i, st in enumerate(steps))
     require(bool(torch.isfinite(full).all()), f"phase 7 {name} f32: non-finite logits")
@@ -2033,6 +2094,352 @@ def check_live_state(torch, cfg, live, launches):
     return {"paged_decode_attention": paged_row, "gating_topk": topk_row}
 
 
+# ----------------------------------------------------------------- phase 8
+# the trainer: the JAX launcher's defaults (f32, lr 1e-3, warmup
+# max(2, steps // 10), remat none) on mixtral-8x22b at its published
+# widths, cut to one layer (params, grads and two f32 moments of one
+# layer take 46.4 GB; two layers, 86 GB, do not fit the card)
+TRAIN = dict(arch="mixtral-8x22b", n_layers=1, batch=8, seq=128, steps=10,
+             lr=1e-3, seed=0)
+TRAIN_RETRY_LR = 3e-4       # AdamWConfig's default, tried once if the loss
+                            # does not fall at TRAIN["lr"] (below its first
+                            # 3 steps' mean and its first step's)
+TIMED_STEPS = slice(2, None)  # steps 3-10 make the median
+
+
+class train_probe:
+    """Within the block, wrap the pieces the train step calls by name
+    (``training.loop.lm_loss`` and ``adamw_update``, ``models.moe.route``):
+    record each call's routing (experts on the host), the gradients
+    handed to the update (host copies, with ``keep_grads``), the update's
+    metrics and, with ``timed``, a CUDA event where each step starts, one
+    on each side of the update, and the device memory allocated after the
+    forward."""
+
+    def __init__(self, torch, keep_grads=False, timed=False):
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.training import loop
+        self.torch, self.loop, self.moe = torch, loop, moe_lib
+        self.keep, self.timed = keep_grads, timed
+        self.rec = types.SimpleNamespace(routing=[], grads=[], metrics=[],
+                                         events=[], memory=[])
+
+    def _event(self):
+        if not self.timed:
+            return None
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __enter__(self):
+        torch, rec = self.torch, self.rec
+        self.saved = lm_loss, update, route = (self.loop.lm_loss,
+                                               self.loop.adamw_update, self.moe.route)
+
+        def rec_loss(params, *a, **kw):
+            start = self._event()
+            out = lm_loss(params, *a, **kw)
+            if self.timed:
+                rec.memory.append(torch.cuda.memory_allocated())
+            rec.events.append([start])
+            return out
+
+        def rec_update(cfg, params, grads, state, **kw):
+            if self.keep:
+                rec.grads.append([g.detach().cpu().clone() for g in grads])
+            before = self._event()
+            out = update(cfg, params, grads, state, **kw)
+            rec.events[-1] += [before, self._event()]
+            rec.metrics.append(out[2])
+            return out
+
+        def rec_route(*a, **kw):
+            r = route(*a, **kw)
+            rec.routing.append(r.experts.cpu())
+            return r
+
+        self.loop.lm_loss, self.loop.adamw_update, self.moe.route = (
+            rec_loss, rec_update, rec_route)
+        return rec
+
+    def __exit__(self, *exc):
+        self.loop.lm_loss, self.loop.adamw_update, self.moe.route = self.saved
+
+
+def phase_train_parity(torch, dev):
+    """Phase 8(a): one ``train_step`` on the card and the same step on the
+    CPU, in f32 with TF32 off, from the same ``init_params`` draw (made on
+    the CPU, copied to the card) and the same ``SyntheticLM`` batch, on
+    reduced mixtral-8x22b and qwen2-moe-a2.7b (shared experts, top-4 of
+    the full config cut to 2 of 4 experts).  In order: routing equal;
+    loss and aux within 1e-5 relative; every gradient within 1e-4 of its
+    leaf's max |g| (the card's embedding and token-gather backward add
+    with atomics, in no fixed order); the card's update of the CPU's
+    gradients within 1e-5 of the range of the CPU's updated params.
+
+    The step's own updated params are printed beside, not held to 1e-5:
+    at step 1 AdamW moves an element by lr * g / (|g| + eps), nearly
+    +-lr whatever |g|, so an element whose gradient is a cancellation
+    to ~1e-7 (its f32 noise ~1e-6 of the leaf's max) moves by a share of
+    lr that the two devices' summation orders set apart (measured: a
+    few elements in 10^5, 4e-4 of the embedding's range).  Holding the
+    update on the same gradients checks the card's arithmetic; the
+    gradient check holds what feeds it.  The step's own difference is
+    still held loosely: at most 1e-4 of the elements past 1e-5 of their
+    leaf's range, and none by as much as the step's lr."""
+    from repro_torch.config import get_config, reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
+                                                decay_mask, init_opt_state,
+                                                named_leaves, tree_map)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("mixtral-8x22b", "qwen2-moe-a2.7b"):
+        cfg = reduced(get_config(name))
+        batch = torch.from_numpy(SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=65, batch=4, seed=1)).batches(1)[0])
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+        host = init_params(cfg, 0, device="cpu")
+        start = tree_map(lambda t: t.to(dev, copy=True), host)
+        out = {}
+        for where, params in (("cuda", tree_map(lambda t: t.to(dev, copy=True), host)),
+                              ("cpu", host)):
+            for _, p in named_leaves(params):
+                p.requires_grad_(True)
+            step = make_train_step(cfg, opt_cfg, remat="none")
+            with train_probe(torch, keep_grads=True) as rec:
+                params, _, m = step(params, init_opt_state(params),
+                                    batch.to(params["embed"].device))
+            out[where] = (rec, m, {k: p.detach().cpu() for k, p in
+                                   named_leaves(params)})
+        (rc, mc, pc), (rh, mh, ph) = out["cuda"], out["cpu"]
+        lr = float(mh["lr"])
+        require(len(rc.routing) == len(rh.routing) == cfg.n_layers and all(
+            torch.equal(a, b) for a, b in zip(rc.routing, rh.routing)),
+            f"phase 8 {name}: routing differs between the card and the CPU")
+        for key in ("loss", "aux"):
+            a, b = float(mc[key]), float(mh[key])
+            require(abs(a - b) <= 1e-5 * abs(b), f"phase 8 {name}: {key} {a} "
+                    f"(card) vs {b} (CPU)")
+        names = [k for k, _ in named_leaves(host)]
+        g_worst = p_worst = s_worst = (0.0, "")
+        n_off = 0
+        for k, gc, gh in zip(names, rc.grads[0], rh.grads[0]):
+            e = float((gc - gh).abs().max()) / max(float(gh.abs().max()), 1e-30)
+            require(e <= 1e-4, f"phase 8 {name}: gradient {k} off by {e:.2e} of "
+                    f"its max |g|")
+            g_worst = max(g_worst, (e, k))
+        adamw_update(opt_cfg, start, [g.to(dev) for g in rh.grads[0]],
+                     init_opt_state(start), decay=decay_mask(start, cfg))
+        for k, p in named_leaves(start):
+            rng = float(ph[k].max() - ph[k].min()) or 1.0
+            e = float((p.cpu() - ph[k]).abs().max()) / rng
+            require(e <= 1e-5, f"phase 8 {name}: the card's update of the CPU's "
+                    f"gradients gives {k} off by {e:.2e} of its range")
+            p_worst = max(p_worst, (e, k))
+            d = (pc[k] - ph[k]).abs()
+            n_off += int((d > 1e-5 * rng).sum())
+            s_worst = max(s_worst, (float(d.max()) / rng, k))
+            require(float(d.max()) < lr, f"phase 8 {name}: the step moved {k} "
+                    f"{float(d.max()):.2e} apart on the card and the CPU, past "
+                    f"its lr {lr:.2e}")
+        n_all = sum(t.numel() for t in ph.values())
+        require(n_off <= 1e-4 * n_all, f"phase 8 {name}: {n_off} of {n_all} "
+                f"elements of the step's params past 1e-5 of their range")
+        print(f"phase 8(a) [{name}] f32 train step, card vs CPU: routing equal "
+              f"over {cfg.n_layers} layers; loss {float(mc['loss']):.6f} / "
+              f"{float(mh['loss']):.6f}, aux {float(mc['aux']):.6f} / "
+              f"{float(mh['aux']):.6f}; worst gradient {g_worst[0]:.2e} of max "
+              f"|g| ({g_worst[1]}); the update of the same gradients: worst "
+              f"{p_worst[0]:.2e} of the range ({p_worst[1]}); the step's own: "
+              f"{n_off} of {n_all} elements over 1e-5 of the range, worst "
+              f"{s_worst[0]:.2e} ({s_worst[1]})")
+
+
+def train_step_bound(cfg, batch, seq, n_params):
+    """(forward + backward matmul FLOPs, update bytes) of one train step:
+    3 x the forward's matmuls (the expert einsums over all E x C capacity
+    rows, attention's scores over every key, the LM head; the chunked
+    cross-entropy's recomputed head is left out), and the update reading
+    p, g, mu and nu and writing p, mu and nu once, in f32."""
+    from repro_torch.models.moe import expert_capacity
+    BT, d, hd = batch * seq, cfg.d_model, cfg.resolved_head_dim
+    H, Hkv, m = cfg.n_heads, cfg.n_kv_heads, cfg.moe
+    C = expert_capacity(BT, m, "train")
+    per_layer = (2 * BT * d * (2 * H * hd + 2 * Hkv * hd)        # q, k, v, o
+                 + 4 * batch * H * seq * seq * hd                # scores, p @ v
+                 + 2 * BT * d * m.n_experts                      # router
+                 + 3 * 2 * m.n_experts * C * d * m.d_ff_expert)  # w1, w3, w2
+    fwd = cfg.n_layers * per_layer + 2 * BT * d * cfg.vocab
+    return 3 * fwd, 7 * 4 * n_params, C
+
+
+def phase_train(torch, dev):
+    """Phase 8(b) and (c): ``launch.train.run`` at mixtral-8x22b's
+    published widths, cut to one layer, f32 (TF32 off): TRAIN's 10 steps
+    with the launch counts set to 0 just before (the training path
+    launches none of the kernels); ms/step (median of steps 3-10, CUDA
+    events from the step's start to the update's end), tokens/s, forward
+    + backward and update apart, peak memory, loss and grad norm per
+    step, against the step's bound.  Every loss and grad norm finite, the
+    mean loss of the last 3 steps below that of the first 3 and below the
+    first step's (else one retry at AdamWConfig's default lr).  Then (c): on fresh params of the
+    same seed and one batch, the loss with its backward at remat "none",
+    then a train step at remat "full": losses within 1e-6 relative, and
+    the memory the forward keeps for backward lower under "full"; the
+    peak of each is printed."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import run
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.loop import lm_loss, make_train_step
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T = TRAIN
+    cfg = dataclasses.replace(get_config(T["arch"]), n_layers=T["n_layers"])
+    n_params = cfg.param_count()
+    flops, upd_bytes, C = train_step_bound(cfg, T["batch"], T["seq"], n_params)
+    fb_bound = flops / PEAK_FLOPS["float32"] * 1e3
+    upd_bound = upd_bytes / PEAK_BYTES_S * 1e3
+    lr = T["lr"]
+    for attempt in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with train_probe(torch, timed=True) as rec:
+            losses = run(T["arch"], use_reduced=False, steps=T["steps"],
+                         batch=T["batch"], seq=T["seq"], lr=lr, remat="none",
+                         log_every=1, dtype="float32", seed=T["seed"], device=dev,
+                         n_layers=T["n_layers"])
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in launch_counts().items() if v}
+        require(not launched, f"phase 8: the training path launched {launched}")
+        peak = torch.cuda.max_memory_allocated()
+        gnorms = [float(m["grad_norm"]) for m in rec.metrics]
+        require(len(losses) == len(gnorms) == T["steps"], "phase 8: step count")
+        require(all(map(math.isfinite, losses + gnorms)),
+                f"phase 8: non-finite loss or grad norm {losses} {gnorms}")
+        last3 = statistics.mean(losses[-3:])
+        falls = last3 < statistics.mean(losses[:3]) and last3 < losses[0]
+        if falls or attempt:
+            break
+        print(f"phase 8(b): the loss did not fall below its first 3 steps' "
+              f"mean and its first step's at lr {lr} ({losses}); "
+              f"retrying once at lr {TRAIN_RETRY_LR}")
+        lr = TRAIN_RETRY_LR
+    require(falls, f"phase 8: mean loss of the last 3 steps not below the first "
+            f"3's and the first step's at lr {lr}: {losses}")
+    step_ms = [s.elapsed_time(e) for s, _, e in rec.events]
+    fb_ms = [s.elapsed_time(b) for s, b, _ in rec.events]
+    upd_ms = [b.elapsed_time(e) for _, b, e in rec.events]
+    med = lambda xs: statistics.median(xs[TIMED_STEPS])
+    tok = T["batch"] * T["seq"]
+    print(f"phase 8(b) {cfg.name} at published width ({cfg.n_layers} layer, "
+          f"{n_params / 1e9:.3f} B params, f32, TF32 off), batch {T['batch']} x "
+          f"seq {T['seq']}, remat none, lr {lr}: {med(step_ms):.2f} ms/step "
+          f"(median of steps 3-{T['steps']}), {tok / med(step_ms) * 1e3:.1f} tok/s; "
+          f"forward + backward {med(fb_ms):.2f} ms, update {med(upd_ms):.2f} ms "
+          f"({med(upd_ms) / med(step_ms):.3f} of the step); peak memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"phase 8(b) per step: loss {[round(x, 4) for x in losses]}, grad norm "
+          f"{[round(x, 4) for x in gnorms]}, ms {[round(x, 2) for x in step_ms]}")
+    print(f"phase 8(b) bound: forward + backward {flops / 1e12:.3f} TFLOP (expert "
+          f"capacity C = {C}) at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s f32 = "
+          f"{fb_bound:.2f} ms; update {upd_bytes / 1e9:.1f} GB at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s = {upd_bound:.2f} ms; measured / "
+          f"bound: forward + backward {med(fb_ms) / fb_bound:.2f}x, update "
+          f"{med(upd_ms) / upd_bound:.2f}x, step {med(step_ms) / (fb_bound + upd_bound):.2f}x")
+    torch.cuda.empty_cache()
+
+    # (c) remat "full" against "none" on the same params and batch
+    params = init_params(cfg, T["seed"], torch.float32, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    toks = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=T["seq"] + 1, batch=T["batch"],
+        seed=T["seed"] + 1)).batches(1)[0]).to(dev)
+    state = init_opt_state(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    total, (loss_none, _) = lm_loss(params, cfg, toks, {}, remat="none")
+    kept_none = torch.cuda.memory_allocated() - base
+    total.backward()
+    peak_none = torch.cuda.max_memory_allocated()
+    for p in leaves(params):
+        p.grad = None
+    del total
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=2,
+                                            total_steps=T["steps"]), remat="full")
+    with train_probe(torch, timed=True) as rec:
+        params, state, m = step(params, state, toks)
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated()
+    kept_full = rec.memory[0] - base
+    a, b = float(m["loss"]), loss_none.item()
+    require(abs(a - b) <= 1e-6 * abs(b), f"phase 8(c): remat full loss {a} vs none {b}")
+    require(kept_full < kept_none, f"phase 8(c): remat full keeps {kept_full} B "
+            f"for backward, none {kept_none} B")
+    print(f"phase 8(c) remat full vs none (same params and batch): loss {a:.6f} / "
+          f"{b:.6f}; kept for backward after the forward {kept_full / 1e9:.3f} / "
+          f"{kept_none / 1e9:.3f} GB; step peak {peak_full / 1e9:.2f} / "
+          f"{peak_none / 1e9:.2f} GB ({base / 1e9:.2f} GB of params and moments)")
+    step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=2,
+                                            total_steps=T["steps"]), remat="none")
+    profile_train_step(torch, lambda: step(params, state, toks))
+    del params, state, toks
+    torch.cuda.empty_cache()
+
+
+# kernel-name fragments by class, for the train step's device-time split
+TRAIN_KERNEL_CLASSES = (("matmul", ("gemm", "xmma", "cutlass", "sm90", "sm80")),
+                        ("index / scatter / gather", ("index", "scatter", "gather",
+                                                      "embedding")),
+                        ("reduction", ("reduce", "norm", "softmax")),
+                        ("elementwise", ("elementwise", "vectorized", "foreach")))
+
+
+def profile_train_step(torch, fn):
+    """One more step under torch.profiler: the device's busy share of its
+    wall time, device time by kernel class and the kernels that take the
+    most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("phase 8 profile: torch.profiler recorded no device time")
+        return
+    by_name, by_class = {}, {}
+    for e in kernels:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        low = e.name.lower()
+        cls = next((c for c, keys in TRAIN_KERNEL_CLASSES
+                    if any(k in low for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_class.values())
+    print(f"phase 8 profile (one step, remat none): {len(kernels)} device kernels, "
+          f"{busy / 1e3:.2f} ms of device time in {wall_us / 1e3:.2f} ms wall "
+          f"({busy / wall_us:.3f}); by class: " + ", ".join(
+              f"{c} {us / 1e3:.2f} ms" for c, us in
+              sorted(by_class.items(), key=lambda kv: -kv[1])))
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"phase 8 profile:   {us / 1e3:8.3f} ms = {n:4d} x {us / n:9.2f} us  "
+              f"{name[:90]}")
+
+
 def trace_decode(torch, eng, prompts):
     """Submit ``prompts`` (6 new tokens each), take one engine step
     (admission and prefill stay outside), then trace three decode
@@ -2123,6 +2530,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         libs = build_all()
@@ -2156,6 +2564,11 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         path_launches = phase_registry(torch, dev)
+        torch.cuda.empty_cache()
+        t8 = time.perf_counter()
+        phase_train_parity(torch, dev)
+        phase_train(torch, dev)
+        t_end = time.perf_counter()
         for name in ("decode_attention", "gating_dispatch", "grouped_matmul"):
             for sh in rows[name]["shapes"]:
                 if "model" in sh:
@@ -2185,6 +2598,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
+          f"phase 8 in {t_end - t8:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the MegaScale-Infer reproduction.
 
 Mirrors ``src/repro``'s layout (config, configs, models, kernels, core,
-serving, launch) and imports nothing of it: the JAX package is the
+serving, training, launch) and imports nothing of it: the JAX package is the
 reference the port is tested against, and only the tests import both.
 
 Entry points run on the card (``device="cuda"``) unless the caller

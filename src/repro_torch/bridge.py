@@ -1,7 +1,8 @@
 """Bridge from the JAX package's parameter, cache and page-pool pytrees
 to the port's.
 
-Input: the pytree of ``repro.models.init_params`` / ``init_cache``, or a
+Input: the pytree of ``repro.models.init_params`` / ``init_cache``, a
+``repro.training.optimizer.OptState``, or a
 ``repro.serving.pages.PagePool``'s ``store``, with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, tree)``).  The
 stacked ``blocks`` leading axis is unstacked into one dict per layer and
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.training.optimizer import OptState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -57,6 +59,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             "pos_embed": _tensor(enc["pos_embed"], dev),
             "final_norm": _tensor(enc["final_norm"], dev)}
     return params
+
+
+def opt_state_from_jax(opt_state, cfg: ModelConfig, device="cuda"):
+    """A JAX ``training.optimizer.OptState`` (``step``, ``mu``, ``nu``;
+    numpy leaves) as the port's ``OptState``: the step a 0-d int32 host
+    tensor, each moment tree unstacked as ``params_from_jax`` unstacks
+    the params.  Gradients have the params' structure and cross with
+    ``params_from_jax``."""
+    step, mu, nu = opt_state
+    return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                    params_from_jax(mu, cfg, device),
+                    params_from_jax(nu, cfg, device))
 
 
 def cache_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> List[dict]:

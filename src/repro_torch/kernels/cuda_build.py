@@ -161,4 +161,16 @@ def check(cond: bool, msg: str):
         raise ValueError(msg)
 
 
+def check_no_grad(name: str, *tensors):
+    """The CUDA kernels have no backward: refuse an input that requires
+    grad while grad mode is on, so a gradient is never dropped without a
+    word (a served model whose weights still require grad).  The plain
+    route is autograd-transparent and needs no such check."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() or on tensors that do not "
+                           "require grad")
+
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

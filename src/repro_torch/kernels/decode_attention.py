@@ -23,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.device import kernel_route
-from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
+from repro_torch.kernels.cuda_build import (DTYPE_CODES, CudaKernel, check,
+                                           check_no_grad, ptr)
 from repro_torch.models.attention import decode_attention as decode_attention_plain
 from repro_torch.models.attention import \
     paged_decode_attention as paged_decode_attention_plain
@@ -75,6 +76,7 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     if kernel_route(q) == "plain":
         return decode_attention_plain(q, k_cache, v_cache, cache_pos, pos,
                                       window=window, attn_softcap=attn_softcap)
+    check_no_grad("decode_attention", q, k_cache, v_cache)
     B, H, hd = q.shape
     _, W, Hkv, _ = k_cache.shape
     for t in (k_cache, v_cache, cache_pos, pos):
@@ -122,6 +124,7 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
         return paged_decode_attention_plain(q, k_pages, v_pages, pos_pages,
                                             block_table, pos, window=window,
                                             attn_softcap=attn_softcap)
+    check_no_grad("paged_decode_attention", q, k_pages, v_pages)
     B, H, hd = q.shape
     P, ps, Hkv, _ = k_pages.shape
     check(block_table.dim() == 2 and block_table.shape[0] == B,

@@ -25,7 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.device import kernel_route
-from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
+from repro_torch.kernels.cuda_build import (DTYPE_CODES, CudaKernel, check,
+                                           check_no_grad, ptr)
 from repro_torch.models import moe as moe_lib
 
 # launches are also counted by branch: "tables" (placement tables) and
@@ -104,6 +105,7 @@ def gating_dispatch(x, w_router, top_k: int, n_buckets: int, capacity: int,
             x, w_router, top_k, n_buckets, capacity, bias=bias,
             count_weights=count_weights, owner=owner, rep_node=rep_node,
             rep_slot=rep_slot, rep_cum=rep_cum, slots_per_node=slots_per_node)
+    check_no_grad("gating_dispatch", x, w_router, bias, count_weights)
     T, d = x.shape
     E = w_router.shape[1]
     dev = x.device

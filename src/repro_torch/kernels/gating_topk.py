@@ -15,7 +15,8 @@ import ctypes
 import torch
 
 from repro_torch.device import kernel_route
-from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
+from repro_torch.kernels.cuda_build import (DTYPE_CODES, CudaKernel, check,
+                                           check_no_grad, ptr)
 from repro_torch.models import moe as moe_lib
 
 KERNEL = CudaKernel("gating_topk.cu", "gating_topk",
@@ -38,6 +39,7 @@ def gating_topk(x, w_router, top_k: int):
     ``gating_topk_plain`` for the outputs."""
     if kernel_route(x) == "plain":
         return gating_topk_plain(x, w_router, top_k)
+    check_no_grad("gating_topk", x, w_router)
     check(x.dim() == 2, f"gating_topk: x must be (T, d), got {tuple(x.shape)}")
     T, d = x.shape
     check(w_router.device == x.device, "gating_topk: mixed devices")

@@ -8,7 +8,8 @@ import ctypes
 import torch
 
 from repro_torch.device import kernel_route
-from repro_torch.kernels.cuda_build import DTYPE_CODES, CudaKernel, check, ptr
+from repro_torch.kernels.cuda_build import (DTYPE_CODES, CudaKernel, check,
+                                           check_no_grad, ptr)
 
 KERNEL = CudaKernel("grouped_matmul.cu", "grouped_matmul",
                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6)
@@ -27,6 +28,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    body: str = "auto") -> torch.Tensor:
     if kernel_route(x) == "plain":
         return grouped_matmul_plain(x, w)
+    check_no_grad("grouped_matmul", x, w)
     G, M, K = x.shape
     check(w.device == x.device, "grouped_matmul: mixed devices")
     check(w.dim() == 3 and w.shape[0] == G and w.shape[1] == K,

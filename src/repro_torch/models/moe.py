@@ -95,6 +95,17 @@ def replica_assign(experts, rep_node, rep_slot, rep_cum, slots_per_node: int):
     return (node * slots_per_node + slot).to(torch.int32), node.to(torch.int32)
 
 
+def load_balance_loss(routing: Routing, n_experts: int) -> torch.Tensor:
+    """Switch-transformer auxiliary loss: E * sum_e f_e * p_e / K, where
+    f_e is the share of the T tokens routed to e (summing to K over e)
+    and p_e the mean router probability.  Its gradient reaches the
+    router through ``probs`` only."""
+    T, K = routing.experts.shape
+    f = F.one_hot(routing.experts.long(), n_experts).float().sum(dim=(0, 1)) / T
+    p = routing.probs.mean(dim=0)
+    return n_experts * (f * p).sum() / K
+
+
 def expert_capacity(n_tokens: int, cfg: MoEConfig, mode: str) -> int:
     """Static per-expert capacity.  'full' is drop-free (C = T)."""
     if mode == "full":
@@ -171,26 +182,38 @@ def set_routed_impl(fn):
 
 
 def routed_experts_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
-                         act: str, capacity_mode: str) -> torch.Tensor:
-    """Plain routed-expert computation (monolithic scatter/gather)."""
+                         act: str, capacity_mode: str, with_aux: bool = False):
+    """Plain routed-expert computation (monolithic scatter/gather):
+    (y (T, d), aux), aux the load-balance loss of the same routing with
+    ``with_aux``, else None."""
     T = x.shape[0]
     routing = route(x, params["router"], cfg.top_k, params.get("router_bias"))
+    aux = load_balance_loss(routing, cfg.n_experts) if with_aux else None
     C = expert_capacity(T, cfg, capacity_mode)
     idx_buf, gate_buf = dispatch_indices(routing, cfg.n_experts, C)
     xe = gather_tokens(x, idx_buf)
     h = activation(torch.einsum("ecd,edf->ecf", xe, params["we1"]), act)
     h = h * torch.einsum("ecd,edf->ecf", xe, params["we3"])
     out = torch.einsum("ecf,efd->ecd", h, params["we2"])
-    return combine(out, idx_buf, gate_buf, T).to(x.dtype)
+    return combine(out, idx_buf, gate_buf, T).to(x.dtype), aux
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
-            capacity_mode: str = "train") -> torch.Tensor:
-    """MoE FFN over a flat token batch x: (T, d) -> (T, d).  Includes the
-    always-on shared experts and the dense residual where configured."""
-    impl = _ROUTED_IMPL if _ROUTED_IMPL is not None else routed_experts_dense
-    y = impl(params, x, cfg, act, capacity_mode)
-    return add_dense_extras(params, x, y, act)
+            capacity_mode: str = "train", with_aux: bool = False):
+    """MoE FFN over a flat token batch x: (T, d) -> (y (T, d), aux), as
+    the JAX function.  Includes the always-on shared experts and the
+    dense residual where configured.
+
+    aux is the load-balance loss with ``with_aux`` (training), else
+    None: the serving paths leave it off, so a decode step issues none
+    of its ops.  An installed routed impl (m2n, a serving path) computes
+    no aux: it is 0 there, as under the JAX package's m2n path."""
+    if _ROUTED_IMPL is not None:
+        y = _ROUTED_IMPL(params, x, cfg, act, capacity_mode)
+        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+    else:
+        y, aux = routed_experts_dense(params, x, cfg, act, capacity_mode, with_aux)
+    return add_dense_extras(params, x, y, act), aux
 
 
 def add_dense_extras(params: dict, h: torch.Tensor, y: torch.Tensor,

@@ -33,11 +33,13 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
 
     Returns (h: (B, T, W), h_last: (B, W))."""
     h = torch.zeros_like(b[:, 0]) if h0 is None else h0.to(b.dtype)
-    out = torch.empty_like(b)
+    out = []
     for t in range(b.shape[1]):
         h = a[:, t] * h + b[:, t]
-        out[:, t] = h
-    return out, h
+        out.append(h)
+    # stacked, not written into a buffer step by step: autograd then
+    # keeps one node per step instead of copying the buffer's gradient
+    return torch.stack(out, dim=1), h
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

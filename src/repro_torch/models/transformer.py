@@ -20,7 +20,17 @@ Public entry points:
   prefill(params, cfg, tokens, max_seq, cross_embeds, frames)
                                                       -> (last_logits, cache)
   decode_step(params, cfg, tokens, cache, pos)        -> (logits, cache)
-  forward_hidden(params, cfg, tokens, cross_embeds, frames) -> hidden
+  forward_hidden(params, cfg, tokens, cross_embeds, frames, remat)
+                                                      -> (hidden, aux)
+  forward_train(params, cfg, tokens, cross_embeds, frames, remat)
+                                                      -> (logits, aux)
+
+``aux`` is the sum over the MoE layers of their load-balance losses
+(0 for a model without experts).  Only the full-sequence training
+passes compute it; ``prefill`` and ``decode_step`` issue none of its
+ops.  ``remat`` ("none" | "full" | "dots") is what the JAX package's
+scan body is checkpointed with: one block period at a time, under
+``torch.utils.checkpoint``; it changes memory, never values.
 
 ``decode_step`` writes the new K/V token and the new recurrent states
 into the cache in place (the JAX package rebuilt the cache
@@ -31,9 +41,12 @@ only read by decode.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
@@ -235,16 +248,20 @@ def _maybe_post(p, name, y, cfg):
     return rms_norm(y, p[name]) if cfg.use_post_norm else y
 
 
-def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str):
-    """x: (B, T, d) -> delta."""
+def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str,
+                  with_aux: bool = False):
+    """x: (B, T, d) -> (delta, aux).  aux: the MoE load-balance loss
+    with ``with_aux``, else (and for a dense FFN) None."""
     B, T, d = x.shape
     h = rms_norm(x, p["ln2"])
+    aux = None
     if cfg.moe is not None:
-        y = moe_ffn(p, h.reshape(B * T, d), cfg.moe, cfg.act,
-                    capacity_mode).reshape(B, T, d)
+        y, aux = moe_ffn(p, h.reshape(B * T, d), cfg.moe, cfg.act,
+                         capacity_mode, with_aux=with_aux)
+        y = y.reshape(B, T, d)
     else:
         y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act)
-    return _maybe_post(p, "ln2_post", y, cfg)
+    return _maybe_post(p, "ln2_post", y, cfg), aux
 
 
 def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
@@ -301,16 +318,21 @@ def _gelu(t):
 
 def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
                     source=None, capacity_mode: str, max_seq: int,
-                    causal: bool = True, build_cache: bool = True):
-    """One layer over a full sequence.  Returns (x, cache entry or None)."""
-    cache = None
+                    causal: bool = True, build_cache: bool = True,
+                    with_aux: bool = False):
+    """One layer over a full sequence.  Returns (x, cache entry or None,
+    aux: an MoE layer's load-balance loss with ``with_aux``, else None)."""
+    cache, aux = None, None
+    ffn = functools.partial(_ffn_sublayer, cfg=cfg, capacity_mode=capacity_mode,
+                            with_aux=with_aux)
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else 0
         delta, cache = _self_attn_sublayer(
             p, x, cfg, positions, causal=causal, window=window,
             build_cache=build_cache, cache_len=cache_len(cfg, kind, max_seq))
         x = x + delta
-        x = x + _ffn_sublayer(p, x, cfg, capacity_mode)
+        dff, aux = ffn(p, x)
+        x = x + dff
     elif kind == "cross":
         B, T, _ = x.shape
         H, hd = cfg.n_heads, cfg.resolved_head_dim
@@ -318,8 +340,8 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         k, v = _cross_kv(p, cfg, source)
         out = attn_lib.cross_attention(q, k, v).reshape(B, T, H * hd)
         x = x + _gated(p["gate_attn"], out @ p["wo"], x.dtype)
-        x = x + _gated(p["gate_ffn"], _ffn_sublayer(p, x, cfg, capacity_mode),
-                       x.dtype)
+        dff, aux = ffn(p, x)
+        x = x + _gated(p["gate_ffn"], dff, x.dtype)
         if build_cache:
             cache = {"k_src": k, "v_src": v}
     elif kind == "selfcross":
@@ -332,13 +354,15 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         k, v = _cross_kv(p, cfg, source, prefix="c_")
         out = attn_lib.cross_attention(q, k, v).reshape(B, T, H * hd)
         x = x + out @ p["c_wo"]
-        x = x + _ffn_sublayer(p, x, cfg, capacity_mode)
+        dff, aux = ffn(p, x)
+        x = x + dff
         if build_cache:
             cache = dict(cache, k_src=k, v_src=v)
     elif kind == "rglru":
         y, state = rglru_block(p, rms_norm(x, p["ln1"]), cfg.rglru, _gelu, None)
         x = x + y
-        x = x + _ffn_sublayer(p, x, cfg, capacity_mode)
+        dff, aux = ffn(p, x)
+        x = x + dff
         cache = state if build_cache else None
     elif kind == "ssd":
         y, state = ssd_block(p, rms_norm(x, p["ln1"]), cfg.ssm, cfg.d_model, None)
@@ -346,7 +370,7 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         cache = state if build_cache else None
     else:
         raise ValueError(kind)
-    return x, cache
+    return x, cache, aux
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -372,8 +396,9 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for lp in enc["layers"]:
-        x, _ = apply_layer_seq("attn", lp, cfg, x, positions, capacity_mode="full",
-                               max_seq=S, causal=False, build_cache=False)
+        x, _, _ = apply_layer_seq("attn", lp, cfg, x, positions,
+                                  capacity_mode="full", max_seq=S, causal=False,
+                                  build_cache=False)
     return rms_norm(x, enc["final_norm"])
 
 
@@ -392,31 +417,94 @@ def _source(params, cfg: ModelConfig, cross_embeds, frames):
     return None
 
 
+REMAT = ("none", "full", "dots")
+
+# "dots" keeps the outputs of dot products without batch dimensions (a
+# 2-D ``mm``; ``x @ w`` over (B, T, d) folds into one), as JAX's
+# ``checkpoint_dots_with_no_batch_dims``, and recomputes everything
+# else: the expert einsums (``bmm``, batched by expert) and attention
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(remat: str, fn, *args):
+    """fn(*args), with what backward needs kept per ``remat``: "none"
+    everything, "full" nothing (recomputed in backward, JAX's
+    ``nothing_saveable``), "dots" the no-batch dot outputs."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+
+
 def _seq_pass(params, cfg: ModelConfig, x, positions, source, capacity_mode,
-              build_cache: bool, max_seq: int):
+              build_cache: bool, max_seq: int, remat: str = "none",
+              with_aux: bool = False):
+    """The layer stack over a sequence.  Returns (x, aux, cache): aux
+    summed in the JAX package's order (block periods, then the
+    remainder) with ``with_aux``, else None; cache None without
+    ``build_cache``.  Each block period runs under ``_remat``; the
+    remainder layers outside it, as in JAX."""
+    kinds, layers = cfg.layer_kinds, params["layers"]
+
+    def run(lo, hi, x, aux):
+        caches = []
+        for kind, lp in zip(kinds[lo:hi], layers[lo:hi]):
+            x, c, a = apply_layer_seq(kind, lp, cfg, x, positions, source=source,
+                                      capacity_mode=capacity_mode, max_seq=max_seq,
+                                      build_cache=build_cache, with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
+            caches.append(c)
+        return x, aux, caches
+
+    aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
+    period = len(cfg.block_pattern)
+    n_periodic = cfg.n_blocks * period
     cache = []
-    for kind, lp in zip(cfg.layer_kinds, params["layers"]):
-        x, c = apply_layer_seq(kind, lp, cfg, x, positions, source=source,
-                               capacity_mode=capacity_mode, max_seq=max_seq,
-                               build_cache=build_cache)
-        cache.append(c)
-    return x, (cache if build_cache else None)
+    for lo in range(0, n_periodic, period):
+        x, aux, c = _remat(remat, run, lo, lo + period, x, aux)
+        cache += c
+    x, aux, c = run(n_periodic, len(kinds), x, aux)
+    cache += c
+    return x, aux, (cache if build_cache else None)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens,
                    cross_embeds: Optional[torch.Tensor] = None,
-                   frames: Optional[torch.Tensor] = None,
-                   capacity_mode: str = "train") -> torch.Tensor:
+                   frames: Optional[torch.Tensor] = None, remat: str = "full",
+                   capacity_mode: str = "train"):
     """Full-sequence forward up to (but excluding) the LM head, with no
-    cache: (B, T, d).  The JAX function also returns the MoE auxiliary
-    loss, which comes with the training slice."""
+    cache.  Returns (hidden (B, T, d), aux: the summed MoE load-balance
+    loss, f32 scalar).  The training loss's chunked cross-entropy reads
+    the hidden states, so (B, T, V) logits are never whole."""
     B, T = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     source = _source(params, cfg, cross_embeds, frames)
-    x, _ = _seq_pass(params, cfg, x, positions, source, capacity_mode,
-                     build_cache=False, max_seq=T)
-    return x
+    x, aux, _ = _seq_pass(params, cfg, x, positions, source, capacity_mode,
+                          build_cache=False, max_seq=T, remat=remat,
+                          with_aux=True)
+    return x, aux
+
+
+def forward_train(params: dict, cfg: ModelConfig, tokens,
+                  cross_embeds: Optional[torch.Tensor] = None,
+                  frames: Optional[torch.Tensor] = None, remat: str = "full",
+                  capacity_mode: str = "train"):
+    """Full-sequence forward.  tokens: (B, T).  Returns (logits (B, T,
+    V), aux)."""
+    x, aux = forward_hidden(params, cfg, tokens, cross_embeds, frames, remat,
+                            capacity_mode)
+    return lm_head(params, cfg, x), aux
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -432,8 +520,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     source = _source(params, cfg, cross_embeds, frames)
-    x, cache = _seq_pass(params, cfg, x, positions, source, capacity_mode,
-                         build_cache=True, max_seq=max_seq)
+    x, _, cache = _seq_pass(params, cfg, x, positions, source, capacity_mode,
+                            build_cache=True, max_seq=max_seq)
     return lm_head(params, cfg, x[:, -1]), cache
 
 
@@ -471,7 +559,7 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
 def ffn_decode_sublayer(p: dict, cfg: ModelConfig, x, capacity_mode: str):
     h = rms_norm(x, p["ln2"])
     if cfg.moe is not None:
-        y = moe_ffn(p, h, cfg.moe, cfg.act, capacity_mode)
+        y, _ = moe_ffn(p, h, cfg.moe, cfg.act, capacity_mode)
     else:
         y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act)
     return _maybe_post(p, "ln2_post", y, cfg)

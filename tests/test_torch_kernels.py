@@ -17,6 +17,7 @@ against the JAX package.  The JAX cases get JAX through a fixture that
 skips where it is not installed, so the file also collects on the
 card's machine.
 """
+import os
 import shutil
 import types
 
@@ -61,6 +62,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (it imports nothing
+    of the card at import time)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _t(a):
@@ -961,3 +974,18 @@ def test_grouped_matmul_kernel_refuses_a_misaligned_view(cuda):
     assert xm.is_contiguous() and xm.storage_offset() == 1
     with pytest.raises(ValueError, match="16-byte"):
         kops.grouped_matmul(xm, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention",
+                                  "gating_topk", "gating_dispatch",
+                                  "grouped_matmul"])
+def test_cuda_wrappers_refuse_inputs_that_require_grad(cuda, name):
+    """The kernels have no backward: each CUDA route raises, before any
+    launch, on an input that requires grad while grad mode is on (the
+    calls of ``chip_smoke.py``'s phase 1 check)."""
+    calls = _chip_smoke().grad_guard_calls(torch, cuda)
+    before = cuda_build.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[name]()
+    assert cuda_build.launch_counts() == before

@@ -178,8 +178,9 @@ def test_moe_ffn_matches_jax(jx, cap_mode, extras):
         p.update(ws1=r(d, f), ws3=r(d, f), ws2=r(f, d), shared_gate=r(d),
                  wd1=r(d, f), wd3=r(d, f), wd2=r(f, d))
     x = rng.randn(T, d).astype(np.float32)
-    got = tmoe.moe_ffn({k: _t(v) for k, v in p.items()}, _t(x), cfg, "silu",
-                       cap_mode)
+    got, aux = tmoe.moe_ffn({k: _t(v) for k, v in p.items()}, _t(x), cfg,
+                            "silu", cap_mode)
+    assert aux is None
     want, _ = jx.moe.moe_ffn({k: jx.jnp.asarray(v) for k, v in p.items()},
                              jx.jnp.asarray(x), cfg, "silu", cap_mode)
     _close(got, want)
@@ -263,8 +264,8 @@ def test_port_imports_nothing_of_jax():
     paged serving modules, the prefill worker, the stats schema, the
     gating_topk kernel and the m2n, transport, load-balance and
     ping-pong modules, the model families (RG-LRU, SSD, stubs), the
-    registry's configs and the planner are named, so the check fails if
-    the walk stops reaching them."""
+    registry's configs, the planner and the trainer are named, so the
+    check fails if the walk stops reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -278,7 +279,9 @@ def test_port_imports_nothing_of_jax():
         "          'configs.whisper_large_v3', 'configs.llama_3_2_vision_90b',\n"
         "          'configs.qwen2_moe_a27b', 'configs.arctic_480b',\n"
         "          'configs.gemma2_27b', 'configs.granite_3_8b',\n"
-        "          'configs.minitron_4b', 'configs.minitron_8b'):\n"
+        "          'configs.minitron_4b', 'configs.minitron_8b',\n"
+        "          'training.data', 'training.optimizer', 'training.loop',\n"
+        "          'training.checkpoint', 'launch.train'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
