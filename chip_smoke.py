@@ -117,6 +117,28 @@ then:
      falling.  (c) one step at remat "full" against "none" on the same
      params and batch: equal loss, less memory kept for backward.
 
+  9. the multi-process slice, every rank a process on the one card over
+     gloo (NCCL refuses two ranks on one device).  (a) mixtral-8x22b's
+     MoE layer at published width over 2 ranks, 4 experts each, f32
+     (TF32 off) then bf16, T = 4 and 8 in the drop-free capacity mode:
+     each rank's y and counts against the plain ``routed_experts_dense``
+     of one process (counts exact, f32 within 1e-5 of the output's
+     range, bf16 2e-2), every rank launching ``gating_dispatch[owner]``
+     once and ``grouped_matmul`` three times per dispatch; per rank the
+     device time of dispatch, expert MLP and the combine's
+     ``all_reduce`` (CUDA events), the all_reduce on the host clock
+     beside the same bytes as a CPU tensor (the host staging), the
+     call's wall time, beside the same dispatch as 2 shards in one
+     process.  (b) ``repro_torch.launch.dist_smoke --procs 2`` on the
+     card.  (c) qwen2-moe-a2.7b at published width cut to one layer,
+     f32, batch 8 x seq 128 split 4 + 4 over 2 ranks, 3 data-parallel
+     steps against one process on the whole batch: tokens dropped,
+     losses and aux within 1e-5 relative, step 0's averaged gradients
+     within 1e-4 of max |g|, the step's params by 8(a)'s loose rule;
+     ms/step, the gradient all_reduce's share, each rank's peak.  The
+     ranks are ``chip_smoke.py --phase9 m2n|dp DIR``; one that fails or
+     hangs fails the phase.
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -146,7 +168,9 @@ last line it prints the card's name and power limit and a
 grouped matmul carry a ``shapes`` list, one entry per timed shape;
 ``gating_dispatch[tables]`` and ``gating_dispatch[owner]`` are the
 kernel's two branches, their launches counted on phase 5's rebalanced
-and m2n + rebalanced runs); the last line is the contract line
+and m2n + rebalanced runs; ``gating_dispatch[owner]`` and
+``grouped_matmul`` also carry ``phase9_rank_launches``, each rank's
+launches in phase 9(a)); the last line is the contract line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that line.  It imports nothing of JAX or
 of the JAX package.
@@ -156,6 +180,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -2511,6 +2536,492 @@ def profile_decode(torch, eng, prompts, label="profile"):
                 window_ms=wall_us / 1e3)
 
 
+# phase 9: the multi-process slice on one card.  Every rank is a process
+# of its own on cuda:0 and the ranks meet over gloo (NCCL refuses two
+# ranks on one device; gloo stages CUDA tensors through the host).
+P9_MOE = dict(d=6144, n_experts=8, top_k=2, d_ff=16384)   # mixtral-8x22b's layer
+P9_TOKENS = (4, 8)
+P9_REPS = 10
+P9_RANKS = 2
+P9_TIMEOUT = 300           # seconds for all ranks of one sub-phase
+# 9(c): one full-width qwen2-moe layer takes 19.1 GB of params, grads and
+# moments per rank; mixtral-8x22b's (46.4 GB, phase 8) does not fit twice
+# on one card, so data parallelism at its width needs a card per rank
+P9_TRAIN = dict(arch="qwen2-moe-a2.7b", n_layers=1, batch=8, seq=128, steps=3,
+                lr=1e-3, seed=0)
+P9_STAGE_MB = 256          # the all_reduce size whose host staging is timed
+
+
+def p9_layer(torch, dev, lo, hi, dtype):
+    """Experts [lo, hi) of phase 9(a)'s layer (each drawn from a seed of
+    its own, so a rank draws its slice as the whole layer has it), the
+    f32 router and 8 tokens in ``dtype``."""
+    d, f = P9_MOE["d"], P9_MOE["d_ff"]
+    w = {"we1": torch.empty((hi - lo, d, f), device=dev),
+         "we3": torch.empty((hi - lo, d, f), device=dev),
+         "we2": torch.empty((hi - lo, f, d), device=dev)}
+    for i, e in enumerate(range(lo, hi)):
+        g = torch.Generator(device=dev).manual_seed(1000 + e)
+        for k, fan_in in (("we1", d), ("we3", d), ("we2", f)):
+            w[k][i].normal_(generator=g).div_(math.sqrt(fan_in))
+    g = torch.Generator(device=dev).manual_seed(999)
+    router = torch.randn((d, P9_MOE["n_experts"]), generator=g, device=dev) / math.sqrt(d)
+    x = torch.randn((max(P9_TOKENS), d), generator=g, device=dev)
+    return {k: v.to(dtype) for k, v in w.items()}, router, x.to(dtype)
+
+
+def p9_cfg():
+    from repro_torch.config import MoEConfig
+    return MoEConfig(n_experts=P9_MOE["n_experts"], top_k=P9_MOE["top_k"],
+                     d_ff_expert=P9_MOE["d_ff"])
+
+
+class p9_timer:
+    """Within the block, wrap ``kops.gating_dispatch``, ``kops.grouped_mlp``
+    and ``mesh.all_reduce`` (when a mesh is given) with CUDA events, and the
+    all_reduce also with the host clock between two synchronizes; ``take()``
+    returns and clears the device times (ms) per name since the last call."""
+
+    def __init__(self, torch, mesh=None):
+        from repro_torch.kernels import ops as kops
+        self.torch, self.kops, self.mesh = torch, kops, mesh
+        self.events, self.host = {}, []
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+
+        def timed(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            if name == "all_reduce":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            if name == "all_reduce":
+                torch.cuda.synchronize()
+                self.host.append((time.perf_counter() - t0) * 1e3)
+            self.events.setdefault(name, []).append((s, e))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = (self.kops.gating_dispatch, self.kops.grouped_mlp)
+        self.kops.gating_dispatch = self._wrap("dispatch", self.saved[0])
+        self.kops.grouped_mlp = self._wrap("mlp", self.saved[1])
+        if self.mesh is not None:
+            self.mesh.all_reduce = self._wrap("all_reduce", self.mesh.all_reduce)
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.gating_dispatch, self.kops.grouped_mlp = self.saved
+        if self.mesh is not None:
+            del self.mesh.all_reduce
+
+    def take(self):
+        self.torch.cuda.synchronize()
+        out = {k: [s.elapsed_time(e) for s, e in v] for k, v in self.events.items()}
+        if self.host:
+            out["all_reduce_host"] = self.host
+        self.events, self.host = {}, []
+        return out
+
+
+def p9_m2n_child(torch, out_dir):
+    """Phase 9(a), one rank: expert shard j (experts [4 j, 4 j + 4)) of
+    mixtral's layer, f32 (TF32 off) then bf16, at T = 4 and 8 in the
+    engine's drop-free capacity mode; P9_REPS timed calls of each after 2
+    warm-up calls, all ranks at once.  The ranks share the card, so the
+    CUDA events of those calls span the other ranks' kernels too; each
+    rank then runs P9_REPS more calls alone on the card (the others wait
+    at a barrier), its combine's all_reduce left out, which time its own
+    kernels.  Saves y and the counts, prints one JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.core.m2n import sharded_routed_experts
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    mesh = make_mesh((tr.process_count,), ("model",))
+    j, n = mesh.index("model"), mesh.size("model")
+    e_loc = P9_MOE["n_experts"] // n
+    cfg = p9_cfg()
+    reset_launch_counts()
+    calls, saved, times = 0, {}, {}
+    w, router, x = p9_layer(torch, tr.device, j * e_loc, (j + 1) * e_loc,
+                            torch.float32)
+    weights_gb = sum(t.numel() * t.element_size() for t in w.values()) / 1e9
+    for dtype in ("float32", "bfloat16"):
+        params = dict({k: v.to(getattr(torch, dtype)) for k, v in w.items()},
+                      router=router)
+        if dtype == "bfloat16":
+            del w
+        for T in P9_TOKENS:
+            xs = x[:T].to(getattr(torch, dtype))
+            call = lambda: sharded_routed_experts(
+                params, xs, cfg, "silu", "full", mesh=mesh, expert_axis="model",
+                with_counts=True, transport=tr)
+            with p9_timer(torch, mesh) as tm:
+                for _ in range(2):
+                    call()
+                tm.take()
+                wall = []
+                for _ in range(P9_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, counts = call()
+                    torch.cuda.synchronize()
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                dev_ms = tm.take()
+            calls += 2 + P9_REPS
+            saved[f"{dtype}/{T}"] = (y.float().cpu(), counts.cpu())
+            times[f"{dtype}/{T}"] = {k: statistics.median(v) for k, v in dev_ms.items()}
+            times[f"{dtype}/{T}"]["wall"] = statistics.median(wall)
+            for r in range(n):
+                dist.barrier()
+                if r != j:
+                    continue
+                mesh.all_reduce = lambda t, axes: t
+                with p9_timer(torch) as tm:
+                    call()
+                    tm.take()
+                    wall = []
+                    for _ in range(P9_REPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        call()
+                        torch.cuda.synchronize()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                    solo = tm.take()
+                del mesh.all_reduce
+                calls += 1 + P9_REPS
+                times[f"{dtype}/{T}"]["alone"] = dict(
+                    {k: statistics.median(v) for k, v in solo.items()},
+                    wall=statistics.median(wall))
+            dist.barrier()
+            # the host staging of the combine's all_reduce: the same bytes
+            # as a CPU tensor over the same group
+            cpu = torch.zeros((T, P9_MOE["d"]))
+            host = []
+            for _ in range(P9_REPS):
+                t0 = time.perf_counter()
+                mesh.all_reduce(cpu, "model")
+                host.append((time.perf_counter() - t0) * 1e3)
+            times[f"{dtype}/{T}"]["all_reduce_cpu_host"] = statistics.median(host)
+        del params
+    staging = {}
+    n_el = P9_STAGE_MB * 2 ** 20 // 4
+    for where in ("cuda", "cpu"):
+        t = torch.ones(n_el, device=tr.device if where == "cuda" else "cpu")
+        mesh.all_reduce(t, "model")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce(t, "model")
+        torch.cuda.synchronize()
+        staging[where] = (time.perf_counter() - t0) * 1e3
+        del t
+    torch.save(saved, Path(out_dir) / f"m2n{j}.pt")
+    print("phase9 " + json.dumps({
+        "rank": j, "device": str(tr.device), "backend": tr.backend,
+        "calls": calls, "launches": launch_counts(), "times": times,
+        "staging_ms": staging, "weights_gb": weights_gb,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+
+
+def p9_dp_child(torch, out_dir):
+    """Phase 9(c), one rank: P9_TRAIN's steps data-parallel over the
+    ranks (each takes batch / R rows; f32, TF32 off), timing each step
+    and the gradient all_reduce.  Rank 0 keeps step 0's averaged
+    gradients and updated params, frees the rest once every rank is done,
+    runs the one-process step on the whole batch from the same params
+    and holds the two against each other.  Prints one JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.config import get_config
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training import loop
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                named_leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    group = make_mesh((tr.process_count, 1), ("data", "model")).group("data")
+    rank, P = tr.process_index, P9_TRAIN
+    cfg = dataclasses.replace(get_config(P["arch"]), n_layers=P["n_layers"])
+    opt = AdamWConfig(lr=P["lr"], warmup_steps=2, total_steps=P["steps"])
+    batches = [torch.from_numpy(b).to(tr.device) for b in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=P["seq"] + 1, batch=P["batch"],
+        seed=P["seed"])).batches(P["steps"])]
+
+    def train(group, keep):
+        """(metrics per step, ms per step, all_reduce ms per step, step 0's
+        gradients and params when ``keep``)."""
+        params = init_params(cfg, P["seed"], torch.float32, device=tr.device)
+        names = [k for k, _ in named_leaves(params)]
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        if group is not None:
+            dp.check_replicated([p for _, p in named_leaves(params)] + batches,
+                                group, "params and batches")
+        state = init_opt_state(params)
+        step = loop.make_train_step(cfg, opt, remat="none", group=group)
+        kept, ar_ms, ms, metrics = {}, [], [], []
+        update, average = loop.adamw_update, dp.average_grads
+
+        def keep_grads(opt_cfg, ps, grads, st, **kw):
+            if keep and not kept:
+                kept["grads"] = dict(zip(names, (g.clone() for g in grads)))
+            return update(opt_cfg, ps, grads, st, **kw)
+
+        def timed_average(grads, g):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            average(grads, g)
+            torch.cuda.synchronize()
+            ar_ms.append((time.perf_counter() - t0) * 1e3)
+
+        loop.adamw_update, dp.average_grads = keep_grads, timed_average
+        try:
+            for s, toks in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, toks)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if keep and s == 0:
+                    kept["params"] = {k: p.detach().clone()
+                                      for k, p in named_leaves(params)}
+        finally:
+            loop.adamw_update, dp.average_grads = update, average
+        return metrics, ms, ar_ms, kept
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms, ar_ms, kept = train(group, keep=rank == 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"rank": rank, "metrics": metrics, "ms": ms, "all_reduce_ms": ar_ms,
+           "peak_gb": peak}
+    dist.barrier(group)                 # every rank is done with its state
+    if rank == 0:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_ms, _, ref_kept = train(None, keep=True)
+        out.update(ref_metrics=ref, ref_ms=ref_ms,
+                   ref_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        g_worst, n_off, n_all, p_worst, p_moved = (0.0, ""), 0, 0, (0.0, ""), 0.0
+        for k, g in kept["grads"].items():
+            w = ref_kept["grads"][k]
+            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            g_worst = max(g_worst, (e, k))
+        for k, p in kept["params"].items():
+            w = ref_kept["params"][k]
+            d = (p - w).abs()
+            rng = float(w.max() - w.min()) or 1.0
+            n_off += int((d > 1e-5 * rng).sum())
+            n_all += d.numel()
+            p_worst = max(p_worst, (float(d.max()) / rng, k))
+            p_moved = max(p_moved, float(d.max()))
+        out.update(grad_worst=g_worst, params_off=n_off, params_all=n_all,
+                   params_worst=p_worst, params_max_abs=p_moved)
+    print("phase9 " + json.dumps(out), flush=True)
+
+
+def p9_results(torch, label, out, n):
+    """The ``phase9 {...}`` line of each of ``n`` ranks of ``run_ranks``'s
+    output; every rank must have exited 0 and printed one."""
+    got = []
+    for rank, (rc, text) in enumerate(out):
+        require(rc == 0, f"phase 9{label}: rank {rank} exited {rc}:\n{text[-4000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith("phase9 ")]
+        require(len(lines) == 1, f"phase 9{label}: rank {rank} printed no result:\n"
+                f"{text[-4000:]}")
+        got.append(json.loads(lines[0][len("phase9 "):]))
+    require(len(got) == n, f"phase 9{label}: {len(got)} of {n} ranks")
+    return got
+
+
+def phase_processes(torch, dev):
+    """Phase 9: (a) the M2N dispatch of mixtral-8x22b's MoE layer over two
+    processes on the card, against the plain ``routed_experts_dense`` of
+    one process; (b) ``repro_torch.launch.dist_smoke --procs 2`` on the
+    card; (c) data-parallel training of qwen2-moe-a2.7b at published width
+    (1 layer) over two processes against one process on the whole batch.
+    Returns each rank's launches of phase 9(a):
+    {"gating_dispatch[owner]": [...], "grouped_matmul": [...]}."""
+    from repro_torch.core.m2n import sharded_routed_experts
+    from repro_torch.launch.dist_smoke import run_ranks
+    from repro_torch.models import moe as moe_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "phase9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = p9_cfg()
+    E, d = P9_MOE["n_experts"], P9_MOE["d"]
+
+    # (a) the reference of one process: the plain dense routed experts,
+    # and the same dispatch as two shards in one process, timed
+    w, router, x = p9_layer(torch, dev, 0, E, torch.float32)
+    refs, one = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        params = dict({k: v.to(getattr(torch, dtype)) for k, v in w.items()},
+                      router=router)
+        for T in P9_TOKENS:
+            xs = x[:T].to(getattr(torch, dtype))
+            y, _ = moe_lib.routed_experts_dense(params, xs, cfg, "silu", "full")
+            r = moe_lib.route(xs, router, cfg.top_k)
+            refs[f"{dtype}/{T}"] = (y.float().cpu(),
+                                    moe_lib.routing_counts(r, E).cpu())
+            call = lambda: sharded_routed_experts(params, xs, cfg, "silu", "full",
+                                                  n_shards=P9_RANKS)
+            with p9_timer(torch) as tm:
+                call()
+                tm.take()
+                wall = []
+                for _ in range(P9_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                dev_ms = tm.take()
+            one[f"{dtype}/{T}"] = {k: statistics.median(v) for k, v in dev_ms.items()}
+            one[f"{dtype}/{T}"]["wall"] = statistics.median(wall)
+        del params
+    del w
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = p9_results(torch, "(a)", run_ranks(
+        [str(ROOT / "chip_smoke.py"), "--phase9", "m2n", str(out_dir)], P9_RANKS,
+        timeout=P9_TIMEOUT), P9_RANKS)
+    t_a = time.perf_counter() - t0
+    launches = {"gating_dispatch[owner]": [], "grouped_matmul": []}
+    for got in ranks:
+        j = got["rank"]
+        saved = torch.load(out_dir / f"m2n{j}.pt")
+        lc = got["launches"]
+        require(lc["gating_dispatch[owner]"] >= got["calls"] and
+                lc["grouped_matmul"] >= 2 * got["calls"],
+                f"phase 9(a) rank {j}: {got['calls']} dispatches launched {lc}")
+        for name in launches:
+            launches[name].append(lc[name])
+        for key, (y_ref, c_ref) in refs.items():
+            y, counts = saved[key]
+            require(torch.equal(counts, c_ref),
+                    f"phase 9(a) rank {j} {key}: counts {counts} vs {c_ref}")
+            if key.startswith("float32"):
+                rng = float(y_ref.max() - y_ref.min())
+                err = max_err(torch, y, y_ref)
+                require(err <= 1e-5 * rng, f"phase 9(a) rank {j} {key}: y off by "
+                        f"{err:.3e}, range {rng:.3e}")
+            else:
+                check_close(torch, f"phase 9(a) rank {j} {key}", y, y_ref, 2e-2, 2e-2)
+        for key, t in got["times"].items():
+            o, a = one[key], t["alone"]
+            print(f"phase 9(a) rank {j} {key.replace('/', ' T=')}: alone on the "
+                  f"card: dispatch {a['dispatch']:.4f} ms, expert MLP {a['mlp']:.4f} "
+                  f"ms, shard call without the combine {a['wall']:.4f} ms; both "
+                  f"ranks at once (shared-card spans, each holds the other rank's "
+                  f"kernels too): dispatch {t['dispatch']:.4f} ms, MLP {t['mlp']:.4f} "
+                  f"ms, all_reduce {t['all_reduce']:.4f} ms device / "
+                  f"{t['all_reduce_host']:.4f} ms host (a CPU tensor: "
+                  f"{t['all_reduce_cpu_host']:.4f} ms), call {t['wall']:.4f} ms; "
+                  f"one process, 2 shards: dispatch {o['dispatch']:.4f} ms x2, "
+                  f"MLP {o['mlp']:.4f} ms x2, call {o['wall']:.4f} ms")
+        print(f"phase 9(a) rank {j} on {got['device']} over {got['backend']}: "
+              f"{got['weights_gb']:.2f} GB of f32 experts, peak {got['peak_gb']:.2f} GB; "
+              f"{got['calls']} dispatches launched gating_dispatch[owner] "
+              f"{lc['gating_dispatch[owner]']}, grouped_matmul {lc['grouped_matmul']}; "
+              f"a {P9_STAGE_MB} MiB all_reduce: {got['staging_ms']['cuda']:.1f} ms "
+              f"on the card, {got['staging_ms']['cpu']:.1f} ms on the host")
+    print(f"phase 9(a): y and counts of both ranks hold against the plain "
+          f"routed_experts_dense of one process (f32 1e-5 of the range, bf16 "
+          f"2e-2); {t_a:.1f} s with the ranks' start")
+
+    # (b) the port's dist_smoke on the card
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dist_smoke",
+                        "--procs", str(P9_RANKS), "--timeout", str(P9_TIMEOUT)],
+                       env=dict(os.environ, PYTHONPATH=str(SRC)),
+                       capture_output=True, text=True, timeout=P9_TIMEOUT + 60)
+    require(r.returncode == 0, f"phase 9(b): dist_smoke exited {r.returncode}:\n"
+            f"{r.stdout[-4000:]}\n{r.stderr[-2000:]}")
+    for pid in range(P9_RANKS):
+        require(f"dist-smoke OK p{pid}/{P9_RANKS} device=cuda:0 transport=multi "
+                f"backend=gloo" in r.stdout, f"phase 9(b): no OK line of rank {pid}:\n"
+                f"{r.stdout[-4000:]}")
+    smoke = [json.loads(ln[len("launches "):]) for ln in r.stdout.splitlines()
+             if ln.startswith("launches ")]
+    require(len(smoke) == P9_RANKS and all(
+        c["gating_dispatch[owner]"] >= 1 and c["grouped_matmul"] >= 3 for c in smoke),
+        f"phase 9(b): launches per rank {smoke}")
+    print(f"phase 9(b) dist_smoke --procs {P9_RANKS} on the card: OK in "
+          f"{time.perf_counter() - t0:.1f} s; launches per rank "
+          f"{[(c['gating_dispatch[owner]'], c['grouped_matmul']) for c in smoke]}")
+
+    # (c) data-parallel training against one process
+    t0 = time.perf_counter()
+    ranks = p9_results(torch, "(c)", run_ranks(
+        [str(ROOT / "chip_smoke.py"), "--phase9", "dp", str(out_dir)], P9_RANKS,
+        timeout=P9_TIMEOUT), P9_RANKS)
+    P = P9_TRAIN
+    r0 = next(g for g in ranks if g["rank"] == 0)
+    ref = r0["ref_metrics"]
+    for g in ranks:
+        for s, (m, w) in enumerate(zip(g["metrics"], ref)):
+            for key in ("loss", "aux"):
+                require(abs(m[key] - w[key]) <= 1e-5 * abs(w[key]),
+                        f"phase 9(c) rank {g['rank']} step {s}: {key} {m[key]} vs "
+                        f"{w[key]} (one process)")
+            require(m["dropped"] > 0, f"phase 9(c) step {s}: no token dropped")
+    require(r0["grad_worst"][0] <= 1e-4, f"phase 9(c): gradient {r0['grad_worst'][1]} "
+            f"off by {r0['grad_worst'][0]:.2e} of its max |g|")
+    lr = float(ranks[0]["metrics"][0]["lr"])
+    require(r0["params_off"] <= 1e-4 * r0["params_all"] and r0["params_max_abs"] < lr,
+            f"phase 9(c): the step's params: {r0['params_off']} of "
+            f"{r0['params_all']} elements past 1e-5 of the range, worst "
+            f"{r0['params_max_abs']:.2e} (lr {lr:.2e})")
+    med = lambda xs: statistics.median(xs[1:])
+    tok = P["batch"] * P["seq"]
+    for g in sorted(ranks, key=lambda g: g["rank"]):
+        print(f"phase 9(c) rank {g['rank']}: {med(g['ms']):.2f} ms/step (median of "
+              f"steps 2-{P['steps']}), gradient all_reduce {med(g['all_reduce_ms']):.2f} "
+              f"ms ({med(g['all_reduce_ms']) / med(g['ms']):.3f} of the step), peak "
+              f"{g['peak_gb']:.2f} GB; ms {[round(x, 1) for x in g['ms']]}, "
+              f"dropped {[m['dropped'] for m in g['metrics']]}")
+    print(f"phase 9(c) {P['arch']} at published width ({P['n_layers']} layer, f32, "
+          f"TF32 off), batch {P['batch']} x seq {P['seq']} split over {P9_RANKS} "
+          f"ranks on one card: losses {[round(m['loss'], 6) for m in r0['metrics']]} "
+          f"vs one process {[round(m['loss'], 6) for m in ref]}, aux "
+          f"{[round(m['aux'], 6) for m in r0['metrics']]} vs "
+          f"{[round(m['aux'], 6) for m in ref]}; worst gradient "
+          f"{r0['grad_worst'][0]:.2e} of max |g| ({r0['grad_worst'][1]}); the step's "
+          f"params: {r0['params_off']} of {r0['params_all']} elements past 1e-5 of "
+          f"the range, worst {r0['params_worst'][0]:.2e} ({r0['params_worst'][1]}); "
+          f"one process {med(r0['ref_ms']):.2f} ms/step, {tok / med(r0['ref_ms']) * 1e3:.1f} "
+          f"tok/s, peak {r0['ref_peak_gb']:.2f} GB; {time.perf_counter() - t0:.1f} s "
+          f"with the ranks' start")
+    return launches
+
+
+def phase9_child(argv) -> int:
+    """``chip_smoke.py --phase9 m2n|dp OUT_DIR``: one rank of phase 9(a)
+    or (c), started by ``phase_processes`` with the ``REPRO_*`` variables."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    {"m2n": p9_m2n_child, "dp": p9_dp_child}[argv[0]](torch, argv[1])
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2568,6 +3079,10 @@ def main() -> int:
         t8 = time.perf_counter()
         phase_train_parity(torch, dev)
         phase_train(torch, dev)
+        torch.cuda.empty_cache()
+        t9 = time.perf_counter()
+        for name, per_rank in phase_processes(torch, dev).items():
+            rows[name]["rank_launches"] = per_rank
         t_end = time.perf_counter()
         for name in ("decode_attention", "gating_dispatch", "grouped_matmul"):
             for sh in rows[name]["shapes"]:
@@ -2585,6 +3100,8 @@ def main() -> int:
                 "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            if "rank_launches" in r:
+                kernels[-1]["phase9_rank_launches"] = r["rank_launches"]
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
@@ -2599,7 +3116,7 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
-          f"phase 8 in {t_end - t8:.1f} s")
+          f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t_end - t9:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2609,4 +3126,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase9"]:
+        sys.exit(phase9_child(sys.argv[2:]))
     sys.exit(main())

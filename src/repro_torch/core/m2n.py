@@ -1,4 +1,5 @@
-"""M2N token dispatch (paper §5) on one card.
+"""M2N token dispatch (paper §5): expert shards in one process, or one
+shard per process.
 
 The JAX package runs the routed experts of a MoE layer in a
 ``shard_map`` over an expert axis: every expert shard routes the tokens
@@ -7,9 +8,8 @@ to the experts it owns, runs their complete MLPs, and adds its
 gate-weighted partial output into one ``psum`` over the axis (the
 combine, the only wire traffic).
 
-On one card the expert axis is ``n_shards`` expert shards run one after
-the other.  Shard j does what the JAX kernel branch does (``local_fn``
-with ``use_kernels``):
+Shard j does what the JAX kernel branch does (``local_fn`` with
+``use_kernels``):
 
   1. ``kops.gating_dispatch(..., owner=j, slots_per_node=e_loc)``: the
      fused router -> top-k -> dispatch, keeping only shard j's entries
@@ -17,41 +17,117 @@ with ``use_kernels``):
   2. ``gather_tokens`` of those entries into (e_loc, C, d) buffers;
   3. ``kops.grouped_mlp`` over shard j's experts, the rows of dropped or
      empty slots masked to zeros;
-  4. the gate-weighted combine of its partial (T, d) output.
+  4. the gate-weighted combine of its partial (T, d) output, in f32.
 
-The ``psum`` becomes the sum of the shards' partials in shard order
-0..N-1.  Install it around any forward with ``use_m2n(n_shards)``;
-every ``moe_ffn`` then routes through it.
+Without a grid (``mesh=None``) the ``n_shards`` shards run one after
+the other in this process, and the ``psum`` is the sum of their partials
+in shard order 0..N-1.  With a ``launch.mesh.ProcessMesh``, rank j of the
+expert axis runs shard j only and the ``psum`` is an ``all_reduce`` over
+the expert axis's group.  A data axis follows the JAX package's two
+rules:
+
+  * without ``weights_2d`` every data rank holds its own rows of x, and
+    routing and capacity come from those rows; the counts are summed
+    over the data axes (their ``psum``);
+  * with ``weights_2d`` each expert's d_ff is split over the data axes:
+    the rows are gathered over them (an ``all_reduce`` of a zero-filled
+    buffer: gloo has no CUDA ``all_gather``), every data rank routes all
+    of them, runs its d_ff slice of the MLP, the f-partials are summed
+    over the data axes, the combine over the expert axis, and each rank
+    keeps its rows.  As in JAX this refuses the kernels and the
+    placement tables, so it runs the JAX package's plain branch (``moe.route``,
+    ``dispatch_indices(valid=local)``, three einsums) and has its
+    load-balance loss, averaged over the data axes.
+
+Install it around any forward with ``use_m2n``; every ``moe_ffn`` then
+routes through it.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.config import MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import activation
+
+
+def _shard(params, w, x, cfg, act, cap, j, n_shards, e_loc, n_real, tk,
+           count_weights):
+    """Shard j's kernel path: (partial (T, d) f32, counts (E,)).  ``w``:
+    the (we1, we3, we2) of shard j's real experts (or slots)."""
+    T, d = x.shape
+    idx_buf, gate_buf, counts = kops.gating_dispatch(
+        x, params["router"], cfg.top_k, n_buckets=n_shards * e_loc,
+        capacity=cap, bias=params.get("router_bias"),
+        count_weights=count_weights, owner=j, slots_per_node=e_loc, **tk)
+    if n_real == 0:             # only padded buckets: nothing routed here
+        return x.new_zeros((T, d), dtype=torch.float32), counts
+    idx, gates = idx_buf[:n_real], gate_buf[:n_real]
+    xe = moe_lib.gather_tokens(x, idx)
+    out = kops.grouped_mlp(xe, *w, act, row_valid=idx < T)
+    return moe_lib.combine(out, idx, gates, T), counts
+
+
+def _shard_2d(params, w, x_all, cfg, act, cap, j, e_loc, n_real, cw, mesh,
+              dtuple):
+    """Shard j's plain branch under ``weights_2d``: (partial (T, d) f32
+    over all gathered rows, aux, counts)."""
+    E = cfg.n_experts
+    T, d = x_all.shape
+    routing = moe_lib.route(x_all, params["router"], cfg.top_k,
+                            params.get("router_bias"))
+    aux = moe_lib.load_balance_loss(routing, E)
+    counts = moe_lib.routing_counts(routing, E, cw)
+    local = routing.experts // e_loc == j
+    local_ids = torch.where(local, routing.experts - j * e_loc, 0)
+    idx_buf, gate_buf = moe_lib.dispatch_indices(
+        moe_lib.Routing(routing.gates, local_ids, routing.probs), e_loc, cap,
+        valid=local)
+    if n_real == 0:             # every data rank of this shard skips alike
+        return x_all.new_zeros((T, d), dtype=torch.float32), aux, counts
+    idx, gates = idx_buf[:n_real], gate_buf[:n_real]
+    xe = moe_lib.gather_tokens(x_all, idx)
+    w1, w3, w2 = w
+    h = activation(torch.einsum("ecd,edf->ecf", xe, w1), act)
+    h = h * torch.einsum("ecd,edf->ecf", xe, w3)
+    out = mesh.all_reduce(torch.einsum("ecf,efd->ecd", h, w2), dtuple)
+    return moe_lib.combine(out, idx, gates, T), aux, counts
+
+
+def _rows_over(mesh, dtuple, t: torch.Tensor) -> torch.Tensor:
+    """Every data rank's rows of ``t``, in data-rank order: its rows
+    written into a zero-filled buffer, summed over the data axes."""
+    n, i = mesh.size(dtuple), mesh.index(dtuple)
+    buf = t.new_zeros((n * t.shape[0],) + tuple(t.shape[1:]))
+    buf[i * t.shape[0]:(i + 1) * t.shape[0]] = t
+    return mesh.all_reduce(buf, dtuple)
 
 
 def sharded_routed_experts(params: dict, x: torch.Tensor, cfg: MoEConfig,
-                           act: str, capacity_mode: str, *, n_shards: int,
+                           act: str, capacity_mode: str, *,
+                           n_shards: Optional[int] = None, mesh=None,
+                           data_axes: Sequence[str] = (),
+                           expert_axis: str = "model",
                            weights_2d: bool = False,
                            tables: Optional[dict] = None,
-                           with_counts: bool = False,
+                           with_counts: bool = False, with_aux: bool = False,
                            count_weights: Optional[torch.Tensor] = None,
                            transport=None):
-    """M2N routed-experts computation over ``n_shards`` expert shards.
+    """M2N routed-experts computation over ``n_shards`` expert shards in
+    this process, or over the ``expert_axis`` of ``mesh`` with one shard
+    per rank.
 
-    x: (T, d).  Returns y (T, d) in x's dtype, or (y, counts) with
-    ``with_counts``: the (E,) per-expert routed-token counts weighted by
-    ``count_weights`` (T,), the live traffic trace of the serving
-    engine's load balancer.  Every shard routes the same tokens, so the
-    counts are shard 0's (the JAX package returns the replicated value
-    once).  The JAX package also returns the load-balance loss; its
-    kernel path pins it to 0 and no decode path reads it, so it is left
-    out here.
+    x: (T, d) (with a data axis: this rank's rows).  Returns y (T, d) in
+    x's dtype, followed by the load-balance loss with ``with_aux`` (0
+    on the kernel path, as under the JAX package's kernel path; no decode
+    path reads it) and by the (E,) per-expert routed-token counts
+    weighted by ``count_weights`` (T,) with ``with_counts`` (the live
+    traffic trace of the serving engine's load balancer; every shard
+    routes the same tokens, so they are shard 0's).
 
     Without ``tables`` the E experts are padded to N * e_loc buckets
     (e_loc = ceil(E / N)) and shard j owns buckets [j e_loc, (j+1)
@@ -61,67 +137,123 @@ def sharded_routed_experts(params: dict, x: torch.Tensor, cfg: MoEConfig,
     tensors and int ``slots_per_node`` S, as ``core.load_balance``'s
     ``PlacementTables``), ``params["we*"]`` are the (N*S, ...)
     virtual-slot weights and shard j takes the view of slots [j S,
-    (j+1) S).
+    (j+1) S).  With a ``mesh``, ``params["we*"]`` hold this rank's
+    shard only (``expert_shard`` cuts it), d_ff split over the data
+    axes with ``weights_2d``.
 
     transport: the combine's wire bytes (``m2n_traffic_bytes``) go on it
     as one ``collective`` hop."""
-    if weights_2d:
-        raise NotImplementedError(
-            "weights_2d shards d_ff over a data axis, which the one-card "
-            "m2n dispatch has not got (the JAX kernel path refuses it too)")
     E = cfg.n_experts
     T, d = x.shape
+    dtuple = tuple(data_axes)
+    if mesh is not None:
+        if n_shards not in (None, mesh.size(expert_axis)):
+            raise ValueError(f"n_shards {n_shards} but the {expert_axis!r} "
+                             f"axis has {mesh.size(expert_axis)} ranks")
+        n_shards = mesh.size(expert_axis)
+    elif weights_2d:
+        raise NotImplementedError("weights_2d shards d_ff over a data axis, "
+                                  "which needs a mesh of processes")
+    elif dtuple:
+        raise ValueError("a data axis needs a mesh of processes")
+    if weights_2d and tables is not None:
+        raise NotImplementedError("placement tables are not supported with "
+                                  "weights_2d")
     w1, w3, w2 = params["we1"], params["we3"], params["we2"]
     tk = {}
     if tables is not None:
         e_loc = int(tables["slots_per_node"])
-        if w1.shape[0] != n_shards * e_loc:
-            raise ValueError(f"placed expert weights must be gathered to "
-                             f"(N*S={n_shards * e_loc}, ...), got "
-                             f"{tuple(w1.shape)}")
         tk = {k: tables[k] for k in ("rep_node", "rep_slot", "rep_cum")}
-        n_real = n_shards * e_loc
+        n_all = n_shards * e_loc
     else:
         e_loc = -(-E // n_shards)
-        n_real = E
-    cap = moe_lib.expert_capacity(T, cfg, capacity_mode)
-    y, counts = None, None
-    for j in range(n_shards):
-        idx_buf, gate_buf, c = kops.gating_dispatch(
-            x, params["router"], cfg.top_k, n_buckets=n_shards * e_loc,
-            capacity=cap, bias=params.get("router_bias"),
-            count_weights=count_weights, owner=j, slots_per_node=e_loc, **tk)
-        if counts is None:
-            counts = c
-        lo, hi = j * e_loc, min(n_real, (j + 1) * e_loc)
-        if hi <= lo:            # only padded buckets: nothing routed here
-            part = x.new_zeros((T, d), dtype=torch.float32)
+        n_all = E
+    span = lambda j: (j * e_loc, min(n_all, (j + 1) * e_loc))
+    n_data = mesh.size(dtuple) if dtuple else 1
+    aux = None
+    if mesh is None:
+        if tables is not None and w1.shape[0] != n_all:
+            raise ValueError(f"placed expert weights must be gathered to "
+                             f"(N*S={n_all}, ...), got {tuple(w1.shape)}")
+        cap = moe_lib.expert_capacity(T, cfg, capacity_mode)
+        y, counts = None, None
+        for j in range(n_shards):
+            lo, hi = span(j)
+            part, c = _shard(params, (w1[lo:hi], w3[lo:hi], w2[lo:hi]), x, cfg,
+                             act, cap, j, n_shards, e_loc, max(0, hi - lo), tk,
+                             count_weights)
+            counts = c if counts is None else counts
+            y = part if y is None else y + part      # the psum, in shard order
+    else:
+        j = mesh.index(expert_axis)
+        lo, hi = span(j)
+        n_real = max(0, hi - lo)
+        if w1.shape[0] != n_real:
+            raise ValueError(f"rank {j} of {expert_axis!r} holds experts "
+                             f"[{lo}, {hi}): its weights must have {n_real} "
+                             f"rows, got {tuple(w1.shape)}")
+        if weights_2d:
+            x_all = _rows_over(mesh, dtuple, x)
+            cw = count_weights if count_weights is not None else \
+                x.new_ones((T,), dtype=torch.float32)
+            cw = _rows_over(mesh, dtuple, cw.float())
+            cap = moe_lib.expert_capacity(x_all.shape[0], cfg, capacity_mode)
+            part, aux, counts = _shard_2d(params, (w1, w3, w2), x_all, cfg, act,
+                                          cap, j, e_loc, n_real, cw, mesh, dtuple)
+            y = mesh.all_reduce(part, expert_axis)
+            i = mesh.index(dtuple)
+            y = y[i * T:(i + 1) * T]
+            aux = mesh.all_reduce(aux, dtuple) / n_data
         else:
-            idx, gates = idx_buf[:hi - lo], gate_buf[:hi - lo]
-            xe = moe_lib.gather_tokens(x, idx)
-            out = kops.grouped_mlp(xe, w1[lo:hi], w3[lo:hi], w2[lo:hi], act,
-                                   row_valid=idx < T)
-            part = moe_lib.combine(out, idx, gates, T)
-        y = part if y is None else y + part      # the psum, in shard order
+            cap = moe_lib.expert_capacity(T, cfg, capacity_mode)
+            y, counts = _shard(params, (w1, w3, w2), x, cfg, act, cap, j,
+                               n_shards, e_loc, n_real, tk, count_weights)
+            mesh.all_reduce(y, expert_axis)
+            if dtuple:          # routing ran per data rank over its rows
+                mesh.all_reduce(counts, dtuple)
     if transport is not None and n_shards > 1:
         transport.record_collective(
-            m2n_traffic_bytes(T, d, cfg.top_k, E, n_shards,
+            m2n_traffic_bytes(T * n_data, d, cfg.top_k, E, n_shards,
                               x.element_size())["m2n"], fanout=n_shards)
-    y = y.to(x.dtype)
-    return (y, counts) if with_counts else y
+    out = (y.to(x.dtype),)
+    if with_aux:
+        out += (aux if aux is not None else x.new_zeros((), dtype=torch.float32),)
+    if with_counts:
+        out += (counts,)
+    return out if len(out) > 1 else out[0]
+
+
+def expert_shard(params: dict, cfg: MoEConfig, n_shards: int, j: int, *,
+                 n_data: int = 1, i: int = 0) -> dict:
+    """Shard j's expert weights of the whole ``params``: ``we1`` / ``we3`` /
+    ``we2`` cut to the real experts shard j owns (possibly none), and
+    with ``n_data`` > 1 (``weights_2d``) to data rank i's slice of d_ff.
+    The other entries pass through."""
+    e_loc = -(-cfg.n_experts // n_shards)
+    lo, hi = j * e_loc, min(cfg.n_experts, (j + 1) * e_loc)
+    f = params["we1"].shape[-1]
+    if f % n_data:
+        raise ValueError(f"d_ff {f} does not split over {n_data} data ranks")
+    fs = slice(i * f // n_data, (i + 1) * f // n_data)
+    return dict(params, we1=params["we1"][lo:hi, :, fs],
+                we3=params["we3"][lo:hi, :, fs], we2=params["we2"][lo:hi, fs])
 
 
 @contextlib.contextmanager
-def use_m2n(n_shards: int, *, weights_2d: bool = False, transport=None):
-    """Route every ``moe_ffn`` through the M2N dispatch over ``n_shards``
-    expert shards within the block; ``transport`` accounts each
+def use_m2n(n_shards: Optional[int] = None, *, mesh=None,
+            data_axes: Sequence[str] = (), expert_axis: str = "model",
+            weights_2d: bool = False, transport=None):
+    """Route every ``moe_ffn`` through the M2N dispatch within the block:
+    over ``n_shards`` expert shards in this process, or over ``mesh``
+    (see ``sharded_routed_experts``); ``transport`` accounts each
     dispatch's combine bytes."""
 
-    def impl(params, x, cfg, act, capacity_mode):
-        return sharded_routed_experts(params, x, cfg, act, capacity_mode,
-                                      n_shards=n_shards,
-                                      weights_2d=weights_2d,
-                                      transport=transport)
+    def impl(params, x, cfg, act, capacity_mode, with_aux=False):
+        out = sharded_routed_experts(
+            params, x, cfg, act, capacity_mode, n_shards=n_shards, mesh=mesh,
+            data_axes=data_axes, expert_axis=expert_axis,
+            weights_2d=weights_2d, with_aux=with_aux, transport=transport)
+        return out if with_aux else (out, None)
 
     prev = moe_lib.set_routed_impl(impl)
     try:

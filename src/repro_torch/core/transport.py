@@ -1,4 +1,4 @@
-"""Pluggable transport layer (paper §4.2) of the port, on one card.
+"""Pluggable transport layer (paper §4.2) of the port.
 
 Every hop of the serving path goes through one ``Transport`` with per-
 kind bytes and latency accounting, as in the JAX package's
@@ -14,10 +14,12 @@ bytes times the fan-out), the same numbers the JAX package records.
   * ``InProcessTransport`` — the stream hop, accounted.
   * ``SimRdmaTransport`` — the same hop plus an alpha-beta RDMA cost
     model per hop (``RdmaCostModel``).
-
-The multi-process backend (``MultiControllerTransport`` of the JAX
-package) needs more than one process and card; ``make_transport("multi")``
-raises until the multi-process slice of the port brings it.
+  * ``MultiControllerTransport`` — ``torch.distributed`` bring-up over
+    several processes (explicit ``DistributedSpec``, or env:
+    ``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``,
+    with the OpenMPI and SLURM rank variables as fallbacks).  Gloo where
+    the ranks run on the CPU or share a card, NCCL where each rank has a
+    card of its own.  In one process it is the in-process hop.
 
 Hop kinds:
 
@@ -29,11 +31,13 @@ Hop kinds:
 from __future__ import annotations
 
 import abc
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 HOP_KINDS = ("tokens", "kv", "weights", "collective")
 
@@ -47,6 +51,16 @@ def _leaves(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
 
 
 def tree_nbytes(tree) -> int:
@@ -114,6 +128,11 @@ class Transport(abc.ABC):
         """Expert-weight regather (live placement)."""
         return self.send(tree, dst, src=src, kind="weights", fanout=fanout)
 
+    def gather(self, tree):
+        """Host view of a result: every tensor of the nest, detached, on
+        the CPU (a replicated result is whole on every rank)."""
+        return _tree_map(lambda t: t.detach().cpu(), tree)
+
     def record_collective(self, nbytes: int, *,
                           fanout: int = 1) -> TransportHandle:
         """Account a collective hop (the m2n combine) whose wire bytes
@@ -154,7 +173,9 @@ class InProcessTransport(Transport):
 
     def send(self, tree, dst=None, *, src=None, kind: str = "tokens",
              sync: bool = False, fanout: int = 1) -> TransportHandle:
-        t0 = time.perf_counter()
+        return self._hop(time.perf_counter(), tree, dst, src, kind, sync, fanout)
+
+    def _hop(self, t0, tree, dst, src, kind, sync, fanout) -> TransportHandle:
         if dst is not None:
             ready = src.record_event()
             dst.wait_event(ready)
@@ -230,15 +251,106 @@ class SimRdmaTransport(InProcessTransport):
         return self.model.one_to_n(handle.nbytes // max(1, n), n)
 
 
-TRANSPORTS = {"inproc": InProcessTransport, "simrdma": SimRdmaTransport}
+# ------------------------------------------------------- multi-controller
+def _env_int(*names: str) -> Optional[int]:
+    for n in names:
+        v = os.environ.get(n)
+        if v is not None:
+            return int(v)
+    return None
+
+
+@dataclass
+class DistributedSpec:
+    """Multi-process bring-up parameters (MPI-launch ergonomics): pass
+    explicitly, or resolve from env — our own variables first, then the
+    OpenMPI / SLURM rank variables the usual launchers export.
+    ``coordinator`` is ``host:port`` of rank 0's store, or a
+    ``file://`` path all ranks can reach."""
+    coordinator: str = "127.0.0.1:12357"
+    num_processes: int = 1
+    process_id: int = 0
+
+    @classmethod
+    def from_env(cls) -> "DistributedSpec":
+        coord = os.environ.get("REPRO_COORDINATOR", "127.0.0.1:12357")
+        nproc = _env_int("REPRO_NUM_PROCESSES", "OMPI_COMM_WORLD_SIZE",
+                         "SLURM_NTASKS") or 1
+        pid = _env_int("REPRO_PROCESS_ID", "OMPI_COMM_WORLD_RANK",
+                       "SLURM_PROCID") or 0
+        return cls(coordinator=coord, num_processes=nproc, process_id=pid)
+
+
+class MultiControllerTransport(InProcessTransport):
+    """Multi-process backend: ``torch.distributed`` over every process.
+
+    Bring-up (``init_process_group``) happens only with more than one
+    process and when no group is up yet.  The backend is gloo where the
+    ranks run on the CPU or share a card (NCCL refuses two ranks on one
+    device), NCCL where each rank has a card of its own; a backend that
+    fails to come up raises.  ``device``: the device this rank computes
+    on; "cuda" without an index binds card ``rank % device_count``.
+    None leaves tensors where they are (one process, serving).
+
+    ``send`` follows the multihost convention of the JAX package: each
+    process passes its host-local view (identical full tensors for a
+    replicated layout, its own slice for a sharded one) and keeps it, so
+    a hop runs no collective: it moves the tensors onto this rank's
+    device, then hands them over as the in-process hop does.  The ledger
+    counts payload bytes times the fan-out.  Cross-process traffic runs
+    in the collectives of the code that uses the group (the m2n
+    combine's ``all_reduce``)."""
+
+    name = "multi"
+
+    def __init__(self, spec: Optional[DistributedSpec] = None, *,
+                 backend: Optional[str] = None, initialize: bool = True,
+                 device=None):
+        super().__init__()
+        self.spec = spec if spec is not None else DistributedSpec.from_env()
+        n, rank = self.spec.num_processes, self.spec.process_id
+        self.device = None
+        if device is not None:
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", rank % torch.cuda.device_count())
+        if backend is None:
+            own_card = (self.device is not None and self.device.type == "cuda"
+                        and torch.cuda.device_count() >= n)
+            backend = "nccl" if own_card else "gloo"
+        self.backend = backend
+        if initialize and n > 1 and not dist.is_initialized():
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            coord = self.spec.coordinator
+            dist.init_process_group(
+                backend, init_method=coord if "://" in coord else f"tcp://{coord}",
+                world_size=n, rank=rank)
+
+    @property
+    def process_index(self) -> int:
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    @property
+    def process_count(self) -> int:
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def send(self, tree, dst=None, *, src=None, kind: str = "tokens",
+             sync: bool = False, fanout: int = 1) -> TransportHandle:
+        t0 = time.perf_counter()
+        if self.device is not None:
+            tree = _tree_map(lambda t: t.to(self.device), tree)
+            if sync and dst is None and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        return self._hop(t0, tree, dst, src, kind, sync, fanout)
+
+
+TRANSPORTS = {"inproc": InProcessTransport, "simrdma": SimRdmaTransport,
+              "multi": MultiControllerTransport}
 
 
 def make_transport(name: str, **kwargs) -> Transport:
-    """Instantiate a backend by name ('inproc' | 'simrdma')."""
-    if name == "multi":
-        raise NotImplementedError(
-            "the multi-controller transport needs several processes and "
-            "cards; it comes with the port's multi-process slice")
+    """Instantiate a backend by name ('inproc' | 'simrdma' | 'multi')."""
     try:
         cls = TRANSPORTS[name]
     except KeyError:

@@ -1,13 +1,26 @@
 """Training launcher of the port, on the card unless ``--device cpu`` is
 given: random weights and the synthetic LM stream from one seed, AdamW
-with warmup max(2, steps // 10) and cosine decay, one process on one
-device (no mesh, no sharding).
+with warmup max(2, steps // 10) and cosine decay.
+
+With more than one process (``DistributedSpec.from_env()``: the
+``REPRO_*`` variables, or OpenMPI's / SLURM's) it trains data-parallel,
+the JAX launcher's (n, 1) ("data", "model") grid: every rank draws the
+same global batch and takes its rows, the MoE layers dispatch over the
+global batch and the gradients are averaged before the update
+(``training.loop.make_train_step``'s ``group``).  The ranks check that
+they made the same params and batches; rank 0 alone prints and saves
+checkpoints.  On the card every rank computes on the card it is bound
+to (gloo where ranks share one).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
       --reduced --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \\
       --n-layers 1 --steps 10 --batch 8 --seq 128
+  # two ranks on the CPU (start one process per REPRO_PROCESS_ID):
+  REPRO_COORDINATOR=127.0.0.1:29511 REPRO_NUM_PROCESSES=2 REPRO_PROCESS_ID=0 \\
+      PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \\
+      --reduced --device cpu --steps 20
 """
 from __future__ import annotations
 
@@ -19,12 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.config import get_config, reduced
+from repro_torch.core.transport import DistributedSpec, MultiControllerTransport
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.stubs import extra_inputs
 from repro_torch.models.transformer import REMAT, init_params
 from repro_torch.serving.config import DTYPES
 from repro_torch.training.checkpoint import save
 from repro_torch.training.data import DataConfig, SyntheticLM
+from repro_torch.training.data_parallel import check_replicated
 from repro_torch.training.loop import make_train_step
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state, leaves
 
@@ -33,8 +49,16 @@ def run(arch: str, *, use_reduced: bool, steps: int, batch: int, seq: int,
         lr: float, remat: str = "none", checkpoint_dir: str | None = None,
         log_every: int = 10, dtype: str = "float32", seed: int = 0,
         device="cuda", n_layers: int = 0):
-    """Train ``steps`` steps; returns the losses."""
+    """Train ``steps`` steps; returns the losses (the group's means)."""
     dev = resolve_device(device)
+    spec = DistributedSpec.from_env()
+    group, rank = None, 0
+    if spec.num_processes > 1:
+        tr = MultiControllerTransport(spec, device=dev)
+        dev, rank = tr.device, tr.process_index
+        group = make_mesh((spec.num_processes, 1), ("data", "model"),
+                          device=dev).group("data")
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
@@ -48,24 +72,31 @@ def run(arch: str, *, use_reduced: bool, steps: int, batch: int, seq: int,
     opt_state = init_opt_state(params)
     extras = extra_inputs(cfg, batch, dtype=getattr(torch, dtype), device=dev)
     extras_keys = tuple(extras.keys())
-    step_fn = make_train_step(cfg, opt_cfg, remat=remat, extras_keys=extras_keys)
+    if group is not None:
+        check_replicated(leaves(params) + list(extras.values()), group,
+                         "params and stub inputs")
+    step_fn = make_train_step(cfg, opt_cfg, remat=remat, extras_keys=extras_keys,
+                              group=group)
     data = iter(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
                                        batch=batch, seed=seed)))
     losses = []
     t0 = time.perf_counter()
     for step in range(steps):
         toks = torch.from_numpy(next(data)).to(dev)
+        if group is not None and step == 0:
+            check_replicated([toks], group, "batches")
         params, opt_state, metrics = step_fn(
             params, opt_state, toks, *(extras[k] for k in extras_keys))
         losses.append(float(metrics["loss"]))
         if log_every and step % log_every == 0:
-            print(f"step {step:5d} loss {losses[-1]:8.4f} "
-                  f"lr {float(metrics['lr']):.2e}", flush=True)
+            say(f"step {step:5d} loss {losses[-1]:8.4f} "
+                f"lr {float(metrics['lr']):.2e}", flush=True)
     dt = time.perf_counter() - t0
-    print(f"trained {steps} steps in {dt:.1f}s "
-          f"({steps * batch * seq / dt:.0f} tok/s); "
-          f"loss {losses[0]:.3f} -> {np.mean(losses[-5:]):.3f}")
-    if checkpoint_dir:
+    ranks = f" on {spec.num_processes} ranks" if group is not None else ""
+    say(f"trained {steps} steps in {dt:.1f}s{ranks} "
+        f"({steps * batch * seq / dt:.0f} tok/s); "
+        f"loss {losses[0]:.3f} -> {np.mean(losses[-5:]):.3f}")
+    if checkpoint_dir and rank == 0:
         save(checkpoint_dir, steps, params, opt_state)
     return losses
 
@@ -84,7 +115,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--dtype", default="float32", choices=DTYPES)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu; there is no fallback between them")
+                    help="cuda (default) or cpu; there is no fallback between "
+                         "them; with several ranks each takes the card it "
+                         "is bound to")
     args = ap.parse_args(argv)
     return run(args.arch, use_reduced=args.reduced, steps=args.steps,
                batch=args.batch, seq=args.seq, lr=args.lr, remat=args.remat,

@@ -116,6 +116,38 @@ def expert_capacity(n_tokens: int, cfg: MoEConfig, mode: str) -> int:
     return min(c, n_tokens)
 
 
+def slot_positions(e: torch.Tensor, n_experts: int,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(T, K) int64: each entry's position among the entries routed to
+    its expert (``e``: (T, K) int64 expert ids), in token-major order
+    (False ``valid`` entries take no position)."""
+    T, K = e.shape
+    mask = F.one_hot(e, n_experts).float()                     # (T,K,E)
+    if valid is not None:
+        mask = mask * valid[..., None].float()
+    flat = mask.reshape(T * K, n_experts)
+    pos_flat = torch.cumsum(flat, dim=0) - flat
+    return (pos_flat.reshape(T, K, n_experts) * mask).sum(-1).long()
+
+
+def fill_buffers(e: torch.Tensor, gates: torch.Tensor, n_experts: int,
+                 capacity: int, keep: torch.Tensor, slot: torch.Tensor):
+    """(idx_buf (E, C) int32 with sentinel T = empty, gate_buf (E, C)
+    f32) with each kept (T, K) entry (``e`` int64 expert ids, ``gates``
+    their weights) at its expert's ``slot``."""
+    T, K = e.shape
+    # dropped entries go to a trash column past the capacity
+    slot = torch.where(keep, slot, capacity)
+    tok = torch.arange(T, device=e.device, dtype=torch.int32)[:, None].expand(T, K)
+    idx_buf = torch.full((n_experts, capacity + 1), T, dtype=torch.int32,
+                         device=e.device)
+    idx_buf[e.reshape(-1), slot.reshape(-1)] = tok.reshape(-1)
+    gate_buf = torch.zeros((n_experts, capacity + 1), dtype=torch.float32,
+                           device=e.device)
+    gate_buf[e.reshape(-1), slot.reshape(-1)] = gates.reshape(-1).float()
+    return idx_buf[:, :capacity].contiguous(), gate_buf[:, :capacity].contiguous()
+
+
 def dispatch_indices(routing: Routing, n_experts: int, capacity: int,
                      valid: Optional[torch.Tensor] = None):
     """Capacity-slot build in token-major first-come-first-served order.
@@ -123,27 +155,12 @@ def dispatch_indices(routing: Routing, n_experts: int, capacity: int,
     valid: optional (T, K) bool; False entries are dropped.  Returns
     (idx_buf (E, C) int32 with sentinel T = empty, gate_buf (E, C) f32).
     """
-    T, K = routing.experts.shape
     e = routing.experts.long()
-    mask = F.one_hot(e, n_experts).float()                     # (T,K,E)
-    if valid is not None:
-        mask = mask * valid[..., None].float()
-    flat = mask.reshape(T * K, n_experts)
-    pos_flat = torch.cumsum(flat, dim=0) - flat
-    pos = (pos_flat.reshape(T, K, n_experts) * mask).sum(-1).long()
+    pos = slot_positions(e, n_experts, valid)
     keep = pos < capacity
     if valid is not None:
         keep = keep & valid
-    # dropped entries go to a trash column past the capacity
-    slot = torch.where(keep, pos, capacity)
-    tok = torch.arange(T, device=e.device, dtype=torch.int32)[:, None].expand(T, K)
-    idx_buf = torch.full((n_experts, capacity + 1), T, dtype=torch.int32,
-                         device=e.device)
-    idx_buf[e.reshape(-1), slot.reshape(-1)] = tok.reshape(-1)
-    gate_buf = torch.zeros((n_experts, capacity + 1), dtype=torch.float32,
-                           device=e.device)
-    gate_buf[e.reshape(-1), slot.reshape(-1)] = routing.gates.reshape(-1).float()
-    return idx_buf[:, :capacity].contiguous(), gate_buf[:, :capacity].contiguous()
+    return fill_buffers(e, routing.gates, n_experts, capacity, keep, pos)
 
 
 def gather_tokens(x: torch.Tensor, idx_buf: torch.Tensor) -> torch.Tensor:
@@ -171,10 +188,11 @@ _ROUTED_IMPL = None
 
 
 def set_routed_impl(fn):
-    """Install fn(params, x, cfg, act, capacity_mode) -> y (T, d) as the
-    routed-expert computation of every ``moe_ffn`` (``core.m2n.use_m2n``
-    installs the M2N dispatch), or None for ``routed_experts_dense``.
-    Returns the previous one."""
+    """Install fn(params, x, cfg, act, capacity_mode, with_aux) -> (y (T,
+    d), aux or None) as the routed-expert computation of every
+    ``moe_ffn`` (``core.m2n.use_m2n`` installs the M2N dispatch,
+    ``training.data_parallel`` the data-parallel one), or None for
+    ``routed_experts_dense``.  Returns the previous one."""
     global _ROUTED_IMPL
     prev = _ROUTED_IMPL
     _ROUTED_IMPL = fn
@@ -191,11 +209,18 @@ def routed_experts_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
     aux = load_balance_loss(routing, cfg.n_experts) if with_aux else None
     C = expert_capacity(T, cfg, capacity_mode)
     idx_buf, gate_buf = dispatch_indices(routing, cfg.n_experts, C)
+    return experts_combine(params, x, idx_buf, gate_buf, act), aux
+
+
+def experts_combine(params: dict, x: torch.Tensor, idx_buf: torch.Tensor,
+                    gate_buf: torch.Tensor, act: str) -> torch.Tensor:
+    """The plain expert MLP over (E, C) dispatch buffers of x's rows and
+    the gate-weighted combine back to (T, d) in x's dtype."""
     xe = gather_tokens(x, idx_buf)
     h = activation(torch.einsum("ecd,edf->ecf", xe, params["we1"]), act)
     h = h * torch.einsum("ecd,edf->ecf", xe, params["we3"])
     out = torch.einsum("ecf,efd->ecd", h, params["we2"])
-    return combine(out, idx_buf, gate_buf, T).to(x.dtype), aux
+    return combine(out, idx_buf, gate_buf, x.shape[0]).to(x.dtype)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
@@ -206,13 +231,10 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
 
     aux is the load-balance loss with ``with_aux`` (training), else
     None: the serving paths leave it off, so a decode step issues none
-    of its ops.  An installed routed impl (m2n, a serving path) computes
-    no aux: it is 0 there, as under the JAX package's m2n path."""
-    if _ROUTED_IMPL is not None:
-        y = _ROUTED_IMPL(params, x, cfg, act, capacity_mode)
-        aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
-    else:
-        y, aux = routed_experts_dense(params, x, cfg, act, capacity_mode, with_aux)
+    of its ops.  An installed routed impl gives its own aux (0 on the
+    m2n kernel path, as under the JAX package's)."""
+    impl = _ROUTED_IMPL if _ROUTED_IMPL is not None else routed_experts_dense
+    y, aux = impl(params, x, cfg, act, capacity_mode, with_aux)
     return add_dense_extras(params, x, y, act), aux
 
 

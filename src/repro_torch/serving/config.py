@@ -39,7 +39,7 @@ class ServingConfig:
     use_m2n: bool = False
     profile_stages: bool = False
     # ---- transport / clusters (paper §3-§4) ----------------------------
-    transport: str = "inproc"          # inproc | simrdma
+    transport: str = "inproc"          # inproc | simrdma | multi
     expert_nodes: int = 1              # expert nodes placement and m2n see
     prefill_devices: int = 0           # 0 = inline prefill
     transfer: str = "async"            # KV migration: sync | async

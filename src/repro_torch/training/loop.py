@@ -15,11 +15,13 @@ that requires grad.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -27,6 +29,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import rms_norm, softcap
 from repro_torch.models.transformer import forward_hidden
+from repro_torch.training import data_parallel as dp
 from repro_torch.training.optimizer import (AdamWConfig, OptState, adamw_update,
                                             decay_mask, init_opt_state, leaves)
 
@@ -71,27 +74,55 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, extras: dict,
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     remat: str = "full", xent_chunk: int = 1024,
-                    extras_keys: tuple = ()):
+                    extras_keys: tuple = (), group=None):
     """Returns train_step(params, opt_state, tokens, *extras) ->
     (params, opt_state, metrics): metrics {"loss", "aux", "total", "lr",
     "grad_norm"}, 0-d tensors.  ``params`` are updated in place, weight
     decay on the leaves of ``decay_mask`` (JAX's rule on its stacked
-    tree)."""
+    tree).
+
+    ``group``: a process group of R data-parallel ranks, each passing
+    the same global batch (tokens and extras).  Each rank takes its
+    B / R rows and the MoE layers dispatch as the JAX step does over the
+    global batch (``data_parallel.DataParallelMoE``); every gradient is
+    summed over the group and divided by R before the norm and the clip,
+    so every rank makes the same update; the metrics are the group's
+    means.  Where B does not split over R every rank runs the whole
+    batch (the JAX layout replicates it then: ``launch/sharding.py``'s
+    divisibility rule) and the mean changes nothing.  With the rows split, the metrics also hold "dropped": the
+    entries past their expert's capacity in the global batch, summed
+    over the MoE layers."""
 
     def train_step(params, opt_state: OptState, tokens, *extra_vals):
         extras = dict(zip(extras_keys, extra_vals))
-        total, (loss, aux) = lm_loss(params, cfg, tokens, extras, remat,
-                                     xent_chunk=xent_chunk)
-        total.backward()
+        moe = None
+        if (group is not None
+                and tokens.shape[0] % dist.get_world_size(group) == 0):
+            tokens = dp.local_rows(tokens, group)
+            extras = {k: dp.local_rows(v, group) for k, v in extras.items()}
+            moe = dp.DataParallelMoE(group)
+        # the dispatch stays installed through backward, whose recompute of
+        # a checkpointed block period (remat) must dispatch as the forward
+        with moe.install() if moe is not None else contextlib.nullcontext():
+            total, (loss, aux) = lm_loss(params, cfg, tokens, extras, remat,
+                                         xent_chunk=xent_chunk)
+            if moe is not None:
+                moe.count_drops = False
+            total.backward()
         ps = leaves(params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in ps]
+        metrics = torch.stack([loss, aux, total]).detach()
+        if group is not None:
+            dp.average_grads(grads + [metrics], group)
         params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state,
                                              decay=decay_mask(params, cfg))
         for p in ps:
             p.grad = None
-        return params, opt_state, {"loss": loss.detach(), "aux": aux.detach(),
-                                   "total": total.detach(), **om}
+        om.update(loss=metrics[0], aux=metrics[1], total=metrics[2])
+        if moe is not None:
+            om["dropped"] = moe.dropped
+        return params, opt_state, om
 
     return train_step
 

@@ -1,0 +1,158 @@
+"""Rank-side code of the port's multi-process tests, run as one process
+per rank through ``repro_torch.launch.dist_smoke.run_ranks``:
+
+  python tests/_torch_dist_worker.py m2n OUT_DIR
+  python tests/_torch_dist_worker.py dp IN.pkl OUT_DIR
+  python tests/_torch_dist_worker.py train OUT_DIR ARGS_JSON
+
+Every rank brings up ``MultiControllerTransport`` on the CPU (gloo) from
+the ``REPRO_*`` variables, turns the warning ``torch.distributed`` gives
+for a collective on a group without the calling rank into an error, and
+writes what it computed under OUT_DIR.  ``M2N_CASES`` and ``m2n_case``
+are shared with the JAX reference run of ``test_torch_distributed.py``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import sys
+import warnings
+
+import numpy as np
+
+# (name, grid shape over ("data", "model"), data axes, experts, weights_2d,
+#  capacity mode): 6 experts on 2 shards with 2 data ranks (local
+#  capacity in "train" mode), the same with d_ff split over the data
+#  ranks, 5 experts padded to 6 buckets under weights_2d, and the JAX
+#  package's 6 experts padded to 8 buckets over 4 shards
+M2N_CASES = [
+    ("2x2", (2, 2), ("data",), 6, False, "train"),
+    ("2x2-2d", (2, 2), ("data",), 6, True, "train"),
+    ("2x2-2d-pad", (2, 2), ("data",), 5, True, "full"),
+    ("1x4-pad", (1, 4), ("data",), 6, False, "full"),
+]
+M2N_D, M2N_F, M2N_T, M2N_K = 8, 16, 32, 2
+
+
+def m2n_case(E: int, seed: int = 0):
+    """Router (with a bias toward the low experts, so that a capacity
+    drops entries), expert weights and (T, d) tokens, f32 numpy."""
+    rng = np.random.RandomState(seed)
+    d, f = M2N_D, M2N_F
+    p = {"router": rng.randn(d, E), "router_bias": np.linspace(1.5, -1.5, E),
+         "we1": rng.randn(E, d, f) * 0.2, "we3": rng.randn(E, d, f) * 0.2,
+         "we2": rng.randn(E, f, d) * 0.2}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    return p, rng.randn(M2N_T, d).astype(np.float32)
+
+
+def _bring_up():
+    import torch
+
+    from repro_torch.core.transport import MultiControllerTransport
+    torch.set_num_threads(1)
+    warnings.filterwarnings("error", message=".*does not belong to the given group")
+    return MultiControllerTransport(device="cpu")
+
+
+def run_m2n(out_dir: str):
+    import torch
+
+    from repro_torch.config import MoEConfig
+    from repro_torch.core.m2n import expert_shard, sharded_routed_experts
+    from repro_torch.launch.mesh import make_mesh
+
+    tr = _bring_up()
+    meshes = {}
+    for _, shape, *_ in M2N_CASES:           # every rank, in one order
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+    # the grid is row-major; a group of both axes spans every rank
+    rank, grid = tr.process_index, meshes[(2, 2)]
+    assert (grid.index("data"), grid.index("model")) == divmod(rank, 2)
+    assert grid.index(("model", "data")) == rank
+    assert int(grid.all_reduce(torch.ones(()), ("data", "model"))) == 4
+    out = {}
+    for name, shape, dax, E, w2d, mode in M2N_CASES:
+        mesh = meshes[shape]
+        p, x = m2n_case(E)
+        cfg = MoEConfig(n_experts=E, top_k=M2N_K, d_ff_expert=M2N_F)
+        n_data, i = mesh.size(dax), mesh.index(dax)
+        t = M2N_T // n_data
+        w = expert_shard({k: torch.from_numpy(v) for k, v in p.items()}, cfg,
+                         mesh.size("model"), mesh.index("model"),
+                         n_data=n_data if w2d else 1, i=i if w2d else 0)
+        y, aux, counts = sharded_routed_experts(
+            w, torch.from_numpy(x[i * t:(i + 1) * t]), cfg, "silu", mode,
+            mesh=mesh, data_axes=dax, expert_axis="model", weights_2d=w2d,
+            with_aux=True, with_counts=True, transport=tr)
+        out.update({f"{name}/y": y.numpy(), f"{name}/aux": aux.numpy(),
+                    f"{name}/counts": counts.numpy(), f"{name}/rows": np.array(i)})
+    np.savez(os.path.join(out_dir, f"rank{tr.process_index}.npz"), **out)
+
+
+def run_dp(in_path: str, out_dir: str):
+    import torch
+
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.config import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import loop
+    from repro_torch.training.data_parallel import check_replicated
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                leaves, named_leaves)
+
+    tr = _bring_up()
+    group = make_mesh((tr.process_count, 1), ("data", "model"),
+                      device="cpu").group("data")
+    with open(in_path, "rb") as fh:
+        cases = pickle.load(fh)
+    results = {}
+    update = loop.adamw_update
+    for case in cases:
+        cfg = reduced(get_config(case["arch"]))
+        params = params_from_jax(case["params"], cfg, device="cpu")
+        for p in leaves(params):
+            p.requires_grad_(True)
+        toks = torch.from_numpy(case["tokens"])
+        check_replicated(leaves(params) + [toks], group, "params and batches")
+        grads = []
+
+        def keep(opt_cfg, params, g, state, **kw):
+            if not grads:
+                grads.append([t.detach().clone().numpy() for t in g])
+            return update(opt_cfg, params, g, state, **kw)
+
+        loop.adamw_update = keep
+        step = loop.make_train_step(cfg, AdamWConfig(**case["opt"]),
+                                    remat=case["remat"], group=group)
+        state = init_opt_state(params)
+        metrics = []
+        for s in range(toks.shape[0]):
+            params, state, m = step(params, state, toks[s])
+            metrics.append({k: float(v) for k, v in m.items()})
+        loop.adamw_update = update
+        check_replicated(leaves(params), group, "params after the steps")
+        names = [k for k, _ in named_leaves(params)]
+        results[case["name"]] = {
+            "metrics": metrics, "grads": dict(zip(names, grads[0])),
+            "params": {k: p.detach().numpy() for k, p in named_leaves(params)}}
+    if tr.process_index == 0:
+        with open(os.path.join(out_dir, "dp.pkl"), "wb") as fh:
+            pickle.dump(results, fh)
+
+
+def run_train(out_dir: str, args_json: str):
+    from repro_torch.launch.train import run
+
+    tr = _bring_up()
+    losses = run(**json.loads(args_json))
+    np.save(os.path.join(out_dir, f"losses{tr.process_index}.npy"), np.array(losses))
+
+
+if __name__ == "__main__":
+    mode, *rest = sys.argv[1:]
+    {"m2n": run_m2n, "dp": run_dp, "train": run_train}[mode](*rest)
+    import torch.distributed as dist
+    dist.destroy_process_group()

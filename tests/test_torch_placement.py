@@ -269,8 +269,7 @@ def test_rdma_cost_model_matches_jax(jx, model):
 def test_make_transport_names():
     assert ttr.make_transport("inproc").name == "inproc"
     assert ttr.make_transport("simrdma").name == "simrdma"
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        ttr.make_transport("multi")
+    assert ttr.make_transport("multi").name == "multi"
     with pytest.raises(ValueError):
         ttr.make_transport("tcp")
 
