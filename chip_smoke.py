@@ -139,6 +139,24 @@ then:
      ranks are ``chip_smoke.py --phase9 m2n|dp DIR``; one that fails or
      hangs fails the phase.
 
+ 10. the model axis: training on a ("data", "model") grid of processes,
+     each rank holding its blocks of the params under the JAX "ep" rules
+     and computing tensor- and expert-parallel over "model", f32 with
+     TF32 off, batch 8 x seq 128, 3 steps at published width cut to one
+     layer, each first in one process on the whole batch (memory freed
+     after).  (a) mixtral-8x22b on a (1, 2) grid (23.2 GB of params,
+     grads and moments per rank); (b) qwen2-moe-a2.7b on a (2, 2) grid
+     (60 experts, EP over 2).  Every rank's losses and aux within 1e-6
+     (a) / 1e-5 (b) relative of the one process's, entries dropped in
+     every step, each rank's block of step 0's gradients within 1e-5 (a)
+     / 1e-4 (b) of each leaf's max |g| of the one-process gradient, and
+     no kernel launched (the path has none); ms/step, the model-axis
+     collectives' and the data-axis gradient all_reduce's shares (host
+     clock), peak memory per rank.  The ranks are ``chip_smoke.py
+     --phase10 a|b DIR``, every one on cuda:0 over gloo; with a card per
+     rank each takes its own and they meet over NCCL (``chip_smoke.py
+     --phase10-only`` runs this phase alone).
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -3010,6 +3028,249 @@ def phase_processes(torch, dev):
     return launches
 
 
+# phase 10: the model axis.  Training on a ("data", "model") grid of
+# processes, every rank holding its blocks of the params under the JAX
+# "ep" rules (launch/sharding.py) and computing tensor- and
+# expert-parallel over "model" (models/parallel.py).  On one card every
+# rank is a process on cuda:0 over gloo; where there is a card per rank
+# (a four-card machine) the ranks take one each and meet over NCCL.
+# (a): mixtral-8x22b at published width, one layer, on a (1, 2) grid:
+# 23.2 GB of params, grads and moments per rank; (b): qwen2-moe-a2.7b at
+# published width, one layer, on a (2, 2) grid, 9.6 GB per rank, its 60
+# experts expert-parallel over m = 2.
+P10 = {"a": dict(arch="mixtral-8x22b", grid=(1, 2), loss_rtol=1e-6, grad_tol=1e-5),
+       "b": dict(arch="qwen2-moe-a2.7b", grid=(2, 2), loss_rtol=1e-5, grad_tol=1e-4)}
+P10_RUN = dict(n_layers=1, batch=8, seq=128, steps=3, lr=1e-3, seed=0)
+P10_TIMEOUT = 300          # seconds for all ranks of one sub-phase
+
+
+def p10_setup(torch, which, dev):
+    """(config, AdamW config, the steps' batches on ``dev``) of 10(which)."""
+    from repro_torch.config import get_config
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    R = P10_RUN
+    cfg = dataclasses.replace(get_config(P10[which]["arch"]), n_layers=R["n_layers"])
+    opt = AdamWConfig(lr=R["lr"], warmup_steps=2, total_steps=R["steps"])
+    batches = [torch.from_numpy(b).to(dev) for b in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=R["seq"] + 1, batch=R["batch"],
+        seed=R["seed"])).batches(R["steps"])]
+    return cfg, opt, batches
+
+
+def p10_one_process(torch, which, dev):
+    """10(which) in one process on the whole batch: the metrics of each
+    step, ms per step (host clock, synchronized), peak memory."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.optimizer import init_opt_state, leaves
+    cfg, opt, batches = p10_setup(torch, which, dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, P10_RUN["seed"], torch.float32, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    state = init_opt_state(params)
+    step = make_train_step(cfg, opt, remat="none")
+    metrics, ms = [], []
+    for toks in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, toks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, state
+    torch.cuda.empty_cache()
+    return metrics, ms, peak
+
+
+def p10_child(torch, which, out_dir):
+    """One rank of 10(which): its blocks of the ``init_params`` draw (made
+    whole, then cut by ``sharding.local_shard``), the steps on the grid
+    with the model-axis collectives and the data-axis gradient
+    all_reduce timed on the host clock (each between two synchronizes),
+    the launch counts set to 0 before and read after.  Then, one rank at
+    a time (the others at a barrier), the one-process gradient of step 0
+    on the whole batch, against which the rank holds its block of step
+    0's gradients.  Prints one JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import parallel
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import init_opt_state, leaves, named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    rank, n = tr.process_index, tr.process_count
+    mesh = make_mesh(P10[which]["grid"], ("data", "model"), device=tr.device)
+    cfg, opt, batches = p10_setup(torch, which, tr.device)
+    full = init_params(cfg, P10_RUN["seed"], torch.float32, device=tr.device)
+    specs = sharding.param_specs(cfg, full, mesh)
+    params = sharding.shard_tree(full, specs, mesh)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for p in leaves(params):
+        p.requires_grad_(True)
+    state = init_opt_state(params)
+    state_gb = 4 * sum(p.numel() * p.element_size() for p in leaves(params)) / 1e9
+    step = loop.make_train_step(cfg, opt, remat="none", mesh=mesh)
+    coll_ms, ar_ms, kept = [], [], []
+    update, average, pdist = loop.adamw_update, dp.average_grads, parallel.dist
+
+    def timed_all_reduce(t, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pdist.all_reduce(t, **kw)
+        torch.cuda.synchronize()
+        coll_ms[-1] += (time.perf_counter() - t0) * 1e3
+
+    def timed_average(grads, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(grads, g)
+        torch.cuda.synchronize()
+        ar_ms[-1] += (time.perf_counter() - t0) * 1e3
+
+    def keep_grads(opt_cfg, ps, grads, st, **kw):
+        if not kept:
+            kept.extend(g.clone() for g in grads)
+        return update(opt_cfg, ps, grads, st, **kw)
+
+    loop.adamw_update, dp.average_grads = keep_grads, timed_average
+    parallel.dist = types.SimpleNamespace(all_reduce=timed_all_reduce)
+    metrics, ms = [], []
+    reset_launch_counts()
+    try:
+        for toks in batches:
+            coll_ms.append(0.0)
+            ar_ms.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, toks)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        loop.adamw_update, dp.average_grads, parallel.dist = update, average, pdist
+    launches = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    names = [k for k, _ in named_leaves(params)]
+    flat = [sp for _, sp in sharding.named_specs(specs)]
+    del params, state
+    torch.cuda.empty_cache()
+    worst = (0.0, "")
+    for r in range(n):
+        dist.barrier()
+        if r != rank:
+            continue
+        ref = init_params(cfg, P10_RUN["seed"], torch.float32, device=tr.device)
+        for p in leaves(ref):
+            p.requires_grad_(True)
+        loop.lm_loss(ref, cfg, batches[0], {}, "none")[0].backward()
+        for k, g, p, sp in zip(names, kept, leaves(ref), flat, strict=True):
+            e = float((g - sharding.local_shard(p.grad, sp, mesh)).abs().max())
+            worst = max(worst, (e / max(float(p.grad.abs().max()), 1e-30), k))
+        del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+    print("phase10 " + json.dumps({
+        "rank": rank, "device": str(tr.device), "backend": tr.backend,
+        "metrics": metrics, "ms": ms, "model_collectives_ms": coll_ms,
+        "grad_all_reduce_ms": ar_ms, "peak_gb": peak, "state_gb": state_gb,
+        "grad_worst": worst, "launches": launches}), flush=True)
+
+
+def phase_model_axis(torch, dev):
+    """Phase 10: (a) and (b), each first in one process on the whole batch
+    (its memory freed after), then on its grid of processes: every rank's
+    losses and aux against the one process's (a: 1e-6 relative, b: 1e-5:
+    the data split sums the batch in another order), entries dropped in
+    every step, each rank's block of step 0's gradients against the
+    one-process gradient (a: 1e-5, b: 1e-4 of each leaf's max |g|), no
+    kernel launched; ms/step, the model-axis collectives' and the
+    data-axis gradient all_reduce's shares of it, peak memory per rank."""
+    from repro_torch.launch.dist_smoke import run_ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "phase10"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    med = lambda xs: statistics.median(xs[1:])
+    for which in ("a", "b"):
+        P, R = P10[which], P10_RUN
+        t0 = time.perf_counter()
+        ref, ref_ms, ref_peak = p10_one_process(torch, which, dev)
+        n = P["grid"][0] * P["grid"][1]
+        out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase10", which,
+                         str(out_dir)], n, timeout=P10_TIMEOUT)
+        ranks = []
+        for rank, (rc, text) in enumerate(out):
+            require(rc == 0, f"phase 10({which}): rank {rank} exited {rc}:\n"
+                    f"{text[-4000:]}")
+            lines = [ln for ln in text.splitlines() if ln.startswith("phase10 ")]
+            require(len(lines) == 1, f"phase 10({which}): rank {rank} printed "
+                    f"no result:\n{text[-4000:]}")
+            ranks.append(json.loads(lines[0][len("phase10 "):]))
+        for g in ranks:
+            for s, (m, w) in enumerate(zip(g["metrics"], ref, strict=True)):
+                for key in ("loss", "aux"):
+                    require(abs(m[key] - w[key]) <= P["loss_rtol"] * abs(w[key]),
+                            f"phase 10({which}) rank {g['rank']} step {s}: {key} "
+                            f"{m[key]} vs {w[key]} (one process)")
+                require(m["dropped"] > 0, f"phase 10({which}) step {s}: no entry "
+                        f"dropped")
+            require(g["grad_worst"][0] <= P["grad_tol"], f"phase 10({which}) rank "
+                    f"{g['rank']}: gradient {g['grad_worst'][1]} off by "
+                    f"{g['grad_worst'][0]:.2e} of its max |g|")
+            require(not any(g["launches"].values()),
+                    f"phase 10({which}): the training path launched {g['launches']}")
+        tok = R["batch"] * R["seq"]
+        for g in sorted(ranks, key=lambda g: g["rank"]):
+            step = med(g["ms"])
+            print(f"phase 10({which}) rank {g['rank']} on {g['device']} over "
+                  f"{g['backend']}: {step:.2f} ms/step (median of steps 2-"
+                  f"{R['steps']}), model-axis collectives "
+                  f"{med(g['model_collectives_ms']):.2f} ms "
+                  f"({med(g['model_collectives_ms']) / step:.3f} of the step), "
+                  f"data-axis gradient all_reduce {med(g['grad_all_reduce_ms']):.2f} "
+                  f"ms ({med(g['grad_all_reduce_ms']) / step:.3f}); "
+                  f"{g['state_gb']:.2f} GB of params, grads and moments, peak "
+                  f"{g['peak_gb']:.2f} GB; worst gradient {g['grad_worst'][0]:.2e} "
+                  f"of max |g| ({g['grad_worst'][1]}); ms "
+                  f"{[round(x, 1) for x in g['ms']]}")
+        r0 = next(g for g in ranks if g["rank"] == 0)
+        print(f"phase 10({which}) {P['arch']} at published width ({R['n_layers']} "
+              f"layer, f32, TF32 off), batch {R['batch']} x seq {R['seq']} on a "
+              f"{tuple(P['grid'])} (data, model) grid: losses "
+              f"{[m['loss'] for m in r0['metrics']]} vs one process "
+              f"{[m['loss'] for m in ref]}, aux {[m['aux'] for m in r0['metrics']]} "
+              f"vs {[m['aux'] for m in ref]}, dropped "
+              f"{[m['dropped'] for m in r0['metrics']]}; one process "
+              f"{med(ref_ms):.2f} ms/step ({tok / med(ref_ms) * 1e3:.1f} tok/s), "
+              f"peak {ref_peak:.2f} GB; {time.perf_counter() - t0:.1f} s with the "
+              f"one-process run and the ranks' start")
+
+
+def phase10_child(argv) -> int:
+    """``chip_smoke.py --phase10 a|b OUT_DIR``: one rank of phase 10(a) or
+    (b), started by ``phase_model_axis`` with the ``REPRO_*`` variables;
+    with a card per rank it takes its own (NCCL), else cuda:0 (gloo)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    p10_child(torch, argv[0], argv[1])
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def phase9_child(argv) -> int:
     """``chip_smoke.py --phase9 m2n|dp OUT_DIR``: one rank of phase 9(a)
     or (c), started by ``phase_processes`` with the ``REPRO_*`` variables."""
@@ -3083,6 +3344,9 @@ def main() -> int:
         t9 = time.perf_counter()
         for name, per_rank in phase_processes(torch, dev).items():
             rows[name]["rank_launches"] = per_rank
+        torch.cuda.empty_cache()
+        t10 = time.perf_counter()
+        phase_model_axis(torch, dev)
         t_end = time.perf_counter()
         for name in ("decode_attention", "gating_dispatch", "grouped_matmul"):
             for sh in rows[name]["shapes"]:
@@ -3116,7 +3380,8 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
-          f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t_end - t9:.1f} s")
+          f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t10 - t9:.1f} s, phase 10 in "
+          f"{t_end - t10:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3125,7 +3390,33 @@ def main() -> int:
     return 0
 
 
+def phase10_only() -> int:
+    """``chip_smoke.py --phase10-only``: phase 10 alone (no kernel build:
+    the training path launches none).  On a machine with a card per rank
+    its ranks meet over NCCL."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_line()}, "
+          f"{torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    try:
+        phase_model_axis(torch, torch.device("cuda", 0))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: phase 10 in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase9"]:
         sys.exit(phase9_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase10"]:
+        sys.exit(phase10_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase10-only"]:
+        sys.exit(phase10_only())
     sys.exit(main())

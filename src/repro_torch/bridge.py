@@ -9,8 +9,9 @@ stacked ``blocks`` leading axis is unstacked into one dict per layer and
 the ``remainder`` layers follow, in execution order; the whisper
 encoder's stacked ``encoder.blocks`` become ``encoder.layers``.  Every
 leaf of every layer kind crosses as it is (recurrent states, conv
-caches, cross K/V, the 0-d gates).  The bridge takes
-numpy only: it imports nothing of JAX or of the JAX package.
+caches, cross K/V, the 0-d gates); ``shards_from_jax`` gives a rank of
+a process grid its blocks.  The bridge takes numpy only: it imports
+nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.training.optimizer import OptState
+from repro_torch.launch import sharding
+from repro_torch.training.optimizer import OptState, tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,6 +61,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             "pos_embed": _tensor(enc["pos_embed"], dev),
             "final_norm": _tensor(enc["final_norm"], dev)}
     return params
+
+
+def shards_from_jax(tree: dict, cfg: ModelConfig, mesh, device="cuda") -> dict:
+    """This rank's blocks of a JAX params (or moment) tree under
+    ``launch.sharding.param_specs``' "ep" rules on ``mesh`` (those of the
+    grid's train step): the tree unstacked as ``params_from_jax``
+    unstacks it (on the host), each leaf's block then moved to
+    ``device``."""
+    dev = resolve_device(device)
+    full = params_from_jax(tree, cfg, device="cpu")
+    specs = sharding.param_specs(cfg, full, mesh)
+    return tree_map(lambda t: t.to(dev), sharding.shard_tree(full, specs, mesh))
 
 
 def opt_state_from_jax(opt_state, cfg: ModelConfig, device="cuda"):

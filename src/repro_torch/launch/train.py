@@ -3,14 +3,20 @@ given: random weights and the synthetic LM stream from one seed, AdamW
 with warmup max(2, steps // 10) and cosine decay.
 
 With more than one process (``DistributedSpec.from_env()``: the
-``REPRO_*`` variables, or OpenMPI's / SLURM's) it trains data-parallel,
-the JAX launcher's (n, 1) ("data", "model") grid: every rank draws the
-same global batch and takes its rows, the MoE layers dispatch over the
-global batch and the gradients are averaged before the update
-(``training.loop.make_train_step``'s ``group``).  The ranks check that
-they made the same params and batches; rank 0 alone prints and saves
-checkpoints.  On the card every rank computes on the card it is bound
-to (gloo where ranks share one).
+``REPRO_*`` variables, or OpenMPI's / SLURM's) it trains on the JAX
+launcher's ("data", "model") grid of ``run``'s ``mesh_shape``, (n, 1)
+by default: data-parallel, every rank draws the same global batch and
+takes its rows of it, the MoE layers dispatch over the global batch
+and the gradients are averaged before the update.  A model axis above
+1 makes the layers tensor- and expert-parallel over it: each rank keeps
+its blocks of the params under ``launch.sharding``'s "ep" rules
+(``training.loop.make_train_step``'s ``mesh``).  As in the JAX
+launcher, no flag sets the grid: callers pass ``mesh_shape`` to
+``run``.  The ranks check that they made the same params and batches
+(the same blocks over the data axes, the same replicated leaves and
+batches over the model axis); rank 0 alone prints, and writes the
+checkpoints that every rank gathers.  On the card every rank computes
+on the card it is bound to (gloo where ranks share one).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \\
@@ -34,7 +40,8 @@ import torch
 from repro_torch.config import get_config, reduced
 from repro_torch.core.transport import DistributedSpec, MultiControllerTransport
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import data_axes, make_mesh
 from repro_torch.models.stubs import extra_inputs
 from repro_torch.models.transformer import REMAT, init_params
 from repro_torch.serving.config import DTYPES
@@ -46,45 +53,62 @@ from repro_torch.training.optimizer import AdamWConfig, init_opt_state, leaves
 
 
 def run(arch: str, *, use_reduced: bool, steps: int, batch: int, seq: int,
-        lr: float, remat: str = "none", checkpoint_dir: str | None = None,
-        log_every: int = 10, dtype: str = "float32", seed: int = 0,
-        device="cuda", n_layers: int = 0):
-    """Train ``steps`` steps; returns the losses (the group's means)."""
+        lr: float, mesh_shape=None, remat: str = "none",
+        checkpoint_dir: str | None = None, log_every: int = 10,
+        dtype: str = "float32", seed: int = 0, device="cuda", n_layers: int = 0):
+    """Train ``steps`` steps; returns the losses (the grid's means).
+
+    ``mesh_shape``: the ("data", "model") grid over the processes, (n, 1)
+    by default; its product must be the number of processes."""
     dev = resolve_device(device)
     spec = DistributedSpec.from_env()
-    group, rank = None, 0
+    if mesh_shape is None:
+        mesh_shape = (spec.num_processes, 1)
+    mesh_shape = tuple(int(n) for n in mesh_shape)
+    if len(mesh_shape) != 2 or mesh_shape[0] * mesh_shape[1] != spec.num_processes:
+        raise ValueError(f"a ('data', 'model') grid of {mesh_shape} for "
+                         f"{spec.num_processes} processes")
+    mesh, rank = None, 0
     if spec.num_processes > 1:
         tr = MultiControllerTransport(spec, device=dev)
         dev, rank = tr.device, tr.process_index
-        group = make_mesh((spec.num_processes, 1), ("data", "model"),
-                          device=dev).group("data")
+        mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(arch)
     if use_reduced:
         cfg = reduced(cfg)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    params = init_params(cfg, seed, getattr(torch, dtype), device=dev)
-    for p in leaves(params):
-        p.requires_grad_(True)
-    opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
-                          total_steps=steps)
-    opt_state = init_opt_state(params)
     extras = extra_inputs(cfg, batch, dtype=getattr(torch, dtype), device=dev)
     extras_keys = tuple(extras.keys())
-    if group is not None:
-        check_replicated(leaves(params) + list(extras.values()), group,
-                         "params and stub inputs")
-    step_fn = make_train_step(cfg, opt_cfg, remat=remat, extras_keys=extras_keys,
-                              group=group)
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
+                         total_steps=steps),
+        remat=remat, extras_keys=extras_keys, mesh=mesh)
+    params = init_params(cfg, seed, getattr(torch, dtype), device=dev)
+    specs = None
+    if mesh is not None:
+        specs = sharding.param_specs(cfg, params, mesh)
+        params = sharding.shard_tree(params, specs, mesh)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt_state = init_opt_state(params)
+    if mesh is not None:
+        check_replicated(leaves(params) + list(extras.values()),
+                         mesh.group(data_axes(mesh)), "params and stub inputs")
+        whole = [p for (_, s), p in zip(sharding.named_specs(specs), leaves(params))
+                 if "model" not in s.axes()]
+        check_replicated(whole + list(extras.values()), mesh.group("model"),
+                         "replicated params and stub inputs")
     data = iter(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq + 1,
                                        batch=batch, seed=seed)))
     losses = []
     t0 = time.perf_counter()
     for step in range(steps):
         toks = torch.from_numpy(next(data)).to(dev)
-        if group is not None and step == 0:
-            check_replicated([toks], group, "batches")
+        if mesh is not None and step == 0:
+            for axes in (data_axes(mesh), "model"):
+                check_replicated([toks], mesh.group(axes), "batches")
         params, opt_state, metrics = step_fn(
             params, opt_state, toks, *(extras[k] for k in extras_keys))
         losses.append(float(metrics["loss"]))
@@ -92,12 +116,12 @@ def run(arch: str, *, use_reduced: bool, steps: int, batch: int, seq: int,
             say(f"step {step:5d} loss {losses[-1]:8.4f} "
                 f"lr {float(metrics['lr']):.2e}", flush=True)
     dt = time.perf_counter() - t0
-    ranks = f" on {spec.num_processes} ranks" if group is not None else ""
+    ranks = f" on a {mesh_shape} grid" if mesh is not None else ""
     say(f"trained {steps} steps in {dt:.1f}s{ranks} "
         f"({steps * batch * seq / dt:.0f} tok/s); "
         f"loss {losses[0]:.3f} -> {np.mean(losses[-5:]):.3f}")
-    if checkpoint_dir and rank == 0:
-        save(checkpoint_dir, steps, params, opt_state)
+    if checkpoint_dir:
+        save(checkpoint_dir, steps, params, opt_state, mesh=mesh, specs=specs)
     return losses
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import activation
 from repro_torch.models.ffn import gated_ffn
 
@@ -209,18 +210,41 @@ def routed_experts_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,
     aux = load_balance_loss(routing, cfg.n_experts) if with_aux else None
     C = expert_capacity(T, cfg, capacity_mode)
     idx_buf, gate_buf = dispatch_indices(routing, cfg.n_experts, C)
-    return experts_combine(params, x, idx_buf, gate_buf, act), aux
+    return experts_combine(params, x, idx_buf, gate_buf, act, cfg), aux
 
 
-def experts_combine(params: dict, x: torch.Tensor, idx_buf: torch.Tensor,
-                    gate_buf: torch.Tensor, act: str) -> torch.Tensor:
-    """The plain expert MLP over (E, C) dispatch buffers of x's rows and
-    the gate-weighted combine back to (T, d) in x's dtype."""
+def _expert_mlp_combine(params, x, idx_buf, gate_buf, act) -> torch.Tensor:
     xe = gather_tokens(x, idx_buf)
     h = activation(torch.einsum("ecd,edf->ecf", xe, params["we1"]), act)
     h = h * torch.einsum("ecd,edf->ecf", xe, params["we3"])
     out = torch.einsum("ecf,efd->ecd", h, params["we2"])
-    return combine(out, idx_buf, gate_buf, x.shape[0]).to(x.dtype)
+    return combine(out, idx_buf, gate_buf, x.shape[0])
+
+
+def experts_combine(params: dict, x: torch.Tensor, idx_buf: torch.Tensor,
+                    gate_buf: torch.Tensor, act: str,
+                    cfg: Optional[MoEConfig] = None) -> torch.Tensor:
+    """The plain expert MLP over (E, C) dispatch buffers of x's rows and
+    the gate-weighted combine back to (T, d) in x's dtype.
+
+    Under an installed model axis (``models.parallel``; ``cfg`` gives the
+    full sizes) where this rank holds E / m experts (EP) or every
+    expert's block of d_ff (where E does not divide), the rank runs its
+    experts' buffers or its d_ff block; x and the gates enter the rank's
+    region (the gates' gradient is then the whole one on every rank) and
+    the f32 partial combines are summed over the axis."""
+    mp = parallel.current() if cfg is not None else None
+    if mp is not None:
+        ex = mp.block(cfg.n_experts, params["we1"].shape[0])
+        ff = mp.block(cfg.d_ff_expert, params["we1"].shape[2])
+        if ex is not None or ff is not None:
+            # the whole (replicated) gates enter, then the rank takes its rows
+            xm, gate_buf = mp.enter(x), mp.enter(gate_buf)
+            if ex is not None:
+                idx_buf, gate_buf = idx_buf[ex], gate_buf[ex]
+            y = _expert_mlp_combine(params, xm, idx_buf, gate_buf, act)
+            return mp.reduce(y).to(x.dtype)
+    return _expert_mlp_combine(params, x, idx_buf, gate_buf, act).to(x.dtype)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
@@ -235,18 +259,21 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     m2n kernel path, as under the JAX package's)."""
     impl = _ROUTED_IMPL if _ROUTED_IMPL is not None else routed_experts_dense
     y, aux = impl(params, x, cfg, act, capacity_mode, with_aux)
-    return add_dense_extras(params, x, y, act), aux
+    return add_dense_extras(params, x, y, act, cfg), aux
 
 
 def add_dense_extras(params: dict, h: torch.Tensor, y: torch.Tensor,
-                     act: str) -> torch.Tensor:
+                     act: str, cfg: Optional[MoEConfig] = None) -> torch.Tensor:
     """Add the shared experts (qwen2-moe) and the dense residual
     (arctic) to the routed output y: the batch-dense part of an MoE FFN,
-    which stays on the attention side."""
+    which stays on the attention side.  ``cfg`` gives their full widths
+    to an installed model axis (``ffn.gated_ffn``)."""
     if "ws1" in params:
-        shared = gated_ffn(h, params["ws1"], params["ws3"], params["ws2"], act)
+        shared = gated_ffn(h, params["ws1"], params["ws3"], params["ws2"], act,
+                           cfg.d_ff_shared if cfg is not None else None)
         g = torch.sigmoid(h.float() @ params["shared_gate"].float())
         y = y + (g[:, None] * shared.float()).to(h.dtype)
     if "wd1" in params:
-        y = y + gated_ffn(h, params["wd1"], params["wd3"], params["wd2"], act)
+        y = y + gated_ffn(h, params["wd1"], params["wd3"], params["wd2"], act,
+                          cfg.d_ff_dense_residual if cfg is not None else None)
     return y

@@ -1,0 +1,150 @@
+"""Tensor and expert parallelism over the "model" axis of a process grid
+(``launch.mesh.ProcessMesh``): each rank holds its block of every
+sharded leaf (``launch.sharding.local_shard`` under the JAX rules) and
+the model code runs the collectives itself, where the JAX package lets
+GSPMD insert them.
+
+Installed with ``ModelParallel(mesh).install()`` (as
+``moe.set_routed_impl`` installs a routed impl), the model code reads
+``current()`` and, in each sublayer whose weights are split:
+
+  * attention: column-parallel ``wq`` / ``wk`` / ``wv`` over contiguous
+    heads, row-parallel ``wo``, then a sum over "model";
+  * dense FFN, shared experts, dense residual: ``w1`` / ``w3`` columns,
+    ``w2`` rows, then a sum;
+  * routed experts: each rank runs its E / m experts (EP) or every
+    expert on its d_ff slice (the fallback where E does not divide),
+    then a sum; the dispatch is the replicated routing's;
+  * embedding and LM head: the vocabulary split; each rank looks up the
+    ids of its rows (0 elsewhere) and the log-softmax combines each
+    rank's logsumexp.
+
+A sublayer whose weights the rules left whole runs as in one process.
+
+Autograd.  Every rank computes the same replicated activations and the
+same loss, and differentiates that one loss; the rank-local regions
+(a rank's heads, experts or vocabulary rows) are entered and left
+through two conjugate operators (Megatron's f and g):
+
+  * ``enter``: identity forward, sum over "model" backward.  A
+    replicated tensor that enters a rank's region (the normed
+    activation before a column-parallel weight, the routing gates before
+    the combine, a replicated weight used by the rank's heads) gets from
+    each rank only its region's share of the gradient; the sum makes it
+    the whole gradient on every rank, so a replicated leaf's gradient
+    is the same on every model rank.
+  * ``reduce``: sum over "model" forward, identity backward.  A
+    rank's partial result (after ``wo`` / ``w2`` / the expert combine /
+    the embedding lookup) becomes the replicated sum; the gradient of the
+    sum is the same on every rank and is each partial's gradient.
+    ``torch.distributed.nn.functional.all_reduce`` sums again in
+    backward, which would count each rank's gradient m times here.
+
+Under remat the non-reentrant checkpoint re-runs a block period's
+forward, collectives included, in backward: every rank reaches them in
+the same order because every rank builds the same graph.  Only the
+``attn`` and ``local`` kinds have a model axis (``KINDS``);
+``training.loop.make_train_step`` raises for the others.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+_ACTIVE: Optional["ModelParallel"] = None
+
+# the layer kinds that run with a model axis above 1
+KINDS = ("attn", "local")
+
+
+def current() -> Optional["ModelParallel"]:
+    """The installed model-parallel context, or None (one process, or a
+    model axis of one rank)."""
+    return _ACTIVE
+
+
+class _Reduce(torch.autograd.Function):
+    """Sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class ModelParallel:
+    """This rank's place on the "model" axis of ``mesh`` and the
+    collectives over it."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.size = mesh.size("model")
+        self.index = mesh.index("model")
+        self.group = mesh.group("model")
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _Reduce.apply(t, self.group) if self.group is not None else t
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        return _Enter.apply(t, self.group) if self.group is not None else t
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along ``dim`` in rank order,
+        replicated: each rank's block in a zero-filled tensor, summed (gloo
+        has no CUDA ``all_gather``).  Backward hands each rank its block of
+        the (replicated) gradient."""
+        dim = dim % t.ndim
+        parts = [t if r == self.index else torch.zeros_like(t)
+                 for r in range(self.size)]
+        return self.reduce(torch.cat(parts, dim=dim))
+
+    def block(self, full: int, local: int) -> Optional[slice]:
+        """This rank's slice of a dim of ``full`` entries split into blocks
+        of ``local``, or None where the dim is whole."""
+        if local == full:
+            return None
+        if local * self.size != full:
+            raise ValueError(f"a dim of {full} held as {local} on {self.size} ranks")
+        return slice(self.index * local, (self.index + 1) * local)
+
+    @contextlib.contextmanager
+    def install(self):
+        """Run the model code of this block on this rank's shards."""
+        global _ACTIVE
+        prev, _ACTIVE = _ACTIVE, self
+        try:
+            yield self
+        finally:
+            _ACTIVE = prev
+
+
+def check_kinds(kinds) -> None:
+    """Raise for a layer kind without a model axis."""
+    for kind in kinds:
+        if kind not in KINDS:
+            raise NotImplementedError(
+                f"the {kind!r} layer kind has no model axis in the port yet; "
+                f"train it with a model axis of 1")

@@ -2,7 +2,10 @@
 PyTorch.
 
 The [audio] and [vlm] frontends are stubs: this module supplies
-precomputed frame / patch embeddings of the right shape.  The JAX
+precomputed frame / patch embeddings of the right shape, as tensors
+(``extra_inputs``) or as tensors on the ``meta`` device that hold only
+shapes and dtypes (``extra_input_specs``, ``cache_specs``: what a dry
+run and the sharding rules read).  The JAX
 package draws them from ``jax.random.PRNGKey(0)`` (patches) and ``(1)``
 (frames); the port draws them from a ``torch.Generator`` seeded 0 and 1
 the same way (normal, times 0.02), so each package gives every request
@@ -16,6 +19,9 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_cache_entry
+
+META = torch.device("meta")
 
 
 def extra_inputs(cfg: ModelConfig, batch: int,
@@ -39,3 +45,23 @@ def extra_inputs(cfg: ModelConfig, batch: int,
     if cfg.encoder is not None:
         out["frames"] = draw(1, cfg.encoder.source_len)
     return out
+
+
+def extra_input_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16) -> dict:
+    """``extra_inputs``' shapes and dtypes, as ``meta`` tensors."""
+    out = {}
+    if cfg.arch_type == "vlm":
+        out["cross_embeds"] = torch.empty(
+            (batch, cfg.cross_source_len, cfg.d_model), dtype=dtype, device=META)
+    if cfg.encoder is not None:
+        out["frames"] = torch.empty(
+            (batch, cfg.encoder.source_len, cfg.d_model), dtype=dtype, device=META)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16) -> list:
+    """``transformer.init_cache``'s per-layer entries as ``meta`` tensors,
+    allocating nothing."""
+    return [init_cache_entry(kind, cfg, batch, max_seq, dtype, META)
+            for kind in cfg.layer_kinds]

@@ -52,6 +52,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import parallel
 from repro_torch.models.common import (activation, apply_rope, dense_init,
                                        rms_norm, softcap)
 from repro_torch.models.ffn import gated_ffn
@@ -161,9 +162,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random weights from ``seed`` (truncated-normal fan-in init; norms
     zero, since RMSNorm scales by 1 + scale).  Draws with a
     ``torch.Generator`` on ``device``, so the weights never cross the
-    host link."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    host link.  ``device="meta"`` gives the tree's shapes and dtypes
+    only, allocating and drawing nothing."""
+    if torch.device(device).type == "meta":
+        dev, gen = torch.device("meta"), None
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
     params = {"embed": dense_init(gen, (cfg.vocab, d), dtype, dev, scale=0.02),
               "final_norm": torch.zeros(d, dtype=dtype, device=dev)}
@@ -260,8 +265,48 @@ def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str,
                          capacity_mode, with_aux=with_aux)
         y = y.reshape(B, T, d)
     else:
-        y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act)
+        y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act, cfg.d_ff)
     return _maybe_post(p, "ln2_post", y, cfg), aux
+
+
+def _qkv(p, h, cfg: ModelConfig):
+    """(q (B, T, Hl, hd), k, v (B, T, Hkvl, hd)): the projections of the
+    normed h for this rank's query heads; without a model axis (or where
+    the rules left ``wq`` whole) every head.
+
+    Under a model axis ``wq`` holds the contiguous heads [h0, h0 + Hl)
+    of this rank.  ``wk`` / ``wv`` hold the matching kv heads where Hkv
+    splits over the axis; where it does not (reduced mixtral and granite
+    have one kv head), the rule still splits their columns whenever
+    Hkv * hd divides the axis, so the whole weight is gathered first and
+    enters the rank's region (its gradient the sum over the ranks), as
+    is a weight the rule left whole."""
+    B, T, _ = h.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mp = parallel.current()
+    heads = mp.block(H * hd, p["wq"].shape[1]) if mp is not None else None
+    if heads is None:
+        return ((h @ p["wq"]).reshape(B, T, H, hd),
+                (h @ p["wk"]).reshape(B, T, Hkv, hd),
+                (h @ p["wv"]).reshape(B, T, Hkv, hd))
+    if H % mp.size:
+        raise NotImplementedError(f"{H} heads do not split over {mp.size} ranks")
+    Hl, x = H // mp.size, mp.enter(h)
+    h0 = mp.index * Hl
+    q = (x @ p["wq"]).reshape(B, T, Hl, hd)
+    kv = []
+    for name in ("wk", "wv"):
+        w = p[name]
+        if Hkv % mp.size == 0 and w.shape[1] * mp.size == Hkv * hd:
+            kv.append((x @ w).reshape(B, T, Hkv // mp.size, hd))
+            continue
+        if w.shape[1] != Hkv * hd:
+            w = mp.gather(w, 1)
+        full = (x @ mp.enter(w)).reshape(B, T, Hkv, hd)
+        # the kv head each of the rank's query heads reads, one per head
+        kv.append(full[:, :, torch.arange(h0, h0 + Hl, device=x.device)
+                       // (H // Hkv)])
+    return q, kv[0], kv[1]
 
 
 def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
@@ -271,19 +316,19 @@ def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = Tru
     ``causal=False`` (the whisper encoder): no RoPE (the encoder adds a
     learned position embedding) and every key attended."""
     B, T, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    h = rms_norm(x, p["ln1"])
-    q = (h @ p["wq"]).reshape(B, T, H, hd)
-    k = (h @ p["wk"]).reshape(B, T, Hkv, hd)
-    v = (h @ p["wv"]).reshape(B, T, Hkv, hd)
+    q, k, v = _qkv(p, rms_norm(x, p["ln1"]), cfg)
     if causal:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = attn_lib.attention(q, k, v, positions, positions, causal=causal,
                              window=window, attn_softcap=cfg.attn_softcap)
-    delta = _maybe_post(p, "ln1_post", out.reshape(B, T, H * hd) @ p["wo"], cfg)
+    y = out.reshape(B, T, -1) @ p["wo"]
+    if q.shape[2] != cfg.n_heads:     # this rank's heads: wo's rows of them
+        y = parallel.current().reduce(y)
+    delta = _maybe_post(p, "ln1_post", y, cfg)
     if not build_cache:
         return delta, None
+    Hkv, hd = k.shape[2], k.shape[3]
     W = cache_len
     n_keep = min(T, W)
     slots = (positions[0, T - n_keep:] % W).long()
@@ -373,17 +418,46 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
     return x, cache, aux
 
 
+def vocab_block(params, cfg: ModelConfig):
+    """(the installed model axis, this rank's slice of the vocabulary) where
+    the embedding's rows are split over it, else (None, None)."""
+    mp = parallel.current()
+    rows = mp.block(cfg.vocab, params["embed"].shape[0]) if mp is not None else None
+    return (mp, rows) if rows is not None else (None, None)
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens.long()]
+    """Under a model axis that splits the vocabulary each rank looks up
+    the ids of its rows (0 for the others) and the lookups are summed."""
+    mp, rows = vocab_block(params, cfg)
+    if mp is None:
+        x = params["embed"][tokens.long()]
+    else:
+        ids = tokens.long() - rows.start
+        mine = (ids >= 0) & (ids < rows.stop - rows.start)
+        x = params["embed"][torch.where(mine, ids, 0)]
+        x = mp.reduce(x * mine[..., None].to(x.dtype))
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
+def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head's (d, V) weight (this rank's vocabulary columns under a
+    model axis that splits it)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def lm_head(params, cfg: ModelConfig, x):
+    """Logits over the whole vocabulary; under a model axis that splits
+    it, each rank's columns gathered."""
     h = rms_norm(x, params["final_norm"])
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = h @ w.to(h.dtype)
+    w = head_weight(params, cfg)
+    mp, _ = vocab_block(params, cfg)
+    if mp is None:
+        logits = h @ w.to(h.dtype)
+    else:
+        logits = mp.gather(mp.enter(h) @ w.to(h.dtype), -1)
     return softcap(logits, cfg.logit_softcap) if cfg.logit_softcap else logits
 
 

@@ -8,6 +8,13 @@ Keys are the "/"-joined paths of the port's own trees
 has no bfloat16, so a bf16 leaf is written as its uint16 bit pattern
 and restored bit for bit; ``restore`` gives each leaf its template's
 dtype and device.
+
+On a process grid (``mesh`` and the params' spec tree ``specs``) every
+rank calls ``save``: the full trees are gathered from the ranks' blocks
+(``launch.sharding.gather_full``) and the grid's rank 0 writes them, in
+the same layout; ``restore`` loads the full trees and keeps this rank's
+blocks.  So a grid's checkpoint restores into one process and the
+reverse.
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ from typing import Any, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch import sharding
 from repro_torch.training.optimizer import OptState, named_leaves
 
 
@@ -50,9 +59,17 @@ def _steps(directory: str):
 
 
 def save(directory: str, step: int, params, opt_state=None, keep: int = 3,
-         extra: dict | None = None) -> str:
-    os.makedirs(directory, exist_ok=True)
+         extra: dict | None = None, mesh=None, specs=None) -> str:
     path = os.path.join(directory, f"step_{step:08d}")
+    if mesh is not None:
+        params = sharding.gather_tree(params, specs, mesh)
+        if opt_state is not None:
+            opt_state = OptState(opt_state.step,
+                                 sharding.gather_tree(opt_state.mu, specs, mesh),
+                                 sharding.gather_tree(opt_state.nu, specs, mesh))
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return path
+    os.makedirs(directory, exist_ok=True)
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"), **_flatten(params))
     if opt_state is not None:
@@ -96,8 +113,9 @@ def _load(npz_path: str, template):
 
 
 def restore(directory: str, template_params, template_opt=None,
-            step: int | None = None) -> Tuple[Any, Any, int]:
-    """Restore into the structure of the given templates."""
+            step: int | None = None, mesh=None, specs=None) -> Tuple[Any, Any, int]:
+    """Restore into the structure of the given templates (on a grid,
+    ``mesh`` and ``specs``: this rank's blocks of the full trees)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {directory}")
@@ -107,4 +125,9 @@ def restore(directory: str, template_params, template_opt=None,
     if template_opt is not None and os.path.exists(
             os.path.join(path, "opt_state.npz")):
         opt = _load(os.path.join(path, "opt_state.npz"), template_opt)
+    if mesh is not None:
+        params = sharding.shard_tree(params, specs, mesh)
+        if opt is not None:
+            opt = OptState(opt.step, sharding.shard_tree(opt.mu, specs, mesh),
+                           sharding.shard_tree(opt.nu, specs, mesh))
     return params, opt, step

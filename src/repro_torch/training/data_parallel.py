@@ -35,9 +35,16 @@ from repro_torch.config import MoEConfig
 from repro_torch.models import moe as moe_lib
 
 
+def group_size(group) -> int:
+    """The ranks of ``group``; None is one rank (this one)."""
+    return dist.get_world_size(group) if group is not None else 1
+
+
 def local_rows(t: torch.Tensor, group) -> torch.Tensor:
     """This rank's contiguous rows of a global batch ``t`` (B, ...), B a
     multiple of the group's size."""
+    if group is None:
+        return t
     b = t.shape[0] // dist.get_world_size(group)
     r = dist.get_rank(group)
     return t[r * b:(r + 1) * b]
@@ -46,6 +53,8 @@ def local_rows(t: torch.Tensor, group) -> torch.Tensor:
 def average_grads(grads, group) -> None:
     """Each gradient, summed over the group and divided by its size, in
     place (one ``all_reduce`` per leaf)."""
+    if group is None:
+        return
     n = dist.get_world_size(group)
     for g in grads:
         dist.all_reduce(g, group=group)
@@ -56,7 +65,9 @@ def average_grads(grads, group) -> None:
 def check_replicated(tensors, group, what: str) -> None:
     """Raise unless every rank of the group holds the same ``tensors``:
     an ``all_reduce`` of per-tensor checksums (sum and sum of squares in
-    f64), max against min."""
+    f64), max against min.  A group of None is this rank alone."""
+    if group is None:
+        return
     sums = torch.stack([torch.stack([t.double().sum(), t.double().square().sum()])
                         for t in tensors]).reshape(-1)
     both = torch.cat([sums, -sums])
@@ -69,7 +80,7 @@ def check_replicated(tensors, group, what: str) -> None:
 
 class DataParallelMoE:
     """The routed experts of the JAX step's global batch on this rank's
-    rows (see the module docstring).  ``dropped`` accumulates the global
+    rows (see the module docstring); ``group`` None is one data rank.  ``dropped`` accumulates the global
     count of entries past their expert's capacity (a 0-d tensor, read it
     on the host when wanted) while ``count_drops`` is true; the train
     step clears it before backward, whose remat recompute dispatches
@@ -77,8 +88,8 @@ class DataParallelMoE:
 
     def __init__(self, group):
         self.group = group
-        self.size = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
+        self.size = group_size(group)
+        self.rank = dist.get_rank(group) if group is not None else 0
         self.dropped = torch.zeros(())
         self.count_drops = True
 
@@ -91,7 +102,8 @@ class DataParallelMoE:
         e = routing.experts.long()
         rows = x.new_zeros((self.size, E), dtype=torch.float32)
         rows[self.rank] = F.one_hot(e, E).float().sum(dim=(0, 1))
-        dist.all_reduce(rows, group=self.group)
+        if self.group is not None:
+            dist.all_reduce(rows, group=self.group)
         prefix, total = rows[:self.rank].sum(0), rows.sum(0)
         C = moe_lib.expert_capacity(T, cfg, capacity_mode)
         pos = moe_lib.slot_positions(e, E)
@@ -99,7 +111,7 @@ class DataParallelMoE:
         # an expert takes at most T_loc of this rank's rows
         idx_buf, gate_buf = moe_lib.fill_buffers(e, routing.gates, E,
                                                  min(C, T_loc), keep, pos)
-        y = moe_lib.experts_combine(params, x, idx_buf, gate_buf, act)
+        y = moe_lib.experts_combine(params, x, idx_buf, gate_buf, act, cfg)
         if self.count_drops:
             self.dropped = (self.dropped.to(x.device)
                             + (total - C).clamp(min=0).sum())

@@ -134,15 +134,19 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
-                 decay: Optional[List[bool]] = None):
+                 decay: Optional[List[bool]] = None,
+                 gnorm: Optional[torch.Tensor] = None):
     """One AdamW step.  Writes ``params`` and the moments in place and
     uses ``grads`` (a tree of the params' structure) as scratch: they
     hold no gradient afterwards.  ``decay``: per leaf, whether it takes
     weight decay (a model's ``decay_mask``); by default the leaves of
-    two or more dimensions.  Returns (params, new state, metrics {"lr",
-    "grad_norm"})."""
+    two or more dimensions.  ``gnorm``: the gradients' global norm where
+    the caller computes it (a rank holding shards of some leaves), by
+    default ``global_norm(grads)``.  Returns (params, new state, metrics
+    {"lr", "grad_norm"})."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr_t = cosine_lr(cfg, step)
     lr = float(lr_t)

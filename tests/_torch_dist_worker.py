@@ -4,6 +4,8 @@ per rank through ``repro_torch.launch.dist_smoke.run_ranks``:
   python tests/_torch_dist_worker.py m2n OUT_DIR
   python tests/_torch_dist_worker.py dp IN.pkl OUT_DIR
   python tests/_torch_dist_worker.py train OUT_DIR ARGS_JSON
+  python tests/_torch_dist_worker.py shard OUT_DIR
+  python tests/_torch_dist_worker.py grid IN.pkl OUT_DIR
 
 Every rank brings up ``MultiControllerTransport`` on the CPU (gloo) from
 the ``REPRO_*`` variables, turns the warning ``torch.distributed`` gives
@@ -151,8 +153,171 @@ def run_train(out_dir: str, args_json: str):
     np.save(os.path.join(out_dir, f"losses{tr.process_index}.npy"), np.array(losses))
 
 
+def grid_config(case):
+    """The port's config of a ``grid`` case: the reduced ``arch`` with the
+    case's MoE overrides (``moe``) and layer count (``n_layers``)."""
+    import dataclasses
+
+    from repro_torch.config import get_config, reduced
+    cfg = reduced(get_config(case["arch"]))
+    if case.get("moe"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **case["moe"]))
+    return cfg
+
+
+def run_grid(in_path: str, out_dir: str):
+    """Grid training: for each case of IN.pkl (all on one grid shape),
+    this rank's blocks of the JAX params (``bridge.shards_from_jax``):
+    their ``forward_train`` logits under ``ModelParallel`` (the
+    vocabulary-parallel LM head, gathered) within 1e-5 of one process's,
+    then ``len(tokens)`` steps with ``make_train_step(mesh=...)``.
+    Saves per rank the metrics, the step-0 gradients of the leaves the
+    rules leave whole over "model" (to be equal on every model rank), and
+    on rank 0 the gathered step-0 gradients and final params; every rank
+    gathers the grid's checkpoint (rank 0 writes it under OUT_DIR/ck-NAME)
+    and restores the case's one-process checkpoint (``ckpt`` in IN.pkl)
+    into its blocks.  A case with ``raises`` must raise it from
+    ``make_train_step``."""
+    import torch
+
+    from repro_torch.bridge import params_from_jax, shards_from_jax
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ModelParallel
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import loop
+    from repro_torch.training.data_parallel import check_replicated
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                leaves, named_leaves)
+
+    tr = _bring_up()
+    with open(in_path, "rb") as fh:
+        cases = pickle.load(fh)
+    mesh = make_mesh(cases[0]["grid"], ("data", "model"), device="cpu")
+    rank, results = tr.process_index, {}
+    update = loop.adamw_update
+    for case in cases:
+        cfg = grid_config(case)
+        opt = AdamWConfig(**case["opt"])
+        if case.get("raises"):
+            try:
+                loop.make_train_step(cfg, opt, mesh=mesh)
+            except NotImplementedError as e:
+                results[case["name"]] = {"raised": str(e)}
+                continue
+            raise AssertionError(f"{case['name']}: make_train_step did not raise")
+        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
+        toks = torch.from_numpy(case["tokens"])
+        with torch.no_grad():           # the gathered vocabulary-parallel logits
+            want = forward_train(params_from_jax(case["params"], cfg, device="cpu"),
+                                 cfg, toks[0, :, :-1], remat="none")[0]
+            with ModelParallel(mesh).install():
+                got = forward_train(params, cfg, toks[0, :, :-1], remat="none")[0]
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
+            f"{case['name']}: logits off by {float((got - want).abs().max())}"
+        for p in leaves(params):
+            p.requires_grad_(True)
+        specs = sh.param_specs(cfg, init_params(cfg, device="meta"), mesh)
+        flat_specs = [s for _, s in sh.named_specs(specs)]
+        check_replicated([toks], mesh.group("model"), "batches")
+        grads = []
+
+        def keep(opt_cfg, params, g, state, **kw):
+            if not grads:
+                grads.append([t.detach().clone() for t in g])
+            return update(opt_cfg, params, g, state, **kw)
+
+        loop.adamw_update = keep
+        step = loop.make_train_step(cfg, opt, remat=case["remat"], mesh=mesh)
+        state = init_opt_state(params)
+        metrics = []
+        for s in range(toks.shape[0]):
+            params, state, m = step(params, state, toks[s])
+            metrics.append({k: float(v) for k, v in m.items()})
+        loop.adamw_update = update
+        names = [k for k, _ in named_leaves(params)]
+        whole = {k: g.numpy() for k, g, sp in zip(names, grads[0], flat_specs)
+                 if "model" not in sp.axes()}
+        full_g = [sh.gather_full(g, sp, mesh) for g, sp in zip(grads[0], flat_specs)]
+        full_p = dict(named_leaves(sh.gather_tree(params, specs, mesh)))
+        d = os.path.join(out_dir, f"ck-{case['name']}")
+        ckpt.save(d, toks.shape[0], params, state, mesh=mesh, specs=specs)
+        tmpl = init_opt_state(params)
+        back, back_opt, _ = ckpt.restore(case["ckpt"], params, tmpl, mesh=mesh,
+                                         specs=specs)
+        want = shards_from_jax(case["params"], cfg, mesh, device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(want))), \
+            f"{case['name']}: the one-process checkpoint restored other blocks"
+        assert all(float(t.abs().sum()) == 0 for t in leaves(back_opt.mu)), \
+            f"{case['name']}: the one-process checkpoint's moments"
+        results[case["name"]] = {"metrics": metrics, "whole_grads": whole}
+        if rank == 0:
+            results[case["name"]].update(
+                grads={k: g.numpy() for k, g in zip(names, full_g)},
+                params={k: p.detach().numpy() for k, p in full_p.items()})
+    with open(os.path.join(out_dir, f"grid{rank}.pkl"), "wb") as fh:
+        pickle.dump(results, fh)
+
+
+def run_shard(out_dir: str):
+    """``local_shard`` / ``gather_full`` on 4 ranks: hand-made specs on a
+    (2, 2) grid (either axis, both on one dim, one per dim, the data
+    axes of a 3-axis grid), then reduced mixtral's and gemma2's params
+    under the ep, ep2d and fsdp rules of a (2, 2) and a (1, 4) grid, each
+    gathered back to the tensor it came from."""
+    import torch
+
+    from repro_torch.config import get_config, reduced
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.optimizer import leaves
+
+    tr = _bring_up()
+    grids = {(2, 2): make_mesh((2, 2), ("data", "model"), device="cpu"),
+             (1, 4): make_mesh((1, 4), ("data", "model"), device="cpu"),
+             (2, 1, 2): make_mesh((2, 1, 2), ("pod", "data", "model"),
+                                  device="cpu")}
+    mesh = grids[2, 2]
+    full = torch.arange(48, dtype=torch.float32).reshape(8, 6)
+    got = {}
+    for name, spec in (("both", sh.Spec(("data", "model"), None)),
+                       ("model_cols", sh.Spec(None, "model")),
+                       ("data_rows", sh.Spec("data", None)),
+                       ("one_each", sh.Spec("model", "data"))):
+        block = sh.local_shard(full, spec, mesh)
+        got[name] = block.numpy()
+        assert torch.equal(sh.gather_full(block, spec, mesh), full), name
+    spec = sh.Spec(("pod", "data"), "model")
+    assert torch.equal(sh.gather_full(sh.local_shard(full, spec, grids[2, 1, 2]),
+                                      spec, grids[2, 1, 2]), full)
+    bf = full.to(torch.bfloat16)
+    assert torch.equal(sh.gather_full(sh.local_shard(bf, sh.Spec("model", None),
+                                                     mesh),
+                                      sh.Spec("model", None), mesh), bf)
+    for arch in ("mixtral-8x22b", "gemma2-27b"):
+        cfg = reduced(get_config(arch))
+        params = init_params(cfg, 0, device="cpu")
+        for shape in ((2, 2), (1, 4)):
+            for mode, fsdp in (("ep", False), ("ep2d", False), ("ep", True)):
+                specs = sh.param_specs(cfg, params, grids[shape], expert_mode=mode,
+                                       fsdp=fsdp)
+                local = sh.shard_tree(params, specs, grids[shape])
+                back = sh.gather_tree(local, specs, grids[shape])
+                for a, b in zip(leaves(params), leaves(back), strict=True):
+                    assert torch.equal(a, b), (arch, shape, mode, fsdp)
+                n_full = sum(t.numel() for t in leaves(params))
+                n_local = sum(t.numel() for t in leaves(local))
+                assert n_local < n_full, (arch, shape, mode, fsdp)
+    np.savez(os.path.join(out_dir, f"shard{tr.process_index}.npz"), **got)
+
+
 if __name__ == "__main__":
     mode, *rest = sys.argv[1:]
-    {"m2n": run_m2n, "dp": run_dp, "train": run_train}[mode](*rest)
+    {"m2n": run_m2n, "dp": run_dp, "train": run_train, "shard": run_shard,
+     "grid": run_grid}[mode](*rest)
     import torch.distributed as dist
+    dist.barrier()      # no rank tears its groups down while a peer still uses them
     dist.destroy_process_group()

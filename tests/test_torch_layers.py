@@ -264,8 +264,9 @@ def test_port_imports_nothing_of_jax():
     paged serving modules, the prefill worker, the stats schema, the
     gating_topk kernel and the m2n, transport, load-balance and
     ping-pong modules, the model families (RG-LRU, SSD, stubs), the
-    registry's configs, the planner and the trainer are named, so the
-    check fails if the walk stops reaching them."""
+    registry's configs, the planner, the trainer, the process grid, the
+    sharding rules and the model axis are named, so the check fails if
+    the walk stops reaching them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -281,7 +282,9 @@ def test_port_imports_nothing_of_jax():
         "          'configs.gemma2_27b', 'configs.granite_3_8b',\n"
         "          'configs.minitron_4b', 'configs.minitron_8b',\n"
         "          'training.data', 'training.optimizer', 'training.loop',\n"
-        "          'training.checkpoint', 'launch.train'):\n"
+        "          'training.checkpoint', 'launch.train',\n"
+        "          'training.data_parallel', 'launch.mesh', 'launch.sharding',\n"
+        "          'models.parallel', 'bridge'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
