@@ -157,6 +157,26 @@ then:
      rank each takes its own and they meet over NCCL (``chip_smoke.py
      --phase10-only`` runs this phase alone).
 
+ 11. serving on a rank's shards: ``prefill`` and greedy ``decode_step``s
+     under ``ModelParallel`` on a grid of processes (cuda:0, gloo), each
+     rank on its blocks of the params and of the KV cache.  (a)
+     mixtral-8x22b on (1, 2): 24 query heads, 4 kv heads and 4 experts a
+     rank, the experts as m2n shards over "model" (gating_dispatch's owner
+     branch and grouped_matmul in every rank); (b) minitron-4b on (1, 3):
+     8 kv heads do not divide 3, so every rank holds all of them on 64 of
+     the 192 ring slots and runs decode attention's partial branch, the
+     ranks' rows merged by ``merge_partials``.  8 requests, 32 steps, at
+     published width: f32 at 2 layers against one process (tokens exact,
+     logits within 5e-4 of their range), bf16 at 4 layers fed one
+     process's tokens (routing first, then logits within 5% of their
+     range: the prefill, and one decode step from one process's cache
+     by phase 3's rule); every run's launches equal to those the layers and steps
+     predict; ms per decode step beside one process's, the model-axis
+     collectives of one step replayed alone, params and peak per rank.
+     The partial branch is held against its plain version (f32 1e-5,
+     bf16 2e-2) and timed beside SDPA at (b)'s block.  ``chip_smoke.py
+     --phase11-only`` runs this phase alone.
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -3100,7 +3120,6 @@ def p10_child(torch, which, out_dir):
     from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import parallel
     from repro_torch.models.transformer import init_params
     from repro_torch.training import data_parallel as dp
     from repro_torch.training import loop
@@ -3123,14 +3142,18 @@ def p10_child(torch, which, out_dir):
     state_gb = 4 * sum(p.numel() * p.element_size() for p in leaves(params)) / 1e9
     step = loop.make_train_step(cfg, opt, remat="none", mesh=mesh)
     coll_ms, ar_ms, kept = [], [], []
-    update, average, pdist = loop.adamw_update, dp.average_grads, parallel.dist
+    update, average, mesh_all_reduce = loop.adamw_update, dp.average_grads, mesh.all_reduce
 
-    def timed_all_reduce(t, **kw):
+    def timed_all_reduce(t, axes, op="sum"):
+        # the model axis' collectives (ModelParallel's and the norm's)
+        if axes != "model":
+            return mesh_all_reduce(t, axes, op)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pdist.all_reduce(t, **kw)
+        mesh_all_reduce(t, axes, op)
         torch.cuda.synchronize()
         coll_ms[-1] += (time.perf_counter() - t0) * 1e3
+        return t
 
     def timed_average(grads, g):
         torch.cuda.synchronize()
@@ -3145,7 +3168,7 @@ def p10_child(torch, which, out_dir):
         return update(opt_cfg, ps, grads, st, **kw)
 
     loop.adamw_update, dp.average_grads = keep_grads, timed_average
-    parallel.dist = types.SimpleNamespace(all_reduce=timed_all_reduce)
+    mesh.all_reduce = timed_all_reduce
     metrics, ms = [], []
     reset_launch_counts()
     try:
@@ -3159,7 +3182,8 @@ def p10_child(torch, which, out_dir):
             ms.append((time.perf_counter() - t0) * 1e3)
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
-        loop.adamw_update, dp.average_grads, parallel.dist = update, average, pdist
+        loop.adamw_update, dp.average_grads = update, average
+        del mesh.all_reduce
     launches = dict(launch_counts())
     peak = torch.cuda.max_memory_allocated() / 1e9
     names = [k for k, _ in named_leaves(params)]
@@ -3258,6 +3282,464 @@ def phase_model_axis(torch, dev):
               f"one-process run and the ranks' start")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: prefill and decode on a rank's shards
+# ---------------------------------------------------------------------------
+
+# (a) the head split: mixtral's 8 kv heads over m = 2 (24 query heads, 4
+# kv heads and 4 experts a rank), the experts as m2n shards over "model"
+# (the kernel path: gating_dispatch's owner branch and grouped_matmul);
+# (b) the slot split: minitron-4b's 8 kv heads do not divide m = 3, so
+# each rank holds every kv head on 64 of the ring's 192 slots; prompts of
+# 150 tokens and 32 steps reach all three blocks.  Published widths, cut
+# in depth only: bf16 at 4 layers (and f32 at 2 for the exact check)
+P11 = {"a": dict(arch="mixtral-8x22b", grid=(1, 2), prompt_len=16, max_seq=64,
+                 m2n=True),
+       "b": dict(arch="minitron-4b", grid=(1, 3), prompt_len=150, max_seq=192,
+                 m2n=False)}
+P11_RUN = dict(batch=8, steps=32, bf16_layers=4, f32_layers=2, seed=0)
+P11_TIMEOUT = 240          # seconds for all ranks of one sub-phase
+
+
+def p11_cfg(which, n_layers):
+    from repro_torch.config import get_config
+    return dataclasses.replace(get_config(P11[which]["arch"]), n_layers=n_layers)
+
+
+def p11_prompts(torch, which, cfg, dev):
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    return torch.randint(2, cfg.vocab, (P11_RUN["batch"], P11[which]["prompt_len"]),
+                         generator=gen).to(dev)
+
+
+def p11_predicted(which, n_layers):
+    """Host launches of one rank's prefill and decode steps, by kernel: a
+    decode attention (the partial branch where the slots split) per layer
+    and step; under m2n one dispatch (the owner branch) and three grouped
+    matmuls per layer and pass (prefill included)."""
+    L, S = n_layers, P11_RUN["steps"]
+    out = {"decode_attention": L * S,
+           "decode_attention[partial]": L * S if which == "b" else 0}
+    if P11[which]["m2n"]:
+        out.update({"gating_dispatch": L * (S + 1),
+                    "gating_dispatch[owner]": L * (S + 1),
+                    "grouped_matmul": 3 * L * (S + 1)})
+    return out
+
+
+class RouteLog:
+    """Every ``gating_dispatch`` call's routing (experts, probabilities of
+    ``moe.route`` on the same router input) while installed."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops as kops
+        from repro_torch.models import moe as moe_lib
+        self.kops, self.moe, self.calls = kops, moe_lib, []
+
+    def __enter__(self):
+        self.orig = dispatch = self.kops.gating_dispatch
+        route, calls = self.moe.route, self.calls
+
+        def rec(x, w, k, *args, **kw):
+            r = route(x, w, k, kw.get("bias"))
+            calls.append((r.experts.cpu(), r.probs.cpu()))
+            return dispatch(x, w, k, *args, **kw)
+
+        self.kops.gating_dispatch = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.gating_dispatch = self.orig
+
+
+def p11_serve(torch, cfg, params, prompts, max_seq, *, steps, forced=None,
+              routes=None, before_step=None, keep=None):
+    """``prefill`` then ``steps`` greedy ``decode_step``s under whatever is
+    installed; with ``forced`` (steps, B) the decode steps take those
+    tokens instead (teacher forcing).  Returns (each pass's logits on the
+    host in f32, the tokens fed to the steps and the last argmax, each
+    decode step's host time in ms between two synchronizes, each pass's
+    routing when ``routes``).  ``before_step(s)`` is called before step
+    s; ``keep`` (a list) receives a host copy of the prefilled cache."""
+    from repro_torch.models.transformer import decode_step, prefill
+    B, T = prompts.shape
+    logits, toks, ms, per_pass = [], [], [], []
+    with torch.no_grad():
+        n0 = len(routes.calls) if routes is not None else 0
+        lg, cache = prefill(params, cfg, prompts, max_seq=max_seq)
+        if keep is not None:
+            keep.append([{k: t.cpu() for k, t in e.items()} for e in cache])
+        logits.append(lg)
+        if routes is not None:
+            per_pass.append(routes.calls[n0:])
+        tok = lg.argmax(-1)
+        for s in range(steps):
+            if forced is not None:
+                tok = forced[s].to(prompts.device)
+            toks.append(tok)
+            pos = torch.full((B,), T + s, dtype=torch.int32, device=prompts.device)
+            n0 = len(routes.calls) if routes is not None else 0
+            if before_step is not None:
+                before_step(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = decode_step(params, cfg, tok, cache, pos)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+            if routes is not None:
+                per_pass.append(routes.calls[n0:])
+            tok = lg.argmax(-1)
+        toks.append(tok)
+    routes_cpu = [[(e.cpu(), p.cpu()) for e, p in calls] for calls in per_pass]
+    return ([lg.float().cpu() for lg in logits], torch.stack(toks).cpu(), ms,
+            routes_cpu)
+
+
+def p11_check_bf16(torch, label, logits, want, routes, want_routes):
+    """bf16 prefill logits (the last token of each row) against one
+    process's on the same prompts, routing first: a row any of whose
+    prompt tokens routes otherwise in some layer must sit at a near-tie
+    there in both paths (margin < 1e-2) and is not held further (its
+    cache differs from there on; no cap on such rows, as
+    ``check_bf16_logits(deep=True)``); every other row's logits are
+    within 5% of their range."""
+    B = want[0].shape[0]
+    flipped = {}
+    worst = 0.0
+    for s, (g, w, rg, rw) in enumerate(zip(logits, want, routes, want_routes,
+                                           strict=True)):
+        require(bool(torch.isfinite(g).all()), f"{label} pass {s}: non-finite logits")
+        for l, ((ge, gp), (we, wp)) in enumerate(zip(rg, rw, strict=True)):
+            K = we.shape[1]
+            diff = (ge.sort(-1).values != we.sort(-1).values).any(-1)
+            margin = torch.minimum(*[p.sort(-1, descending=True).values[:, K - 1]
+                                     - p.sort(-1, descending=True).values[:, K]
+                                     for p in (gp, wp)])
+            per_row = we.shape[0] // B          # T tokens a row at prefill
+            for tok in diff.nonzero().flatten().tolist():
+                row = tok // per_row
+                if row not in flipped:
+                    require(float(margin[tok]) < 1e-2, f"{label} pass {s} layer {l}: "
+                            f"row {row} routed differently away from a near-tie "
+                            f"(margin {float(margin[tok]):.2e})")
+                    flipped[row] = (s, l, float(margin[tok]))
+        scale = float(w.abs().max())
+        for row in range(B):
+            if row not in flipped:
+                rel = float((g[row] - w[row]).abs().max()) / scale
+                require(rel < 5e-2, f"{label} pass {s}: logits of row {row} differ "
+                        f"by {rel:.3e} of the range with the same routing")
+                worst = max(worst, rel)
+    return (f"prefill logits within {worst:.3e} of the range on the "
+            f"{B - len(flipped)} rows routed alike; near-tie flips "
+            + (", ".join(f"row {r} layer {l} margin {m:.2e}"
+                         for r, (_, l, m) in sorted(flipped.items())) or "none"))
+
+
+def p11_one_process(torch, which, dev, out_dir):
+    """11(which) in one process: f32 at 2 layers, then bf16 at 4, each
+    prefill + greedy decode steps with the routing recorded (the experts
+    as one m2n shard of 8: the kernel path), saved under ``out_dir`` for
+    the ranks, then the same steps again without the record, timed.
+    Returns {dtype: (ms per step, peak GB)}."""
+    import contextlib
+
+    from repro_torch.core.m2n import use_m2n
+    from repro_torch.models.transformer import init_params
+    P, R = P11[which], P11_RUN
+    out = {}
+    for dt, L in ((torch.float32, R["f32_layers"]), (torch.bfloat16, R["bf16_layers"])):
+        cfg = p11_cfg(which, L)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, R["seed"], dt, device=dev)
+        prompts = p11_prompts(torch, which, cfg, dev)
+        moe = use_m2n(1) if P["m2n"] else contextlib.nullcontext()
+        kept = []
+        with moe:
+            with RouteLog() as routes:
+                logits, toks, _, per_pass = p11_serve(
+                    torch, cfg, params, prompts, P["max_seq"], steps=R["steps"],
+                    routes=routes, keep=kept)
+            ms = p11_serve(torch, cfg, params, prompts, P["max_seq"],
+                           steps=R["steps"])[2]
+        out[str(dt)] = (statistics.median(ms[1:]), torch.cuda.max_memory_allocated() / 1e9)
+        torch.save({"logits": logits, "tokens": toks, "routes": per_pass,
+                    "cache": kept[0]},
+                   out_dir / f"p11{which}-{str(dt).split('.')[-1]}.pt")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def p11_child(torch, which, out_dir):
+    """One rank of 11(which): its blocks of the ``init_params`` draw (whole,
+    then cut by ``sharding.local_shard``) under ``ModelParallel`` (and
+    ``use_m2n`` over "model" for (a)).  f32: prefill + greedy decode, the
+    tokens equal to one process's and the logits within 5e-4 of their
+    range.  bf16: the same steps fed one process's tokens, the prefill's
+    logits held routing-first (``p11_check_bf16``) and one decode step
+    from one process's prefilled cache (the rank's blocks of it) by
+    phase 3's rule (``check_bf16_logits``); then greedy steps timed
+    alone, and the collectives of one decode step (recorded in the
+    checked run) replayed alone on the host clock.  Every run's launch
+    counts set to 0 just before and read just after, held to
+    ``p11_predicted``.  Prints one JSON line."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch.core.m2n import use_m2n
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ModelParallel
+    from repro_torch.models.transformer import decode_step, init_params
+    from repro_torch.training.optimizer import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    P, R = P11[which], P11_RUN
+    tr = MultiControllerTransport(device="cuda")
+    mesh = make_mesh(P["grid"], ("data", "model"), device=tr.device)
+    dev, rank = tr.device, tr.process_index
+    res = {"rank": rank, "device": str(dev), "backend": tr.backend}
+    mesh_all_reduce = mesh.all_reduce
+
+    def run(cfg, params, prompts, L, label, **kw):
+        moe = (use_m2n(mesh=mesh, expert_axis="model") if P["m2n"]
+               else contextlib.nullcontext())
+        dist.barrier()
+        reset_launch_counts()
+        with ModelParallel(mesh).install(), moe:
+            got = p11_serve(torch, cfg, params, prompts, P["max_seq"],
+                            steps=R["steps"], **kw)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v for k, v in p11_predicted(which, L).items() if v}
+        require(launches == want, f"phase 11({which}) {label} rank {rank}: "
+                f"launches {launches}, predicted {want}")
+        return got, launches
+
+    for dt, L in ((torch.float32, R["f32_layers"]), (torch.bfloat16, R["bf16_layers"])):
+        name = str(dt).split(".")[-1]
+        cfg = p11_cfg(which, L)
+        full = init_params(cfg, R["seed"], dt, device=dev)
+        params = sharding.shard_tree(full, sharding.param_specs(cfg, full, mesh), mesh)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref = torch.load(Path(out_dir) / f"p11{which}-{name}.pt")
+        prompts = p11_prompts(torch, which, cfg, dev)
+        r = {"params_gb": sum(p.numel() * p.element_size()
+                              for p in leaves(params)) / 1e9}
+        if dt == torch.float32:
+            (logits, toks, ms, _), r["launches"] = run(cfg, params, prompts, L, name)
+            require(torch.equal(toks, ref["tokens"]),
+                    f"phase 11({which}) f32 rank {rank}: greedy tokens differ from "
+                    f"one process's")
+            worst = max(float((g - w).abs().max() / w.abs().max())
+                        for g, w in zip(logits, ref["logits"], strict=True))
+            require(worst <= 5e-4, f"phase 11({which}) f32 rank {rank}: logits off "
+                    f"by {worst:.3e} of their range")
+            r.update(logits_rel=worst, ms=ms)
+        else:
+            step_calls, cur = [], [-1]
+
+            def recording(t, axes, op="sum"):
+                if cur[0] == R["steps"] - 1:        # the last decode step's
+                    step_calls.append((tuple(t.shape), t.dtype, axes, op))
+                return mesh_all_reduce(t, axes, op)
+
+            mesh.all_reduce = recording
+            try:
+                with RouteLog() as routes:
+                    (logits, _, _, per_pass), r["launches"] = run(
+                        cfg, params, prompts, L, name, forced=ref["tokens"][:-1],
+                        routes=routes, before_step=lambda s: cur.__setitem__(0, s))
+            finally:
+                del mesh.all_reduce
+            line = p11_check_bf16(torch, f"phase 11({which}) bf16 rank {rank} "
+                                  f"prefill", logits[:1], ref["logits"][:1],
+                                  per_pass[:1], ref["routes"][:1])
+            # phase 3's rule: one decode step from one process's prefilled
+            # cache (this rank's blocks of it), routing first
+            blocks = sharding.shard_cache(ref["cache"], mesh, R["batch"])
+            blocks = [{k: t.to(dev) for k, t in e.items()} for e in blocks]
+            pos = torch.full((R["batch"],), P["prompt_len"], dtype=torch.int32,
+                             device=dev)
+            moe = (use_m2n(mesh=mesh, expert_axis="model") if P["m2n"]
+                   else contextlib.nullcontext())
+            with torch.no_grad(), ModelParallel(mesh).install(), moe, \
+                    RouteLog() as step_routes:
+                got, _ = decode_step(params, cfg, ref["tokens"][0].to(dev), blocks, pos)
+            line += "; one step from one process's cache: " + check_bf16_logits(
+                torch, f"phase 11({which}) bf16 rank {rank} step", ref["logits"][1],
+                got.float().cpu(), ref["routes"][1],
+                [(e.cpu(), p.cpu()) for e, p in step_routes.calls], L)
+            agree = float((torch.stack([lg.argmax(-1) for lg in logits[1:]])
+                           == ref["tokens"][1:]).float().mean())
+            (_, _, ms, _), timed = run(cfg, params, prompts, L, name + " timed")
+            bufs = [torch.zeros(shape, dtype=dtp, device=dev)
+                    for shape, dtp, _, _ in step_calls]
+            reps = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b, (_, _, axes, op) in zip(bufs, step_calls):
+                    mesh_all_reduce(b, axes, op)
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            r.update(check=line, agree=agree, ms=ms, coll_ms=statistics.median(reps),
+                     n_coll=len(step_calls),
+                     coll_bytes=sum(b.numel() * b.element_size() for b in bufs))
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res[name] = r
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    print("phase11 " + json.dumps(res), flush=True)
+
+
+def partial_attention_row(torch, dev):
+    """The partial branch of ``decode_attention`` at 11(b)'s shape (8 rows,
+    24 query heads gathered, every one of 8 kv heads on one rank's 64
+    slots, hd 128): against its plain version in bf16 (2e-2) and f32
+    (1e-5) on a block partly valid, one fully valid and one with no valid
+    slot (out 0, lse -inf); timed beside the plain version and SDPA over
+    the same block.  Returns the kernels line's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import decode_attention_partial as plain
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, H, Hkv, hd, Wl = P11_RUN["batch"], 24, 8, 128, 64
+    pos = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    blocks = {"part": torch.arange(64, 128, dtype=torch.int32, device=dev),
+              "full": torch.arange(0, 64, dtype=torch.int32, device=dev),
+              "empty": torch.full((Wl,), -1, dtype=torch.int32, device=dev)}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q = torch.randn(B, H, hd, device=dev, generator=gen).to(dt)
+        k = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(dt)
+        v = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(dt)
+        for label, cp in blocks.items():
+            cpos = cp.repeat(B, 1).contiguous()
+            out, lse = kops.decode_attention(q, k, v, cpos, pos, partial=True)
+            p_out, p_lse = plain(q, k, v, cpos, pos)
+            torch.cuda.synchronize()
+            require(out.dtype == lse.dtype == torch.float32, "partial: not f32")
+            if label == "empty":
+                require(bool(torch.isneginf(lse).all()) and float(out.abs().max()) == 0,
+                        "partial: a block with no valid slot")
+                continue
+            check_close(torch, f"decode_attention[partial] {dt} {label}", out, p_out,
+                        tol, tol)
+            check_close(torch, f"decode_attention[partial] {dt} {label} lse", lse,
+                        p_lse, tol, tol)
+    # timed on the bf16 partly valid block (the one a middle rank holds)
+    q = torch.randn(B, H, hd, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    cpos = blocks["part"].repeat(B, 1).contiguous()
+    args = (q, k, v, cpos, pos)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ok = (cpos >= 0) & (cpos <= pos[:, None])
+    valid = int(ok.sum())
+    got, want = kops.decode_attention(*args, partial=True), plain(*args)
+    err = max(max_err(torch, got[0], want[0]), max_err(torch, got[1], want[1]))
+    nbytes = (q.numel() * 2 + valid * Hkv * hd * 2 * 2 + cpos.numel() * 4 + B * 4
+              + B * H * hd * 4 + B * H * 4)
+    r = dict(err=err, ms=time_ms(torch, lambda: kops.decode_attention(*args, partial=True),
+                                 flush=flush),
+             plain_ms=time_ms(torch, lambda: plain(*args), flush=flush),
+             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                 attn_mask=ok[:, None, None, :], enable_gqa=True), flush=flush),
+             bound=bound_ms(nbytes, 4 * valid * H * hd, "bfloat16"),
+             replaces="src/repro/kernels/decode_attention.py:85",
+             shape=f"q {tuple(q.shape)} block {tuple(k.shape)} of a 192-slot ring, "
+                   f"{valid // B} valid slots a row")
+    print(f"decode_attention[partial] {r['shape']}: {r['ms']:.4f} ms, sdpa "
+          f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.5f} ms, max |err| {err:.3e}; f32 within 1e-5 and bf16 "
+          f"within 2e-2 of the plain version on a partly valid, a full and an "
+          f"empty block")
+    return r
+
+
+def phase_serving_grid(torch, dev):
+    """Phase 11: (a) and (b), each first in one process (saved for the
+    ranks, memory freed after), then on its grid of processes on the one
+    card over gloo; prints ms per decode step beside one process's, the
+    model-axis collectives' share, params and peak per rank.  Returns the
+    partial branch's kernels row, its launches those of 11(b)'s bf16
+    run."""
+    from repro_torch.launch.dist_smoke import run_ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    row = partial_attention_row(torch, dev)
+    out_dir = ROOT / "build" / "phase11"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    med = lambda xs: statistics.median(xs[1:])
+    for which in ("a", "b"):
+        P = P11[which]
+        t0 = time.perf_counter()
+        one = p11_one_process(torch, which, dev, out_dir)
+        n = P["grid"][0] * P["grid"][1]
+        out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase11", which,
+                         str(out_dir)], n, timeout=P11_TIMEOUT)
+        ranks = []
+        for rank, (rc, text) in enumerate(out):
+            require(rc == 0, f"phase 11({which}): rank {rank} exited {rc}:\n"
+                    f"{text[-4000:]}")
+            lines = [ln for ln in text.splitlines() if ln.startswith("phase11 ")]
+            require(len(lines) == 1, f"phase 11({which}): rank {rank} printed no "
+                    f"result:\n{text[-4000:]}")
+            ranks.append(json.loads(lines[0][len("phase11 "):]))
+        ranks.sort(key=lambda g: g["rank"])
+        ms1, peak1 = one["torch.bfloat16"]
+        for g in ranks:
+            b = g["bfloat16"]
+            step = med(b["ms"])
+            print(f"phase 11({which}) rank {g['rank']} on {g['device']} over "
+                  f"{g['backend']}: bf16 {step:.2f} ms per decode step (median of "
+                  f"steps 2-{P11_RUN['steps']}) vs {ms1:.2f} in one process; "
+                  f"model-axis collectives of one step ({b['n_coll']} all_reduces, "
+                  f"{b['coll_bytes'] / 1e6:.2f} MB) replayed alone "
+                  f"{b['coll_ms']:.2f} ms ({b['coll_ms'] / step:.3f} of the step, "
+                  f"host clock); params "
+                  f"{b['params_gb']:.2f} GB, peak {b['peak_gb']:.2f} GB (one process "
+                  f"{peak1:.2f}); launches {b['launches']}; greedy agreement "
+                  f"{b['agree']:.3f}; f32 tokens exact, logits within "
+                  f"{g['float32']['logits_rel']:.2e} of their range, f32 "
+                  f"{med(g['float32']['ms']):.2f} ms/step vs "
+                  f"{one['torch.float32'][0]:.2f}; bf16: {b['check']}")
+        if which == "b":
+            row["launches"] = ranks[0]["bfloat16"]["launches"]["decode_attention[partial]"]
+            row["rank_launches"] = [g["bfloat16"]["launches"]["decode_attention[partial]"]
+                                    for g in ranks]
+        print(f"phase 11({which}) {P['arch']} at published width on a "
+              f"{tuple(P['grid'])} (data, model) grid: {P11_RUN['batch']} requests "
+              f"of {P['prompt_len']}-token prompts, {P11_RUN['steps']} decode steps, "
+              f"ring {P['max_seq']}; {time.perf_counter() - t0:.1f} s with the "
+              f"one-process runs and the ranks' start")
+    return row
+
+
+def phase11_child(argv) -> int:
+    """``chip_smoke.py --phase11 a|b OUT_DIR``: one rank of phase 11(a) or
+    (b), started by ``phase_serving_grid`` with the ``REPRO_*``
+    variables, on cuda:0 over gloo (or its own card over NCCL)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    p11_child(torch, argv[0], argv[1])
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def phase10_child(argv) -> int:
     """``chip_smoke.py --phase10 a|b OUT_DIR``: one rank of phase 10(a) or
     (b), started by ``phase_model_axis`` with the ``REPRO_*`` variables;
@@ -3347,13 +3829,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         t10 = time.perf_counter()
         phase_model_axis(torch, dev)
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        rows["decode_attention[partial]"] = phase_serving_grid(torch, dev)
         t_end = time.perf_counter()
         for name in ("decode_attention", "gating_dispatch", "grouped_matmul"):
             for sh in rows[name]["shapes"]:
                 if "model" in sh:
                     sh["path_launches"] = path_launches[sh["model"]][name]
         kernels = []
-        for name in ("decode_attention", "paged_decode_attention", "gating_topk",
+        for name in ("decode_attention", "decode_attention[partial]",
+                     "paged_decode_attention", "gating_topk",
                      "gating_dispatch", "gating_dispatch[tables]",
                      "gating_dispatch[owner]", "grouped_matmul"):
             r, src = rows[name], f"{name.split('[')[0]}.cu"
@@ -3365,7 +3851,10 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
             if "rank_launches" in r:
-                kernels[-1]["phase9_rank_launches"] = r["rank_launches"]
+                phase = 11 if name == "decode_attention[partial]" else 9
+                kernels[-1][f"phase{phase}_rank_launches"] = r["rank_launches"]
+            if name == "decode_attention[partial]":
+                kernels[-1]["shape"] = r["shape"]
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
@@ -3381,7 +3870,7 @@ def main() -> int:
         return 1
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
           f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t10 - t9:.1f} s, phase 10 in "
-          f"{t_end - t10:.1f} s")
+          f"{t11 - t10:.1f} s, phase 11 in {t_end - t11:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3412,11 +3901,52 @@ def phase10_only() -> int:
     return 0
 
 
+def phase11_only() -> int:
+    """``chip_smoke.py --phase11-only``: phase 11 alone (its kernels built
+    first, one ``nvcc`` per source)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
+    from repro_torch.kernels.cuda_build import build_all
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_line()}, "
+          f"{torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    try:
+        build_all()
+        t1 = time.perf_counter()
+        row = phase_serving_grid(torch, torch.device("cuda", 0))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: build {t1 - t0:.1f} s, phase 11 in "
+          f"{time.perf_counter() - t1:.1f} s; partial row "
+          f"{json.dumps({k: v for k, v in row.items() if k != 'replaces'})}")
+    return 0
+
+
+def child_exit(rc: int):
+    """Leave a rank process without the interpreter's finalization, where
+    the gloo groups' leftover C++ objects can abort it ("terminate called
+    without an active exception", no Python frame) after its result line
+    is printed."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase11"]:
+        child_exit(phase11_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase11-only"]:
+        sys.exit(phase11_only())
     if sys.argv[1:2] == ["--phase9"]:
-        sys.exit(phase9_child(sys.argv[2:]))
+        child_exit(phase9_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase10"]:
-        sys.exit(phase10_child(sys.argv[2:]))
+        child_exit(phase10_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase10-only"]:
         sys.exit(phase10_only())
     sys.exit(main())

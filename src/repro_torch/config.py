@@ -201,6 +201,14 @@ class ShapeConfig:
     global_batch: int
 
 
+# the dry run's input shapes, the JAX package's ``INPUT_SHAPES``
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
 _REGISTRY: dict = {}
 
 

@@ -357,3 +357,16 @@ def make_transport(name: str, **kwargs) -> Transport:
         raise ValueError(f"unknown transport {name!r}; "
                          f"choose from {sorted(TRANSPORTS)}") from None
     return cls(**kwargs)
+
+
+_DEFAULT: Optional[Transport] = None
+
+
+def default_transport() -> Transport:
+    """The process-wide ``InProcessTransport`` that call sites with no
+    transport threaded in (``serving.kvcache.migrate_kv`` /
+    ``migrate_pages``) account their hops on, as the JAX package's."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = InProcessTransport()
+    return _DEFAULT

@@ -47,6 +47,12 @@
 //    one block per (query head, row) and one thread per channel.
 //    A split with no valid slot holds m = -1e30, l = 0, acc = 0, so a row
 //    with no valid slot at all comes out as 0, as in the Pallas kernel.
+//  * The partial branch (a non-null lse): for a caller that holds only
+//    some slots of the ring (a rank's block of slots on a model axis), the
+//    merge writes the merged row in f32 and beside it its log-sum-exp
+//    lse = max_s m_s + log(sum_s e_s l_s), or -inf for a row with no valid
+//    slot (whose out is 0); the caller merges the ranks' (out, lse) with
+//    the same rule.  The split kernel is the same code.
 //  * head_dim 64, 128 and 256 (recurrentgemma-2b's local attention).  The
 //    f32 tiles (q, K, V, p) live in dynamic shared memory, sized by HD
 //    (SplitTiles<HD>): 20.5 KB at 64, 43 KB at 128, 84.5 KB at 256, past
@@ -278,11 +284,13 @@ __global__ void __launch_bounds__(NT) decode_attention_split_kernel(
 
 // One block per (query head, row), one thread per channel d:
 // out[b, h, d] = sum_s e_s acc_s[d] / max(sum_s e_s l_s, 1e-30) with
-// e_s = exp(m_s - max_s m_s), summed over the splits in order.
+// e_s = exp(m_s - max_s m_s), summed over the splits in order.  With lse
+// (the partial branch, T = float) thread 0 also writes the row's
+// log-sum-exp, -inf where no split holds a valid slot.
 template <typename T>
 __global__ void decode_attention_merge_kernel(const float* __restrict__ part,
-                                    T* __restrict__ out, int H, int Hkv, int hd,
-                                    int nsplit) {
+                                    T* __restrict__ out, float* __restrict__ lse,
+                                    int H, int Hkv, int hd, int nsplit) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int rep = H / Hkv, g = h / rep;
   const size_t stride = (size_t)rep * (hd + 2);  // from one split to the next
@@ -303,6 +311,8 @@ __global__ void decode_attention_merge_kernel(const float* __restrict__ part,
     l = fmaf(e, l_s[s], l);
   }
   out[((size_t)b * H + h) * hd + d] = repro::from_f<T>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[(size_t)b * H + h] = l > 0.f ? mx + logf(l) : __int_as_float(0xff800000);  // -inf
 }
 
 // Launches the split kernel at head_dim HD with its tiles in dynamic
@@ -334,11 +344,13 @@ cudaError_t launch_split(dim3 grid, cudaStream_t s, const T* q, const T* k,
 // Checks the shapes and the split plan, launches the split kernel and the
 // merge kernel on the stream and returns cudaGetLastError().  The nsplit
 // splits of split_tiles tiles of 32 slots must cover W exactly; q, k and
-// v must start on a 16-byte boundary; hd is 64, 128 or 256.
+// v must start on a 16-byte boundary; hd is 64, 128 or 256.  A non-null
+// lse takes the partial branch: out is then f32 (B, H, hd) and lse f32
+// (B, H).
 template <typename Slots>
 int launch_decode_split(const void* q, const void* k, const void* v,
                         const void* slot_pos, Slots slots, const void* pos,
-                        void* part, void* out, int B, int H, int Hkv, int W,
+                        void* part, void* out, float* lse, int B, int H, int Hkv, int W,
                         int hd, int nsplit, int split_tiles, int window,
                         float softcap, float scale, int dtype, cudaStream_t s) {
   const int tiles = (W + TW - 1) / TW;
@@ -367,7 +379,12 @@ int launch_decode_split(const void* q, const void* k, const void* v,
     else
       return (int)cudaErrorInvalidValue;
     if (e != cudaSuccess) return (int)e;
-    decode_attention_merge_kernel<T><<<dim3(H, B), hd, 0, s>>>(pt, (T*)out, H, Hkv, hd, nsplit);
+    if (lse != nullptr)
+      decode_attention_merge_kernel<float><<<dim3(H, B), hd, 0, s>>>(
+          pt, (float*)out, lse, H, Hkv, hd, nsplit);
+    else
+      decode_attention_merge_kernel<T><<<dim3(H, B), hd, 0, s>>>(
+          pt, (T*)out, nullptr, H, Hkv, hd, nsplit);
   });
 #undef REPRO_SPLIT
   return (int)cudaGetLastError();

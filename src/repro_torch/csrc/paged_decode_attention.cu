@@ -42,7 +42,7 @@ extern "C" int paged_decode_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   return launch_decode_split(q, k, v, pos_pages,
                              PagedSlots{(const int*)block_table, n_logical, ps},
-                             pos, part, out, B, H, Hkv, n_logical * ps, hd, nsplit,
+                             pos, part, out, nullptr, B, H, Hkv, n_logical * ps, hd, nsplit,
                              split_tiles, window, softcap, scale, dtype,
                              (cudaStream_t)stream);
 }

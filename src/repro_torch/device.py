@@ -23,9 +23,10 @@ def resolve_device(device="cuda") -> torch.device:
 def kernel_route(t: torch.Tensor) -> str:
     """Which version of a kernel a tensor takes: ``"cuda"`` for a CUDA
     tensor (the hand-written kernel), ``"plain"`` for a CPU tensor (the
-    plain PyTorch version).  Any other device raises."""
+    plain PyTorch version) and for a ``meta`` tensor (shapes only: the
+    dry run counts the plain version's ops).  Any other device raises."""
     if t.is_cuda:
         return "cuda"
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return "plain"
     raise ValueError(f"no kernel for tensors on {t.device}")

@@ -6,6 +6,10 @@ version.
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``models.attention.decode_attention`` / ``paged_decode_attention``, the
 same math as the JAX package's ``kernels/ref.py`` oracle).
+``decode_attention(partial=True)`` is the branch for a block of the
+ring's slots (``models.attention.decode_attention_partial`` its plain
+version): each row with its log-sum-exp, merged across ranks by
+``models.parallel.merge_partials``.
 
 Both kernels are one split kernel and one merge kernel
 (``csrc/decode_split.cuh``), flash-decoding: ``split_plan`` picks the
@@ -27,12 +31,15 @@ from repro_torch.kernels.cuda_build import (DTYPE_CODES, CudaKernel, check,
                                            check_no_grad, ptr)
 from repro_torch.models.attention import decode_attention as decode_attention_plain
 from repro_torch.models.attention import \
+    decode_attention_partial as decode_attention_partial_plain
+from repro_torch.models.attention import \
     paged_decode_attention as paged_decode_attention_plain
 
+# launches of the partial branch are also counted under "partial"
 KERNEL = CudaKernel(
     "decode_attention.cu", "decode_attention",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-    + [ctypes.c_int])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+    + [ctypes.c_int], variants=("partial",))
 
 PAGED_KERNEL = CudaKernel(
     "paged_decode_attention.cu", "paged_decode_attention",
@@ -70,12 +77,18 @@ def _aligned(*ts) -> bool:
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
-                     attn_softcap: float = 0.0) -> torch.Tensor:
+                     attn_softcap: float = 0.0, partial: bool = False):
     """q: (B, H, hd); k/v cache: (B, W, Hkv, hd); cache_pos: (B, W) int32
-    (-1 = empty); pos: (B,) int32.  Returns (B, H, hd) in q's dtype."""
+    (-1 = empty); pos: (B,) int32.  Returns (B, H, hd) in q's dtype.
+
+    ``partial``: the slots given are a block of the ring (a rank's); returns
+    (out (B, H, hd) f32, lse (B, H) f32), each row over those slots and its
+    log-sum-exp (out 0 and lse -inf for a row with no valid slot), for
+    ``models.parallel.merge_partials``."""
     if kernel_route(q) == "plain":
-        return decode_attention_plain(q, k_cache, v_cache, cache_pos, pos,
-                                      window=window, attn_softcap=attn_softcap)
+        fn = decode_attention_partial_plain if partial else decode_attention_plain
+        return fn(q, k_cache, v_cache, cache_pos, pos, window=window,
+                  attn_softcap=attn_softcap)
     check_no_grad("decode_attention", q, k_cache, v_cache)
     B, H, hd = q.shape
     _, W, Hkv, _ = k_cache.shape
@@ -100,12 +113,18 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     nsplit, per = split_plan(B, Hkv, W)
     part = torch.empty(scratch_shape(B, H, Hkv, hd, W), dtype=torch.float32,
                        device=q.device)
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    else:
+        out, lse = torch.empty_like(q), None
     KERNEL.launch(q.device, ptr(q), ptr(k_cache), ptr(v_cache), ptr(cache_pos),
-                  ptr(pos), ptr(part), ptr(out), B, H, Hkv, W, hd, nsplit, per,
-                  int(window), float(attn_softcap), float(hd ** -0.5),
-                  DTYPE_CODES[q.dtype])
-    return out
+                  ptr(pos), ptr(part), ptr(out),
+                  ptr(lse) if partial else ctypes.c_void_p(None), B, H, Hkv, W,
+                  hd, nsplit, per, int(window), float(attn_softcap),
+                  float(hd ** -0.5), DTYPE_CODES[q.dtype],
+                  variants=("partial",) if partial else ())
+    return (out, lse) if partial else out
 
 
 def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,

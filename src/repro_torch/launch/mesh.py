@@ -10,7 +10,8 @@ coordinate.  The default group must be up before (``core.transport``'s
 ``MultiControllerTransport`` brings it up): the mesh's groups then take
 its backend, gloo where two ranks share a card, on which NCCL would
 refuse them.  The production mesh of a TPU pod
-(``make_production_mesh``) has no counterpart here.
+(``make_production_mesh``) has no counterpart here; the dry run stands
+``RecordingMesh`` in for one rank of it.
 """
 from __future__ import annotations
 
@@ -69,13 +70,102 @@ class ProcessMesh:
         sub = self.device_mesh[axes]
         return (sub if len(axes) == 1 else sub._flatten()).get_group()
 
-    def all_reduce(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """Sum ``t`` in place over ``axes``' group (nothing to do when the
-        group is this rank alone); returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` in place over ``axes``' group by ``op`` ("sum" or
+        "max"; nothing to do when the group is this rank alone); returns
+        ``t``.  Every collective of the model code goes through here."""
         g = self.group(axes)
         if g is not None:
-            dist.all_reduce(t, group=g)
+            dist.all_reduce(t, op=REDUCE_OPS[op], group=g)
         return t
+
+
+REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class RecordingMesh(ProcessMesh):
+    """A stand-in for a ``ProcessMesh`` of a production grid that holds one
+    rank and no process group: "16x16" is (16, 16) over ("data", "model")
+    and "2x16x16" (2, 16, 16) over ("pod", "data", "model"), the JAX
+    package's axis names.  ``coords`` is the rank's coordinate on each
+    axis (0 by default).  Its ``all_reduce`` returns its input unchanged
+    and records the bytes of the tensor it was given, by collective kind
+    ("all-reduce" for a sum, "all-reduce-max") and by the axes it ran
+    over: what one rank's program sends, which the dry run reads where
+    the JAX package parses its compiled HLO.  ``group`` returns a
+    ``RecordedGroup`` of the axes, for the code that takes a group."""
+
+    SHAPES = {"16x16": ((16, 16), ("data", "model")),
+              "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 coords: Optional[Sequence[int]] = None):
+        super().__init__(shape, axes)
+        coords = tuple(coords) if coords is not None else (0,) * len(self.shape)
+        if len(coords) != len(self.shape) or any(
+                not 0 <= c < n for c, n in zip(coords, self.shape.values())):
+            raise ValueError(f"coordinate {coords} is not on a {tuple(shape)} grid")
+        self.coords = dict(zip(self.axis_names, coords))
+        self.reset()
+
+    @classmethod
+    def named(cls, name: str, coords=None) -> "RecordingMesh":
+        shape, axes = cls.SHAPES[name]
+        return cls(shape, axes, coords)
+
+    def reset(self):
+        """Forget the recorded collectives."""
+        self.bytes = {}      # (kind, "axis+axis") -> bytes
+        self.calls = {}      # (kind, "axis+axis") -> calls
+
+    def index(self, axes: Axes) -> int:
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axes: Axes):
+        axes = self._axes(axes)
+        return None if self.size(axes) == 1 else RecordedGroup(self, axes)
+
+    def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum") -> torch.Tensor:
+        axes = self._axes(axes)
+        if op not in REDUCE_OPS:
+            raise ValueError(f"no reduction {op!r}")
+        if self.size(axes) > 1:
+            key = ("all-reduce" if op == "sum" else f"all-reduce-{op}", "+".join(axes))
+            self.bytes[key] = self.bytes.get(key, 0) + t.numel() * t.element_size()
+            self.calls[key] = self.calls.get(key, 0) + 1
+        return t
+
+    def bytes_by_kind(self) -> dict:
+        out = {}
+        for (kind, _), n in self.bytes.items():
+            out[kind] = out.get(kind, 0) + n
+        return out
+
+    def bytes_by_axes(self) -> dict:
+        out = {}
+        for (_, axes), n in self.bytes.items():
+            out[axes] = out.get(axes, 0) + n
+        return out
+
+
+class RecordedGroup:
+    """The group of ``axes`` of a ``RecordingMesh``: its size, this rank's
+    index in it and its (recorded) ``all_reduce``."""
+
+    def __init__(self, mesh: RecordingMesh, axes: Tuple[str, ...]):
+        self.mesh, self.axes = mesh, axes
+
+    def size(self) -> int:
+        return self.mesh.size(self.axes)
+
+    def rank(self) -> int:
+        return self.mesh.index(self.axes)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return self.mesh.all_reduce(t, self.axes, op)
 
 
 def make_mesh(shape, axes, device="cuda") -> ProcessMesh:

@@ -260,12 +260,14 @@ def _block(spec: Spec, shape: Sequence[int], mesh):
 
 def local_shard(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the full tensor ``t`` under ``spec`` (a
-    contiguous copy, or ``t`` itself when nothing is split)."""
+    contiguous copy, or ``t`` itself when nothing is split).  A copy even
+    where the block is contiguous already (a block of the first dim): a
+    view would keep the whole tensor's storage alive."""
     if len(spec) != t.ndim:
         raise ValueError(f"{spec} for a {t.ndim}-d tensor")
     if _axis_size(mesh, spec.axes()) == 1:
         return t
-    return t[_block(spec, t.shape, mesh)].contiguous()
+    return t[_block(spec, t.shape, mesh)].clone(memory_format=torch.contiguous_format)
 
 
 @torch.no_grad()
@@ -312,3 +314,23 @@ def gather_tree(tree, specs, mesh):
     """``gather_full`` of every leaf, in the tree's order (every rank must
     walk the same tree)."""
     return tree_map2(lambda t, s: gather_full(t, s, mesh), tree, specs)
+
+
+def shard_cache(cache, mesh, batch=None):
+    """This rank's block of every entry of a whole cache (the port's list
+    of per-layer dicts) under ``cache_entry_specs``: the rows over the
+    data axes where ``batch`` (the global batch; default the cache's
+    rows) divides them, the kv heads over "model" where they divide it,
+    else the ring's slots, ``pos`` cut as the slots."""
+    if batch is None:
+        batch = next(iter(cache[0].values())).shape[0]
+    return shard_tree(cache, cache_specs(None, cache, mesh, batch), mesh)
+
+
+def gather_cache(blocks, cfg: ModelConfig, mesh, batch: int, max_seq: int):
+    """The whole cache from every rank's blocks (``shard_cache``'s
+    inverse; every rank of the grid must call it)."""
+    from repro_torch.models import stubs
+    full = stubs.cache_specs(cfg, batch, max_seq)
+    return gather_tree(blocks, cache_specs(cfg, full, mesh, batch), mesh)
+

@@ -76,6 +76,31 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     return _grouped_out(p, v_cache, q.dtype)[:, 0]
 
 
+def decode_attention_partial(q, k_cache, v_cache, cache_pos, pos, *,
+                             window: int = 0, attn_softcap: float = 0.0):
+    """``decode_attention`` over the slots given, which may be only a
+    block of the ring (a rank's slots on a model axis): returns (out (B,
+    H, hd) f32, lse (B, H) f32), the softmax-weighted row over the valid
+    slots given and its log-sum-exp.  A row with no valid slot gives out
+    0 and lse -inf.  Rows over blocks of slots merge into the row over
+    all of them by ``models.parallel.merge_partials``' rule."""
+    s = _grouped_scores(q[:, None], k_cache, q.shape[-1] ** -0.5)[..., 0, :]  # (B,g,r,W)
+    if attn_softcap > 0.0:
+        s = softcap(s, attn_softcap)
+    ok = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window > 0:
+        ok = ok & (cache_pos > (pos[:, None] - window))
+    s = torch.where(ok[:, None, None], s, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))          # 0 where masked
+    l = e.sum(dim=-1)                                                  # (B,g,r)
+    o = torch.einsum("bgrk,bkgd->bgrd", e, v_cache.float())
+    out = o / torch.where(l > 0, l, 1.0)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), float("-inf"))
+    B, H = q.shape[:2]
+    return out.reshape(B, H, -1), lse.reshape(B, H)
+
+
 def paged_decode_attention(q, k_pages, v_pages, pos_pages, block_table, pos, *,
                            window: int = 0,
                            attn_softcap: float = 0.0) -> torch.Tensor:

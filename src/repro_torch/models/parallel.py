@@ -44,15 +44,22 @@ Under remat the non-reentrant checkpoint re-runs a block period's
 forward, collectives included, in backward: every rank reaches them in
 the same order because every rank builds the same graph.  Only the
 ``attn`` and ``local`` kinds have a model axis (``KINDS``);
-``training.loop.make_train_step`` raises for the others.
+``training.loop.make_train_step``, ``transformer.prefill`` and
+``transformer.decode_step`` raise for the others.
+
+Serving (``prefill``, ``decode_step``) holds each layer's KV ring in the
+rank's block under ``launch.sharding.cache_entry_specs``: its kv heads
+where they split over "model", else every kv head on its block of the
+ring's slots (``kv_spec``).  With slots split the ranks' partial softmax
+rows are merged by ``merge_partials``.
 """
 from __future__ import annotations
 
 import contextlib
+import types
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 _ACTIVE: Optional["ModelParallel"] = None
 
@@ -67,13 +74,12 @@ def current() -> Optional["ModelParallel"]:
 
 
 class _Reduce(torch.autograd.Function):
-    """Sum over the group forward, identity backward."""
+    """Sum over the "model" axis of the mesh forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, mesh):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t, group=group)
-        return t
+        return mesh.all_reduce(t, "model")
 
     @staticmethod
     def backward(ctx, g):
@@ -81,35 +87,41 @@ class _Reduce(torch.autograd.Function):
 
 
 class _Enter(torch.autograd.Function):
-    """Identity forward, sum over the group backward."""
+    """Identity forward, sum over the "model" axis of the mesh backward."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return ctx.mesh.all_reduce(g, "model"), None
 
 
 class ModelParallel:
     """This rank's place on the "model" axis of ``mesh`` and the
-    collectives over it."""
+    collectives over it, every one through ``mesh.all_reduce`` (which the
+    dry run's ``launch.mesh.RecordingMesh`` records).
 
-    def __init__(self, mesh):
+    ``batch``: the global batch of a serving pass (``prefill`` /
+    ``decode_step``), which decides the KV cache's layout under
+    ``launch.sharding.cache_entry_specs``; None reads it as the rank's
+    rows times the data axes' size (the rows cut over them, as
+    ``sharding.input_spec`` cuts a batch they divide)."""
+
+    def __init__(self, mesh, batch: Optional[int] = None):
         self.mesh = mesh
         self.size = mesh.size("model")
         self.index = mesh.index("model")
-        self.group = mesh.group("model")
+        self.batch = batch
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
-        return _Reduce.apply(t, self.group) if self.group is not None else t
+        return _Reduce.apply(t, self.mesh) if self.size > 1 else t
 
     def enter(self, t: torch.Tensor) -> torch.Tensor:
-        return _Enter.apply(t, self.group) if self.group is not None else t
+        return _Enter.apply(t, self.mesh) if self.size > 1 else t
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order,
@@ -130,6 +142,36 @@ class ModelParallel:
             raise ValueError(f"a dim of {full} held as {local} on {self.size} ranks")
         return slice(self.index * local, (self.index + 1) * local)
 
+    def kv_spec(self, rows: int, W: int, n_kv: int, hd: int):
+        """The ``launch.sharding.Spec`` of a (B, W, Hkv, hd) K / V ring
+        under ``cache_entry_specs`` for a pass of ``rows`` local rows:
+        (batch axes, slot axes, kv-head axis, None)."""
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import data_axes
+        batch = self.batch if self.batch is not None else \
+            rows * self.mesh.size(data_axes(self.mesh))
+        # the rule reads shapes only
+        entry = {"k": types.SimpleNamespace(shape=(batch, W, n_kv, hd))}
+        return sharding.cache_entry_specs(entry, self.mesh, batch)["k"]
+
+    def merge_partials(self, out: torch.Tensor, lse: torch.Tensor,
+                       axes="model") -> torch.Tensor:
+        """The flash-decoding merge of each rank's attention row over its
+        block of the ring's slots: ``out`` (B, H, hd) f32 and ``lse`` (B, H)
+        f32 from ``decode_attention(partial=True)``.  A ``MAX``
+        ``all_reduce`` of lse gives the shift M, then one ``SUM`` of
+        exp(lse - M) * out beside exp(lse - M) gives the row over every
+        rank's slots, (B, H, hd) f32.  A row that no rank holds a valid
+        slot of (lse -inf everywhere) comes out 0.  Serving runs no
+        autograd, so there is no conjugate operator here (the values are
+        merged as plain tensors)."""
+        M = self.mesh.all_reduce(lse.clone(), axes, "max")
+        w = torch.exp(lse - torch.where(torch.isfinite(M), M, 0.0))      # 0 at -inf
+        both = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+        both = self.mesh.all_reduce(both.contiguous(), axes)
+        den = both[..., -1:]
+        return both[..., :-1] / torch.where(den > 0, den, 1.0)
+
     @contextlib.contextmanager
     def install(self):
         """Run the model code of this block on this rank's shards."""
@@ -147,4 +189,4 @@ def check_kinds(kinds) -> None:
         if kind not in KINDS:
             raise NotImplementedError(
                 f"the {kind!r} layer kind has no model axis in the port yet; "
-                f"train it with a model axis of 1")
+                f"run it with a model axis of 1")

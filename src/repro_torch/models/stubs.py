@@ -60,8 +60,16 @@ def extra_input_specs(cfg: ModelConfig, batch: int, dtype=torch.bfloat16) -> dic
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16) -> list:
+                dtype=torch.bfloat16, mesh=None) -> list:
     """``transformer.init_cache``'s per-layer entries as ``meta`` tensors,
-    allocating nothing."""
-    return [init_cache_entry(kind, cfg, batch, max_seq, dtype, META)
-            for kind in cfg.layer_kinds]
+    allocating nothing.  With a ``mesh`` (a ``launch.mesh.ProcessMesh`` or
+    ``RecordingMesh``), the blocks of one rank of it: each entry cut under
+    ``launch.sharding.cache_entry_specs`` for the global ``batch``, as
+    the rank's ``prefill`` builds them (what the dry run's decode
+    reads)."""
+    cache = [init_cache_entry(kind, cfg, batch, max_seq, dtype, META)
+             for kind in cfg.layer_kinds]
+    if mesh is None:
+        return cache
+    from repro_torch.launch.sharding import shard_cache
+    return shard_cache(cache, mesh, batch)

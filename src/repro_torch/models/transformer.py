@@ -270,17 +270,19 @@ def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str,
 
 
 def _qkv(p, h, cfg: ModelConfig):
-    """(q (B, T, Hl, hd), k, v (B, T, Hkvl, hd)): the projections of the
+    """(q (B, T, Hl, hd), k, v (B, T, Hkv', hd)): the projections of the
     normed h for this rank's query heads; without a model axis (or where
     the rules left ``wq`` whole) every head.
 
     Under a model axis ``wq`` holds the contiguous heads [h0, h0 + Hl)
     of this rank.  ``wk`` / ``wv`` hold the matching kv heads where Hkv
-    splits over the axis; where it does not (reduced mixtral and granite
-    have one kv head), the rule still splits their columns whenever
-    Hkv * hd divides the axis, so the whole weight is gathered first and
-    enters the rank's region (its gradient the sum over the ranks), as
-    is a weight the rule left whole."""
+    splits over the axis, and k / v are then those Hkv / m heads; where
+    it does not (reduced mixtral and granite have one kv head), the rule
+    still splits their columns whenever Hkv * hd divides the axis, so
+    the whole weight is gathered first and enters the rank's region (its
+    gradient the sum over the ranks), as is a weight the rule left
+    whole, and k / v hold every kv head (``_rank_kv`` picks the ones the
+    rank's query heads read)."""
     B, T, _ = h.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     mp = parallel.current()
@@ -291,9 +293,8 @@ def _qkv(p, h, cfg: ModelConfig):
                 (h @ p["wv"]).reshape(B, T, Hkv, hd))
     if H % mp.size:
         raise NotImplementedError(f"{H} heads do not split over {mp.size} ranks")
-    Hl, x = H // mp.size, mp.enter(h)
-    h0 = mp.index * Hl
-    q = (x @ p["wq"]).reshape(B, T, Hl, hd)
+    x = mp.enter(h)
+    q = (x @ p["wq"]).reshape(B, T, H // mp.size, hd)
     kv = []
     for name in ("wk", "wv"):
         w = p[name]
@@ -302,11 +303,52 @@ def _qkv(p, h, cfg: ModelConfig):
             continue
         if w.shape[1] != Hkv * hd:
             w = mp.gather(w, 1)
-        full = (x @ mp.enter(w)).reshape(B, T, Hkv, hd)
-        # the kv head each of the rank's query heads reads, one per head
-        kv.append(full[:, :, torch.arange(h0, h0 + Hl, device=x.device)
-                       // (H // Hkv)])
+        kv.append((x @ mp.enter(w)).reshape(B, T, Hkv, hd))
     return q, kv[0], kv[1]
+
+
+def _rank_kv(t, cfg: ModelConfig, n_q: int):
+    """K or V for the attention of this rank's ``n_q`` query heads: ``t``
+    itself where it holds their kv heads (or every head is the rank's),
+    else the kv head each of them reads, one per query head."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    mp = parallel.current()
+    if n_q == H or t.shape[2] != Hkv:
+        return t
+    h0 = mp.index * n_q
+    return t[:, :, torch.arange(h0, h0 + n_q, device=t.device) // (H // Hkv)]
+
+
+def _slot_axes(mp, rows: int, W: int, Hkv: int, hd: int):
+    """The axes ``cache_entry_specs`` splits a ring's slots over where
+    they divide (None for none): the rule's choice for a width that every
+    axis divides."""
+    return mp.kv_spec(rows, W * mp.mesh.size(mp.mesh.axis_names), Hkv, hd)[1]
+
+
+def _ring_layout(mp, rows: int, W: int, Hkv: int, hd: int):
+    """This rank's block of a (rows, W, Hkv, hd) KV ring under
+    ``sharding.cache_entry_specs``: (its kv heads (a slice, or None for
+    every head), its slots (a slice, or None), the axes the slots split
+    over (or None)).  A ring whose slots the rule would split over axes
+    that do not divide them is refused: the rank could not tell its
+    block from its shape."""
+    spec = mp.kv_spec(rows, W, Hkv, hd)
+    want = _slot_axes(mp, rows, W, Hkv, hd)
+    if spec[1] != want:
+        raise NotImplementedError(f"a ring of {W} slots does not split over "
+                                  f"the {want} axes")
+    heads = None
+    if spec[2] is not None:
+        g = Hkv // mp.mesh.size(spec[2])
+        i = mp.mesh.index(spec[2])
+        heads = slice(i * g, (i + 1) * g)
+    slots = None
+    if spec[1] is not None:
+        wl = W // mp.mesh.size(spec[1])
+        i = mp.mesh.index(spec[1])
+        slots = slice(i * wl, (i + 1) * wl)
+    return heads, slots, spec[1]
 
 
 def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
@@ -314,30 +356,40 @@ def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = Tru
                         cache_len: int = 0):
     """Returns (delta, cache entry of ring width ``cache_len`` or None).
     ``causal=False`` (the whisper encoder): no RoPE (the encoder adds a
-    learned position embedding) and every key attended."""
+    learned position embedding) and every key attended.  Under a model
+    axis the entry is this rank's block of the ring (``_ring_layout``)."""
     B, T, _ = x.shape
     q, k, v = _qkv(p, rms_norm(x, p["ln1"]), cfg)
     if causal:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = attn_lib.attention(q, k, v, positions, positions, causal=causal,
+    n_q = q.shape[2]
+    out = attn_lib.attention(q, _rank_kv(k, cfg, n_q), _rank_kv(v, cfg, n_q),
+                             positions, positions, causal=causal,
                              window=window, attn_softcap=cfg.attn_softcap)
     y = out.reshape(B, T, -1) @ p["wo"]
-    if q.shape[2] != cfg.n_heads:     # this rank's heads: wo's rows of them
+    if n_q != cfg.n_heads:     # this rank's heads: wo's rows of them
         y = parallel.current().reduce(y)
     delta = _maybe_post(p, "ln1_post", y, cfg)
     if not build_cache:
         return delta, None
-    Hkv, hd = k.shape[2], k.shape[3]
     W = cache_len
+    slots = None
+    mp = parallel.current()
+    if mp is not None:       # k / v hold the rank's kv heads where they split
+        _, slots, _ = _ring_layout(mp, B, W, cfg.n_kv_heads, k.shape[3])
+    Hkv, hd = k.shape[2], k.shape[3]
     n_keep = min(T, W)
-    slots = (positions[0, T - n_keep:] % W).long()
+    slot_of = (positions[0, T - n_keep:] % W).long()
     k_c = k.new_zeros((B, W, Hkv, hd))
     v_c = v.new_zeros((B, W, Hkv, hd))
     pos_c = torch.full((B, W), -1, dtype=torch.int32, device=x.device)
-    k_c[:, slots] = k[:, T - n_keep:]
-    v_c[:, slots] = v[:, T - n_keep:]
-    pos_c[:, slots] = positions[:, T - n_keep:].to(torch.int32)
+    k_c[:, slot_of] = k[:, T - n_keep:]
+    v_c[:, slot_of] = v[:, T - n_keep:]
+    pos_c[:, slot_of] = positions[:, T - n_keep:].to(torch.int32)
+    if slots is not None:        # the rank's block of the ring's slots
+        k_c, v_c, pos_c = (t[:, slots].clone(memory_format=torch.contiguous_format)
+                           for t in (k_c, v_c, pos_c))
     return delta, {"k": k_c, "v": v_c, "pos": pos_c}
 
 
@@ -581,6 +633,14 @@ def forward_train(params: dict, cfg: ModelConfig, tokens,
     return lm_head(params, cfg, x), aux
 
 
+def _check_model_axis(cfg: ModelConfig):
+    """Under a model axis of more than one rank, refuse the layer kinds
+    that have none (``parallel.check_kinds``)."""
+    mp = parallel.current()
+    if mp is not None and mp.size > 1:
+        parallel.check_kinds(cfg.layer_kinds)
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_seq: int, cross_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, capacity_mode: str = "auto"):
@@ -589,6 +649,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     capacity_mode "auto": drop-free ("full") for B*T <= 2048, bounded
     "eval" capacity above.  Returns (last-token logits (B, V), cache)."""
     B, T = tokens.shape
+    _check_model_axis(cfg)
     if capacity_mode == "auto":
         capacity_mode = "full" if B * T <= 2048 else "eval"
     x = embed_tokens(params, cfg, tokens)
@@ -609,7 +670,11 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
     """Decode-mode self-attention sublayer, shared with the disaggregated
     runtime.  x: (B, d), pos: (B,) int32.  Writes this token's K/V into
     the ring slot ``pos % W`` of ``cache`` in place; the attention read
-    goes through ``kernels.decode_attention``.  Returns delta."""
+    goes through ``kernels.decode_attention``.  Returns delta.  Under a
+    model axis ``cache`` is the rank's block of the ring
+    (``_decode_on_shards``)."""
+    if parallel.current() is not None:
+        return _decode_on_shards(p, cfg, x, pos, cache, window)
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     h = rms_norm(x, p["ln1"])
@@ -630,12 +695,76 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
     return _maybe_post(p, "ln1_post", delta, cfg)
 
 
+def _decode_on_shards(p: dict, cfg: ModelConfig, x, pos, cache: dict, window: int):
+    """The decode self-attention sublayer on this rank's shards: its query
+    heads [h0, h0 + Hl) through ``_qkv``, its block of the ring
+    (``_ring_layout``), ``wo``'s rows of its heads, then a sum over
+    "model".
+
+    * kv heads over "model": the rank's query heads read exactly its kv
+      heads, so it writes its heads' K / V into its ring and attends there.
+    * every kv head on the rank's block of slots: only the rank that holds
+      slot ``pos % W`` of a row writes it.  The query heads are gathered
+      (every rank's q, a zero-filled sum: B * H * hd values, where sending
+      each rank's heads round would take m - 1 collectives), every rank
+      attends with all H heads over its slots (``decode_attention``'s
+      partial branch), ``merge_partials`` combines the ranks, and each
+      keeps its own heads' rows for ``wo``.
+    A ring whose slots are also split over the data axes (a batch they do
+    not divide) merges over those axes too."""
+    mp = parallel.current()
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h = rms_norm(x, p["ln1"])
+    q, k, v = _qkv(p, h[:, None], cfg)
+    if q.shape[2] == H:
+        raise NotImplementedError("decode under a model axis needs wq's heads "
+                                  "split over it")
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]
+    v = v[:, 0]
+    Wl = cache["k"].shape[1]
+    # the axes the rule splits the slots over, hence the ring's width
+    n_w = mp.mesh.size(_slot_axes(mp, B, Wl, Hkv, hd) or ())
+    heads, slots, w_axes = _ring_layout(mp, B, Wl * n_w, Hkv, hd)
+    block = (B, Wl, k.shape[1], hd)     # k / v: the rank's kv heads, or all
+    if tuple(cache["k"].shape) != block:
+        raise ValueError(f"a cache block of {tuple(cache['k'].shape)} where the "
+                         f"rank holds {block}")
+    W = Wl * n_w
+    b_idx = torch.arange(B, device=x.device)
+    local = (pos % W).long() - (slots.start if slots is not None else 0)
+    mine = (local >= 0) & (local < Wl)
+    local = torch.where(mine, local, 0)
+    for key, new in (("k", k), ("v", v), ("pos", pos)):
+        t = cache[key]
+        new = new.to(t.dtype)
+        keep = mine.reshape((B,) + (1,) * (new.dim() - 1))
+        t[b_idx, local] = torch.where(keep, new, t[b_idx, local])
+    if slots is None:
+        out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
+                                    window=window, attn_softcap=cfg.attn_softcap)
+    else:
+        n_q = q.shape[1]
+        q_all = q if heads is not None else mp.gather(q, 1)
+        part, lse = kops.decode_attention(q_all, cache["k"], cache["v"],
+                                          cache["pos"], pos, window=window,
+                                          attn_softcap=cfg.attn_softcap,
+                                          partial=True)
+        out = mp.merge_partials(part, lse, w_axes)
+        if heads is None:
+            out = out[:, mp.index * n_q:(mp.index + 1) * n_q]
+        out = out.to(q.dtype)
+    delta = mp.reduce(out.reshape(B, -1) @ p["wo"])
+    return _maybe_post(p, "ln1_post", delta, cfg)
+
+
 def ffn_decode_sublayer(p: dict, cfg: ModelConfig, x, capacity_mode: str):
     h = rms_norm(x, p["ln2"])
     if cfg.moe is not None:
         y, _ = moe_ffn(p, h, cfg.moe, cfg.act, capacity_mode)
     else:
-        y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act)
+        y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act, cfg.d_ff)
     return _maybe_post(p, "ln2_post", y, cfg)
 
 
@@ -691,6 +820,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: List[dict],
                 pos, capacity_mode: str = "full"):
     """One decode step.  tokens: (B,) int, pos: (B,) int32.  Updates
     ``cache`` in place and returns (logits (B, V), cache)."""
+    _check_model_axis(cfg)
     x = embed_tokens(params, cfg, tokens)
     for kind, lp, lc in zip(cfg.layer_kinds, params["layers"], cache):
         x = apply_layer_decode(kind, lp, cfg, x, pos, lc, capacity_mode)

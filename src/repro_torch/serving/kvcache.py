@@ -10,7 +10,7 @@ from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.pingpong import even_partition
-from repro_torch.core.transport import InProcessTransport
+from repro_torch.core.transport import default_transport
 
 
 def insert_rows(cache: List[dict], request_cache: List[dict], row: int):
@@ -34,10 +34,10 @@ def migrate_kv(cache: List[dict], request_cache: List[dict], row: int, *,
     "kv" hop), then write it into row ``row`` of ``cache`` on the
     caller's stream.  ``sync`` makes the host wait until the request's
     cache is made; otherwise only ``dst`` waits.  On the CPU both streams
-    are None.  Without a ``transport`` the hop goes through a private
-    ``InProcessTransport``."""
+    are None.  Without a ``transport`` the hop is accounted on the
+    process-wide ``core.transport.default_transport()``."""
     if transport is None:
-        transport = InProcessTransport()
+        transport = default_transport()
     transport.migrate_kv(request_cache, dst, src=src, sync=sync)
     return insert_rows(cache, request_cache, row)
 
@@ -48,9 +48,10 @@ def migrate_pages(pool, chunks: Sequence[Tuple[int, List[dict]]],
     """Page-granular prefill->decode KV hop: each per-page chunk (from
     ``pages.row_to_page_chunks``) is one "kv" hop, then written into its
     physical page of ``pool``.  With a prefix-cache hit only the
-    request's non-shared pages are in ``chunks``."""
+    request's non-shared pages are in ``chunks``.  Without a
+    ``transport`` the hops go on ``core.transport.default_transport()``."""
     if transport is None:
-        transport = InProcessTransport()
+        transport = default_transport()
     if len(chunks) != len(pages):
         raise ValueError(f"{len(pages)} pages for {len(chunks)} chunks")
     for (_, chunk), page in zip(chunks, pages):

@@ -32,12 +32,33 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
+from repro_torch.launch.mesh import RecordedGroup
 from repro_torch.models import moe as moe_lib
 
 
 def group_size(group) -> int:
-    """The ranks of ``group``; None is one rank (this one)."""
-    return dist.get_world_size(group) if group is not None else 1
+    """The ranks of ``group``; None is one rank (this one).  A group is a
+    ``torch.distributed`` process group or a
+    ``launch.mesh.RecordedGroup`` (the dry run's stand-in)."""
+    if group is None:
+        return 1
+    return group.size() if isinstance(group, RecordedGroup) else \
+        dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    if group is None:
+        return 0
+    return group.rank() if isinstance(group, RecordedGroup) else dist.get_rank(group)
+
+
+def group_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over ``group``; returns ``t``."""
+    if isinstance(group, RecordedGroup):
+        return group.all_reduce(t)
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
 
 
 def local_rows(t: torch.Tensor, group) -> torch.Tensor:
@@ -45,8 +66,8 @@ def local_rows(t: torch.Tensor, group) -> torch.Tensor:
     multiple of the group's size."""
     if group is None:
         return t
-    b = t.shape[0] // dist.get_world_size(group)
-    r = dist.get_rank(group)
+    b = t.shape[0] // group_size(group)
+    r = group_rank(group)
     return t[r * b:(r + 1) * b]
 
 
@@ -55,9 +76,9 @@ def average_grads(grads, group) -> None:
     place (one ``all_reduce`` per leaf)."""
     if group is None:
         return
-    n = dist.get_world_size(group)
+    n = group_size(group)
     for g in grads:
-        dist.all_reduce(g, group=group)
+        group_all_reduce(g, group)
         g.div_(n)
 
 
@@ -89,7 +110,7 @@ class DataParallelMoE:
     def __init__(self, group):
         self.group = group
         self.size = group_size(group)
-        self.rank = dist.get_rank(group) if group is not None else 0
+        self.rank = group_rank(group)
         self.dropped = torch.zeros(())
         self.count_drops = True
 
@@ -102,8 +123,7 @@ class DataParallelMoE:
         e = routing.experts.long()
         rows = x.new_zeros((self.size, E), dtype=torch.float32)
         rows[self.rank] = F.one_hot(e, E).float().sum(dim=(0, 1))
-        if self.group is not None:
-            dist.all_reduce(rows, group=self.group)
+        group_all_reduce(rows, self.group)
         prefix, total = rows[:self.rank].sum(0), rows.sum(0)
         C = moe_lib.expert_capacity(T, cfg, capacity_mode)
         pos = moe_lib.slot_positions(e, E)

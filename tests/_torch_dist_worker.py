@@ -6,6 +6,7 @@ per rank through ``repro_torch.launch.dist_smoke.run_ranks``:
   python tests/_torch_dist_worker.py train OUT_DIR ARGS_JSON
   python tests/_torch_dist_worker.py shard OUT_DIR
   python tests/_torch_dist_worker.py grid IN.pkl OUT_DIR
+  python tests/_torch_dist_worker.py serve IN.pkl OUT_DIR
 
 Every rank brings up ``MultiControllerTransport`` on the CPU (gloo) from
 the ``REPRO_*`` variables, turns the warning ``torch.distributed`` gives
@@ -261,6 +262,77 @@ def run_grid(in_path: str, out_dir: str):
         pickle.dump(results, fh)
 
 
+def run_serve(in_path: str, out_dir: str):
+    """Serving on a grid: for each case of IN.pkl (all on one grid
+    shape), this rank's blocks of the JAX params; its rows of the prompt
+    through ``prefill`` and ``steps`` greedy ``decode_step``s under
+    ``ModelParallel`` (with ``m2n`` also under ``core.m2n.use_m2n`` over
+    "model", the kernel path of the expert shards).  Saves per rank each
+    pass's logits, the greedy tokens and the final cache blocks.  A case
+    with ``raises`` must raise ``NotImplementedError`` from ``prefill``
+    and from ``decode_step``.  Rank 0 also keeps the cache gathered from
+    every rank's blocks (``sharding.gather_cache``)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.bridge import shards_from_jax
+    from repro_torch.core.m2n import use_m2n
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.parallel import ModelParallel
+
+    tr = _bring_up()
+    with open(in_path, "rb") as fh:
+        cases = pickle.load(fh)
+    mesh = make_mesh(cases[0]["grid"], ("data", "model"), device="cpu")
+    rank, results = tr.process_index, {}
+    n_data, i = mesh.size("data"), mesh.index("data")
+    for case in cases:
+        cfg = grid_config(case)
+        if case.get("raises"):
+            meta = tf.init_params(cfg, device="meta")
+            raised = []
+            with ModelParallel(mesh).install():
+                for call in (lambda: tf.prefill(meta, cfg, torch.zeros((2, 4), dtype=torch.int64), 8),
+                             lambda: tf.decode_step(meta, cfg, torch.zeros(2, dtype=torch.int64),
+                                                    [], torch.zeros(2, dtype=torch.int32))):
+                    try:
+                        call()
+                    except NotImplementedError as e:
+                        raised.append(str(e))
+            results[case["name"]] = {"raised": raised}
+            continue
+        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
+        toks = torch.from_numpy(case["tokens"]).long()
+        b = toks.shape[0] // n_data
+        toks = toks[i * b:(i + 1) * b]
+        m2n = (use_m2n(mesh=mesh, expert_axis="model") if case.get("m2n")
+               else contextlib.nullcontext())
+        logits, tokens = [], []
+        with torch.no_grad(), ModelParallel(mesh).install(), m2n:
+            lg, cache = tf.prefill(params, cfg, toks, max_seq=case["max_seq"])
+            logits.append(lg.numpy())
+            tok = lg.argmax(-1)
+            for s in range(case["steps"]):
+                tokens.append(tok.numpy())
+                pos = torch.full((b,), toks.shape[1] + s, dtype=torch.int32)
+                lg, cache = tf.decode_step(params, cfg, tok, cache, pos)
+                logits.append(lg.numpy())
+                tok = lg.argmax(-1)
+            tokens.append(tok.numpy())
+        whole = sh.gather_cache(cache, cfg, mesh, b * n_data, case["max_seq"])
+        results[case["name"]] = {
+            "logits": logits, "tokens": tokens, "rows": (i * b, (i + 1) * b),
+            "cache": [{k: t.numpy() for k, t in e.items()} for e in cache]}
+        if rank == 0:
+            results[case["name"]]["gathered"] = [
+                {k: t.numpy() for k, t in e.items()} for e in whole]
+    with open(os.path.join(out_dir, f"serve{rank}.pkl"), "wb") as fh:
+        pickle.dump(results, fh)
+
+
 def run_shard(out_dir: str):
     """``local_shard`` / ``gather_full`` on 4 ranks: hand-made specs on a
     (2, 2) grid (either axis, both on one dim, one per dim, the data
@@ -317,7 +389,14 @@ def run_shard(out_dir: str):
 if __name__ == "__main__":
     mode, *rest = sys.argv[1:]
     {"m2n": run_m2n, "dp": run_dp, "train": run_train, "shard": run_shard,
-     "grid": run_grid}[mode](*rest)
+     "grid": run_grid, "serve": run_serve}[mode](*rest)
     import torch.distributed as dist
     dist.barrier()      # no rank tears its groups down while a peer still uses them
     dist.destroy_process_group()
+    # leave without the interpreter's finalization: there the gloo groups'
+    # leftover C++ objects abort a rank ("terminate called without an
+    # active exception", no Python frame) a few runs in a hundred under
+    # load, after its results are written
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)

@@ -1,0 +1,322 @@
+"""The port's dry run (``launch.dryrun``, ``analysis.roofline``,
+``analysis.report``) against the JAX package's and against counts made
+by hand, on the CPU (meta tensors: nothing is allocated).
+
+  * ``model_flops_estimate`` equals JAX's for every config, shape and
+    production mesh; ``shape_eligible`` / ``effective_config`` equal the
+    JAX dry run's (compiled from its source: importing the module sets a
+    512-device flag);
+  * one rank's decode and prefill of reduced qwen2-moe (kv heads over
+    "model") and reduced mixtral (slots over "model") on a (2, 4)
+    ``RecordingMesh``: the matrix-product FLOPs and the collective bytes
+    by kind equal counts made by hand from the shapes, the argument bytes
+    the rank's blocks;
+  * a record has the JAX record's keys and the roofline JAX's fields;
+  * the report renders its tables from a directory of records;
+  * mamba2, recurrentgemma, whisper and llama-vision come out
+    "unsupported" with the reason; ``--seq-parallel`` too; the JAX-only
+    flags are refused;
+  * under fsdp the leaves JAX splits on their stacked block dim are
+    ``test_torch_sharding.FSDP_BLOCK_DIM``'s, and a rank holds the bytes
+    per rank of JAX's rule.
+"""
+import ast
+import dataclasses
+import json
+import math
+import os
+
+import pytest
+import torch
+
+from repro_torch.analysis import report as treport
+from repro_torch.analysis import roofline as trl
+from repro_torch.config import INPUT_SHAPES, ShapeConfig, get_config, reduced
+from repro_torch.configs import ASSIGNED, PAPER
+from repro_torch.launch import dryrun as tdr
+from repro_torch.launch import sharding as tsh
+from repro_torch.launch.mesh import RecordingMesh
+from repro_torch.models.transformer import init_params
+from repro_torch.training.optimizer import leaves
+from test_torch_sharding import AXES, FSDP_BLOCK_DIM
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_DRYRUN = os.path.join(ROOT, "src", "repro", "launch", "dryrun.py")
+ARCHS = ASSIGNED + PAPER
+MESHES = {"16x16": 256, "2x16x16": 512}
+OTHER_KINDS = ["mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3",
+               "llama-3.2-vision-90b"]
+
+
+def _jax_dryrun_functions(*names):
+    """Functions of the JAX dry run's source, compiled without importing
+    the module (its first lines force 512 host devices)."""
+    from repro.config import ModelConfig
+    with open(JAX_DRYRUN) as fh:
+        tree = ast.parse(fh.read())
+    fns = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names]
+    ns = {"dataclasses": dataclasses, "ModelConfig": ModelConfig}
+    exec(compile(ast.Module(fns, []), JAX_DRYRUN, "exec"), ns)
+    return [ns[n] for n in names]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_flops_estimate_is_the_jax_one(arch):
+    pytest.importorskip("jax")
+    from repro import config as jconfig
+    from repro.analysis import roofline as jrl
+    cfg, jcfg = get_config(arch), jconfig.get_config(arch)
+    for name, sc in INPUT_SHAPES.items():
+        for n_chips in MESHES.values():
+            assert trl.model_flops_estimate(cfg, sc, n_chips) == \
+                jrl.model_flops_estimate(jcfg, jconfig.INPUT_SHAPES[name], n_chips)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_shape_eligible_and_effective_config_are_the_jax_ones(arch):
+    pytest.importorskip("jax")
+    from repro import config as jconfig
+    eligible, effective = _jax_dryrun_functions("shape_eligible", "effective_config")
+    cfg, jcfg = get_config(arch), jconfig.get_config(arch)
+    for shape in INPUT_SHAPES:
+        assert tdr.shape_eligible(cfg, shape) == eligible(jcfg, shape)
+        for chunk in (0, 64):
+            got, want = tdr.effective_config(cfg, shape, chunk), effective(jcfg, shape, chunk)
+            assert got.block_pattern == want.block_pattern
+            assert got.remainder_pattern == want.remainder_pattern
+            assert (got.ssm and got.ssm.chunk) == (want.ssm and want.ssm.chunk)
+
+
+# ---------------------------------------------------------------------------
+# one rank's counts against counts made by hand
+# ---------------------------------------------------------------------------
+
+GRID = (2, 4)          # (data, model)
+DECODE = ShapeConfig("decode_t", "decode", 32, 8)
+PREFILL = ShapeConfig("prefill_t", "prefill", 16, 4)
+
+
+def _record(arch, shape_cfg):
+    cfg = reduced(get_config(arch))
+    mesh = RecordingMesh(GRID, ("data", "model"), (1, 2))
+    program, args, _ = tdr.build(cfg, shape_cfg, mesh)
+    cost, mem, coll, by_axes = tdr.measure(program, args, mesh)
+    return cfg, mesh, args, cost, mem, coll, by_axes
+
+
+def _matmul_flops_by_hand(cfg, kind, b, T, W):
+    """The matrix products one rank runs (heads, kv heads, experts and
+    vocabulary over the 4 model ranks, b rows): per token the q / k / v /
+    o projections of its heads, the router, its experts' three products
+    over a drop-free capacity of every token, the shared expert's d_ff
+    block and its gate; per row the attention's two products over its
+    keys (a prefill's chunk attends to all T keys, masked), and the LM
+    head's vocabulary block on the last token."""
+    m = GRID[1]
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    n = b * T
+    Hl = H // m
+    kv_cols = cfg.n_kv_heads * hd        # every kv head (gathered weight) ...
+    if cfg.n_kv_heads % m == 0:
+        kv_cols //= m                    # ... or the rank's kv heads
+    # a decode over split slots gathers every head's q; a prefill attends
+    # with the rank's heads
+    q_heads = H if kind == "decode" and cfg.n_kv_heads % m else Hl
+    per_layer = 2 * n * d * (Hl * hd + 2 * kv_cols) + 2 * n * Hl * hd * d
+    keys = T if kind == "prefill" else W // (1 if cfg.n_kv_heads % m == 0 else m)
+    per_layer += 2 * 2 * n * q_heads * keys * hd
+    e = cfg.moe
+    per_layer += 2 * n * d * e.n_experts
+    per_layer += 3 * 2 * n * d * e.d_ff_expert * (e.n_experts // m)
+    if e.n_shared_experts:
+        per_layer += 3 * 2 * n * d * (e.d_ff_shared // m) + 2 * n * d
+    return len(cfg.layer_kinds) * per_layer + 2 * b * d * (cfg.vocab // m)
+
+
+def _collective_bytes_by_hand(cfg, b, T):
+    """What one rank hands its mesh (bf16 activations, f32 expert
+    combine): per layer the sums after wo, the expert combine and the
+    shared expert's w2; the embedding's sum and the LM head's zero-filled
+    gather; with the slots over "model", the gathered K / V weights and
+    q and the two merges ("all-reduce-max" of the lse)."""
+    m = GRID[1]
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    n = b * T
+    per_layer = 2 * n * d + 4 * n * d
+    if cfg.moe.n_shared_experts:
+        per_layer += 2 * n * d
+    out = {"all-reduce": 2 * n * d + 2 * b * cfg.vocab}
+    if cfg.n_kv_heads % m:
+        per_layer += 2 * (2 * d * cfg.n_kv_heads * hd)     # wk, wv gathered
+        if T == 1:
+            per_layer += 2 * b * H * hd + 4 * b * H * (hd + 1)
+            out["all-reduce-max"] = len(cfg.layer_kinds) * 4 * b * H
+    out["all-reduce"] += len(cfg.layer_kinds) * per_layer
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
+@pytest.mark.parametrize("shape_cfg", [DECODE, PREFILL], ids=["decode", "prefill"])
+def test_flops_and_collective_bytes_are_the_counts_by_hand(arch, shape_cfg):
+    cfg, mesh, args, cost, mem, coll, by_axes = _record(arch, shape_cfg)
+    b = shape_cfg.global_batch // GRID[0]
+    T = 1 if shape_cfg.kind == "decode" else shape_cfg.seq_len
+    assert cost["flops"] == _matmul_flops_by_hand(cfg, shape_cfg.kind, b, T,
+                                                  shape_cfg.seq_len)
+    assert coll == _collective_bytes_by_hand(cfg, b, T)
+    assert set(by_axes) == {"model"}
+    # the arguments: the rank's blocks of the params under the "ep" rules
+    # (bf16), its rows of the tokens, and for decode its cache blocks
+    full = init_params(cfg, dtype=torch.bfloat16, device="meta")
+    specs = tsh.param_specs(cfg, full, mesh)
+    want = sum(t.numel() * t.element_size()
+               for t in leaves(tsh.shard_tree(full, specs, mesh)))
+    want += b * (1 if shape_cfg.kind == "decode" else T) * 4
+    if shape_cfg.kind == "decode":
+        from repro_torch.models import stubs
+        cache = stubs.cache_specs(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
+                                  mesh=mesh)
+        want += sum(t.numel() * t.element_size() for e in cache for t in e.values())
+        want += b * 4                                       # pos
+    assert mem["argument_size"] == want
+    assert 0 < mem["temp_size"] and cost["bytes accessed"] > want
+
+
+def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
+    pytest.importorskip("jax")
+    from repro.analysis import roofline as jrl
+    with open(JAX_DRYRUN) as fh:
+        tree = ast.parse(fh.read())
+    run_one = next(n for n in tree.body
+                   if isinstance(n, ast.FunctionDef) and n.name == "run_one")
+    rec_keys = next({k.value for k in n.value.keys}
+                    for n in ast.walk(run_one)
+                    if isinstance(n, ast.Assign) and isinstance(n.value, ast.Dict)
+                    and getattr(n.targets[0], "id", "") == "rec")
+    out = str(tmp_path)
+    recs = [tdr.run_one("granite-3-8b", "decode_32k", mp, out_dir=out, verbose=False)
+            for mp in (False, True)]
+    recs.append(tdr.run_one("granite-3-8b", "long_500k", False, out_dir=out))
+    recs.append(tdr.run_one("mamba2-1.3b", "decode_32k", False, out_dir=out))
+    ok = recs[0]
+    assert rec_keys <= set(ok), rec_keys - set(ok)
+    jax_fields = set(jrl.Roofline.__dataclass_fields__) | {
+        "t_compute", "t_memory", "t_collective", "bottleneck",
+        "useful_flops_ratio", "step_time_bound", "mfu_bound"}
+    assert set(ok["roofline"]) == jax_fields
+    assert set(ok["memory_analysis"]) >= {"argument_size", "output_size", "temp_size"}
+    assert set(ok["cost_analysis"]) == {"flops", "bytes accessed", "transcendentals"}
+    assert [r["status"] for r in recs] == ["ok", "ok", "skipped", "unsupported"]
+    for r in recs[:2]:
+        json.dumps(r)
+        assert r["roofline"]["n_chips"] == MESHES[r["mesh"]]
+        assert r["roofline"]["hbm_bw"] == 3.35e12 and r["roofline"]["ici_bw"] == 900e9
+    assert len(os.listdir(out)) == 4
+    capsys.readouterr()
+    import sys
+    argv, sys.argv = sys.argv, ["report", out]
+    try:
+        treport.main()
+    finally:
+        sys.argv = argv
+    text = capsys.readouterr().out
+    assert "## §Roofline" in text and "## §Dry-run" in text
+    assert "| granite-3-8b | decode_32k |" in text
+    assert "| mamba2-1.3b | decode_32k | 16x16 | unsupported |" in text
+    assert "| granite-3-8b | long_500k | 16x16 | skipped |" in text
+
+
+@pytest.mark.parametrize("arch", OTHER_KINDS)
+def test_the_other_kinds_are_unsupported_with_the_reason(arch, tmp_path):
+    for shape in ("train_4k", "decode_32k"):
+        rec = tdr.run_one(arch, shape, False, out_dir=str(tmp_path), verbose=False)
+        assert rec["status"] == "unsupported"
+        assert "layer kind has no model axis" in rec["note"]
+
+
+def test_seq_parallel_is_unsupported_and_jax_only_flags_are_refused(tmp_path):
+    rec = tdr.run_one("granite-3-8b", "decode_32k", False, seq_parallel=True,
+                      out_dir=str(tmp_path))
+    assert rec["status"] == "unsupported" and "sequence parallelism" in rec["note"]
+    assert os.path.exists(tmp_path / "granite-3-8b_decode_32k_single_baseline_full_seqpar.json")
+    for flag in ("--save-hlo", "--no-unroll"):
+        with pytest.raises(SystemExit):
+            tdr.main(["--arch", "granite-3-8b", "--shape", "decode_32k", flag,
+                      "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("axes", AXES, ids=["16x16", "2x16x16"])
+def test_fsdp_block_dim_leaves_and_bytes_per_rank(axes):
+    """The leaves ``jax_block_dim`` places are FSDP_BLOCK_DIM's (held
+    there against the JAX rules); minitron-8b's and scaled-moe's ranks
+    hold JAX's fsdp bytes per rank (its specs over the stacked tree)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro import config as jconfig
+    from repro.launch import sharding as jsh
+    from repro.models import transformer as jtf
+    name = "16x16" if len(axes) == 2 else "2x16x16"
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        mesh = RecordingMesh.named(name)
+        full = init_params(cfg, device="meta")
+        got = set()
+        for path, _ in tdr._paths(full):
+            if tdr.jax_block_dim(cfg, path, mesh) is not None:
+                leaf = path.split("/")[-1]
+                got.add("encoder/" + leaf if path.startswith("encoder/") else leaf)
+        assert got == FSDP_BLOCK_DIM.get((arch, axes), set()), arch
+    for arch in ("minitron-8b", "scaled-moe"):
+        cfg, jcfg = get_config(arch), jconfig.get_config(arch)
+        structs = jax.eval_shape(lambda: jtf.init_params(jcfg, jax.random.PRNGKey(0),
+                                                         jnp.bfloat16))
+        mesh = RecordingMesh.named(name, (0,) * len(axes))
+        jspecs = jsh.param_specs(jcfg, structs, mesh, fsdp=True)
+        want = 0
+        for st, sp in zip(jax.tree.leaves(structs),
+                          jax.tree.leaves(jspecs, is_leaf=lambda x: isinstance(
+                              x, jax.sharding.PartitionSpec))):
+            split = math.prod(tsh._axis_size(mesh, a) for a in sp)
+            want += math.prod(st.shape) * st.dtype.itemsize // split
+        for coords in ((0,) * len(axes), (1,) + (0,) * (len(axes) - 1)):
+            mesh = RecordingMesh.named(name, coords)
+            held, _, on_block = tdr.place_params(cfg, mesh, fsdp=True)
+            got = sum(t.numel() * t.element_size() for t in leaves(held)
+                      if t is not None)
+            assert got == want, (arch, coords, got, want)
+            assert bool(on_block) == ((arch, axes) in FSDP_BLOCK_DIM)
+
+
+def test_fsdp_decode_gathers_the_data_blocks(tmp_path):
+    rec = tdr.run_one("minitron-8b", "decode_32k", False, fsdp=True,
+                      out_dir=str(tmp_path), verbose=False)
+    base = tdr.run_one("minitron-8b", "decode_32k", False, out_dir=str(tmp_path),
+                       verbose=False)
+    assert rec["status"] == base["status"] == "ok"
+    assert rec["fsdp_block_dim"] and not base["fsdp_block_dim"]
+    assert set(rec["collectives_by_axes"]) == {"model", "data"}
+    assert rec["memory_analysis"]["argument_size"] < base["memory_analysis"]["argument_size"]
+    assert rec["cost_analysis"]["flops"] == base["cost_analysis"]["flops"]
+
+
+@pytest.mark.parametrize("moe_impl", ["m2n", "m2n2d"])
+def test_m2n_serving_runs_on_the_recording_mesh(moe_impl, tmp_path):
+    """``core.m2n`` over "model" runs in a rank's decode (each rank its
+    expert shard; under m2n2d its data rank's d_ff block too, the rows
+    gathered over the data axes); its train step is unsupported."""
+    base = tdr.run_one("mixtral-8x22b", "decode_32k", False, out_dir=str(tmp_path),
+                       verbose=False)
+    rec = tdr.run_one("mixtral-8x22b", "decode_32k", False, moe_impl=moe_impl,
+                      out_dir=str(tmp_path), verbose=False)
+    assert rec["status"] == "ok" and rec["moe_impl"] == moe_impl
+    assert rec["cost_analysis"]["flops"] > 0
+    args, args0 = (r["memory_analysis"]["argument_size"] for r in (rec, base))
+    # 8 experts on 16 ranks: the "ep" rule splits their d_ff 16 ways, m2n
+    # gives rank 0 one whole expert; m2n2d cuts its d_ff over the 16 data
+    # ranks; the counts (m2n) or the rows (m2n2d) cross the data axes
+    assert args == args0 + 56 * 3 * 6144 * 16384 * 2 * (1 - 8 / 16) \
+        if moe_impl == "m2n" else args < args0
+    assert set(rec["collectives_by_axes"]) == {"model", "data"}
+    train = tdr.run_one("mixtral-8x22b", "train_4k", False, moe_impl=moe_impl,
+                        out_dir=str(tmp_path), verbose=False)
+    assert train["status"] == "unsupported" and "m2n" in train["note"]

@@ -553,7 +553,48 @@ def test_plain_route_counts_no_launch():
     assert set(cuda_build.launch_counts().values()) == {0}
 
 
+@pytest.mark.parametrize("b,h,hkv,hd,w,window,cap", ATTN_CASES)
+def test_decode_attention_partial_on_cpu_is_the_plain_partial(b, h, hkv, hd, w,
+                                                              window, cap):
+    """The wrapper's partial branch on CPU tensors: the plain version's
+    (out f32, lse), out equal to the whole row where the slots given are
+    the whole ring."""
+    from repro_torch.models.attention import decode_attention_partial
+    args = [_t(a) for a in _attn_case(b, h, hkv, hd, w)]
+    kw = dict(window=window, attn_softcap=cap)
+    out, lse = kops.decode_attention(*args, partial=True, **kw)
+    want_out, want_lse = decode_attention_partial(*args, **kw)
+    assert out.dtype == lse.dtype == torch.float32 and lse.shape == (b, h)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    _close(out, decode_attention_plain(*args, **kw).numpy())
+
+
 # ---------------------------------------------------------------- on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,hd,w,window,cap", ATTN_CASES
+                         + [(8, 24, 8, 128, 64, 0, 0.0)])
+def test_decode_attention_partial_kernel_matches_plain(cuda, dtype, b, h, hkv, hd,
+                                                       w, window, cap):
+    """The partial branch (a rank's block of slots) against its plain
+    version: out and lse f32, a block with no valid slot 0 and -inf."""
+    from repro_torch.models.attention import decode_attention_partial
+    q, k, v, cpos, pos = _attn_case(b, h, hkv, hd, w)
+    cpos[0] = -1                                  # row 0: no valid slot
+    args = [_t(a).to(cuda).to(dtype) for a in (q, k, v)]
+    args += [_t(cpos).to(cuda), _t(pos).to(cuda)]
+    kw = dict(window=window, attn_softcap=cap)
+    n0 = da_mod.KERNEL.variant_launches["partial"]
+    out, lse = kops.decode_attention(*args, partial=True, **kw)
+    torch.cuda.synchronize()
+    assert da_mod.KERNEL.variant_launches["partial"] == n0 + 1
+    want_out, want_lse = decode_attention_partial(*args, **kw)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    assert torch.isneginf(lse[0]).all() and float(out[0].abs().max()) == 0
+    _close(out, want_out.cpu().numpy(), tol)
+    _close(lse[1:], want_lse[1:].cpu().numpy(), tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,hd,w,window,cap", ATTN_CASES

@@ -265,8 +265,9 @@ def test_port_imports_nothing_of_jax():
     gating_topk kernel and the m2n, transport, load-balance and
     ping-pong modules, the model families (RG-LRU, SSD, stubs), the
     registry's configs, the planner, the trainer, the process grid, the
-    sharding rules and the model axis are named, so the check fails if
-    the walk stops reaching them."""
+    sharding rules, the model axis and the dry run with its roofline and
+    report are named, so the check fails if the walk stops reaching
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -284,7 +285,8 @@ def test_port_imports_nothing_of_jax():
         "          'training.data', 'training.optimizer', 'training.loop',\n"
         "          'training.checkpoint', 'launch.train',\n"
         "          'training.data_parallel', 'launch.mesh', 'launch.sharding',\n"
-        "          'models.parallel', 'bridge'):\n"
+        "          'models.parallel', 'bridge', 'launch.dryrun',\n"
+        "          'analysis.roofline', 'analysis.report'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "import chip_smoke\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
