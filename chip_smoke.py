@@ -177,6 +177,32 @@ then:
      bf16 2e-2) and timed beside SDPA at (b)'s block.  ``chip_smoke.py
      --phase11-only`` runs this phase alone.
 
+ 12. every layer kind on a rank's shards (ranks on cuda:0, gloo), each
+     run first in one process (its memory freed before the ranks start).
+     (a) training on (1, 2), f32, TF32 off, batch 4 x seq 128, 3 steps,
+     published widths cut in depth: recurrentgemma-2b one period,
+     mamba2-1.3b 2 layers, whisper-large-v3 1 encoder + 1 decoder layer,
+     llama-3.2-vision-90b its cross layer (~24 GB of state a rank, last):
+     every step's loss within 1e-5 relative of one process's, step 0's
+     norm within 1e-5, each rank's block of step 0's gradients within
+     1e-5 of each leaf's max |g|, the update of the same gradients on the
+     rank's blocks within 1e-5 of each leaf's range, step 0's own params
+     by 8(a)'s count, no kernel launched.  (b) serving 8 requests:
+     recurrentgemma-2b whole on (1, 4) (RG-LRU width, 10 query heads cut
+     mid-head, the local rings' 2048 slots split 4 ways: the partial
+     branch at hd 256), mamba2-1.3b and whisper-large-v3 whole
+     and llama-3.2-vision-90b at 5 layers on (1, 2): f32 at one period
+     (tokens exact, logits within 5e-4 of their range), bf16 fed one
+     process's tokens (the prefill, and one step from one process's
+     cache, by phase 3's rule); launches as predicted in every rank; ms
+     per decode step beside one process's, one step's collectives
+     replayed alone, params and peak per rank.  (c) the partial branch at
+     q (8, 10, 256) over a (8, 512, 1, 256) block of a wrapped 2048-slot
+     ring against its plain version (f32 1e-5, bf16 2e-2, an empty row 0
+     and -inf), timed beside SDPA; it joins the kernels line as a second
+     shape of ``decode_attention[partial]``.  ``chip_smoke.py
+     --phase12-only`` runs this phase alone.
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -3353,10 +3379,10 @@ class RouteLog:
 
 
 def p11_serve(torch, cfg, params, prompts, max_seq, *, steps, forced=None,
-              routes=None, before_step=None, keep=None):
-    """``prefill`` then ``steps`` greedy ``decode_step``s under whatever is
-    installed; with ``forced`` (steps, B) the decode steps take those
-    tokens instead (teacher forcing).  Returns (each pass's logits on the
+              routes=None, before_step=None, keep=None, extras=None):
+    """``prefill`` (with the stub inputs ``extras``) then ``steps`` greedy
+    ``decode_step``s under whatever is installed; with ``forced`` (steps,
+    B) the decode steps take those tokens instead (teacher forcing).  Returns (each pass's logits on the
     host in f32, the tokens fed to the steps and the last argmax, each
     decode step's host time in ms between two synchronizes, each pass's
     routing when ``routes``).  ``before_step(s)`` is called before step
@@ -3366,9 +3392,10 @@ def p11_serve(torch, cfg, params, prompts, max_seq, *, steps, forced=None,
     logits, toks, ms, per_pass = [], [], [], []
     with torch.no_grad():
         n0 = len(routes.calls) if routes is not None else 0
-        lg, cache = prefill(params, cfg, prompts, max_seq=max_seq)
+        lg, cache = prefill(params, cfg, prompts, max_seq=max_seq, **(extras or {}))
         if keep is not None:
-            keep.append([{k: t.cpu() for k, t in e.items()} for e in cache])
+            keep.append([{k: t.to("cpu", copy=True) for k, t in e.items()}
+                         for e in cache])
         logits.append(lg)
         if routes is not None:
             per_pass.append(routes.calls[n0:])
@@ -3727,6 +3754,659 @@ def phase_serving_grid(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12: every layer kind on a rank's shards
+# ---------------------------------------------------------------------------
+
+# (a) training on a (1, 2) grid, f32, TF32 off, batch 4 x seq 128, 3
+# steps, published widths cut in depth only: recurrentgemma-2b one period
+# (rglru, rglru, local; 26 layers and the remainder cut), mamba2-1.3b 2
+# of its 48 layers, whisper-large-v3 1 encoder + 1 decoder layer (of 32 +
+# 32), llama-3.2-vision-90b its cross layer alone (the period's 4 attn
+# layers and the other 19 periods cut): its 128,256 x 8192 embedding and
+# head make ~48 GB of state, ~24 GB a rank, so it runs last
+P12_TRAIN = {"recurrentgemma-2b": dict(n_layers=3),
+             "mamba2-1.3b": dict(n_layers=2),
+             "whisper-large-v3": dict(n_layers=1, encoder_layers=1),
+             "llama-3.2-vision-90b": dict(n_layers=1, block_pattern=("cross",))}
+P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
+# (b) serving, 8 requests, 16 greedy steps (each a few hundred ms on a
+# grid: 96-194 collectives through gloo): f32 at one period (whisper's
+# encoder cut to 1 layer there), then bf16 at ``layers`` (None: whole).
+# recurrentgemma-2b on (1, 4): the RG-LRU width and 10 query heads (2.5 a
+# rank, cut mid-head) over 4, one kv head, so the local layers'
+# 2048-slot rings split 4 ways (1600-token prompts reach every rank's
+# block); mamba2-1.3b, whisper-large-v3 (encoder tensor-parallel, 20 kv
+# heads and the cross K / V by heads) and llama-3.2-vision-90b at one
+# period (5 of 100 layers) on (1, 2)
+P12_SERVE = {
+    "recurrentgemma-2b": dict(grid=(1, 4), layers=None, period=3, prompt_len=1600,
+                              max_seq=2048, steps=16),
+    "mamba2-1.3b": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
+                        max_seq=64, steps=16),
+    "whisper-large-v3": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
+                             max_seq=64, steps=16),
+    "llama-3.2-vision-90b": dict(grid=(1, 2), layers=5, period=5, prompt_len=16,
+                                 max_seq=64, steps=16),
+}
+P12_BATCH = 8
+P12_TIMEOUT = 300          # seconds for all ranks of one sub-phase
+
+
+def p12_cfg(name, n_layers=None, encoder_layers=None, block_pattern=None):
+    """``name``'s published config cut in depth (None: whole)."""
+    from repro_torch.config import get_config
+    cfg = get_config(name)
+    if block_pattern is not None:
+        cfg = dataclasses.replace(cfg, block_pattern=block_pattern)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers, remainder_pattern=())
+    if encoder_layers is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=encoder_layers))
+    return cfg
+
+
+def p12_train_setup(torch, name, dev):
+    """(config, AdamW config, the steps' batches, the stub inputs) of 12(a)."""
+    from repro_torch.models.stubs import extra_inputs
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    R = P12_TRAIN_RUN
+    cfg = p12_cfg(name, **P12_TRAIN[name])
+    opt = AdamWConfig(lr=R["lr"], warmup_steps=2, total_steps=R["steps"])
+    batches = [torch.from_numpy(b).to(dev) for b in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=R["seq"] + 1, batch=R["batch"],
+        seed=R["seed"])).batches(R["steps"])]
+    return cfg, opt, batches, extra_inputs(cfg, R["batch"], dtype=torch.float32,
+                                           device=dev)
+
+
+def p12_train_steps(torch, cfg, opt, batches, extras, params, mesh=None,
+                    before=None, keep=None, keep_leaf=None):
+    """A train step of ``params`` (the rank's blocks on ``mesh``, else
+    whole) per batch, each timed on the host clock between two
+    synchronizes: (metrics, ms).  ``before(s)`` runs before step s;
+    ``keep`` (a list) receives ``keep_leaf(i, g)`` (default: a copy on the
+    host) of step 0's gradient g of each leaf i, taken before the
+    update."""
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import init_opt_state, leaves
+    for p in leaves(params):
+        p.requires_grad_(True)
+    state = init_opt_state(params)
+    step = loop.make_train_step(cfg, opt, remat="none", mesh=mesh,
+                                extras_keys=tuple(extras))
+    update = loop.adamw_update
+    keep_leaf = keep_leaf or (lambda i, g: g.to("cpu", copy=True))
+
+    def keep_grads(opt_cfg, ps, g, st, **kw):
+        if keep is not None and not keep:
+            keep.extend(keep_leaf(i, t.detach()) for i, t in enumerate(g))
+        return update(opt_cfg, ps, g, st, **kw)
+
+    loop.adamw_update = keep_grads
+    metrics, ms = [], []
+    try:
+        for s, toks in enumerate(batches):
+            if before is not None:
+                before(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, toks, *extras.values())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        loop.adamw_update = update
+    return metrics, ms
+
+
+def p12_train_one(torch, name, dev):
+    """12(a)'s ``name`` in one process: (metrics, ms per step, peak GB)."""
+    cfg, opt, batches, extras = p12_train_setup(torch, name, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = registry_params(torch, cfg, torch.float32, dev)
+    metrics, ms = p12_train_steps(torch, cfg, opt, batches, extras, params)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return metrics, ms, peak
+
+
+def p12_train_child(torch, out_dir):
+    """One rank of 12(a): for each model, its blocks of the
+    ``registry_params`` draw (whole, then cut), 3 steps on the (1, 2) grid
+    with every model-axis collective timed (host clock), the launches
+    counted; its initial blocks, step 0's gradients and the params after
+    step 0 kept on the host.  Then, one rank at a time (the other at a
+    barrier), one process's step 0 on the whole params, keeping the
+    rank's blocks of its gradients: against the rank's (1e-5 of each
+    leaf's max |g|); the update of those blocks from the rank's initial
+    blocks (leaf by leaf, its decay mask, one process's norm) against the
+    rank's blocks of one process's params after the step (1e-5 of each
+    leaf's range: 8(a)'s rule for the update of the same gradients); the
+    rank's own params after step 0 against them, each element within what
+    its gradient's gap allows through AdamW's first step (below), with
+    8(a)'s count of elements past 1e-5 of their leaf's range and the
+    widest gap in units of the step's lr printed.  Prints one JSON line.
+
+    AdamW's first step moves an element by lr * g' / (|g'| + eps) (g' the
+    clipped gradient, bias correction cancelling) plus the decay, which
+    both paths share; x / (|x| + eps) moves by at most |dx| / eps and
+    never by more than 2, so two gradients dg apart give params at most
+    lr * min(2, s * dg / eps) apart (s the clip scale), plus rounding:
+    1e-5 of the leaf's range (8(a)'s) and 1e-6 of the element (a few f32
+    ulps: RG-LRU's ``lam`` sits at 0.5 with a range of 2 lr).  Where a gradient element sits near eps
+    (a 128,256-token head at batch 4 x 128) the gap is a good part of lr
+    while the gradients agree to 1e-4 of their max; 8(a)'s count cannot
+    tell that from a wrong update, this bound can."""
+    import torch.distributed as dist
+
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.optimizer import (OptState, adamw_update, cosine_lr,
+                                                decay_mask, leaves,
+                                                named_leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    rank, n = tr.process_index, tr.process_count
+    mesh = make_mesh(P12_TRAIN_RUN["grid"], ("data", "model"), device=tr.device)
+    mesh_all_reduce = mesh.all_reduce
+    host = lambda t: t.detach().to("cpu", copy=True)
+    res = {"rank": rank, "device": str(tr.device), "backend": tr.backend}
+    for name in P12_TRAIN:
+        cfg, opt, batches, extras = p12_train_setup(torch, name, tr.device)
+        full = registry_params(torch, cfg, torch.float32, tr.device)
+        specs = sharding.param_specs(cfg, full, mesh)
+        flat = [sp for _, sp in sharding.named_specs(specs)]
+        params = sharding.shard_tree(full, specs, mesh)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        names = [k for k, _ in named_leaves(params)]
+        mask = decay_mask(params, cfg)
+        start = [host(p) for p in leaves(params)]
+        state_gb = 4 * sum(p.numel() * p.element_size() for p in leaves(params)) / 1e9
+        coll_ms, grads, after0 = [], [], []
+
+        def timed_all_reduce(t, axes, op="sum"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh_all_reduce(t, axes, op)
+            torch.cuda.synchronize()
+            coll_ms[-1][0] += (time.perf_counter() - t0) * 1e3
+            coll_ms[-1][1] += 1
+            return t
+
+        def before(s):
+            coll_ms.append([0.0, 0])
+            if s == 1:                          # the params after step 0
+                after0.extend(host(p) for p in leaves(params))
+
+        mesh.all_reduce = timed_all_reduce
+        dist.barrier()
+        reset_launch_counts()
+        try:
+            metrics, ms = p12_train_steps(torch, cfg, opt, batches, extras, params,
+                                          mesh=mesh, before=before, keep=grads)
+        finally:
+            del mesh.all_reduce
+        launches = {k: v for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        torch.cuda.empty_cache()
+        lr = float(cosine_lr(opt, 1))
+        out = {}
+        for r in range(n):
+            dist.barrier()
+            if r != rank:
+                continue
+            one = registry_params(torch, cfg, torch.float32, tr.device)
+            blocks = []
+            m1, _ = p12_train_steps(
+                torch, cfg, opt, batches[:1], extras, one, keep=blocks,
+                keep_leaf=lambda i, g: sharding.local_shard(g, flat[i], mesh).clone())
+            gnorm = torch.tensor(m1[0]["grad_norm"], device=tr.device)
+            clip = min(1.0, opt.grad_clip / (m1[0]["grad_norm"] + 1e-9))
+            g_worst = g0_worst = u_worst = s_worst = b_worst = (0.0, "")
+            n_off = n_all = n_past = 0
+            for i, (k, b, p1, sp) in enumerate(zip(names, blocks, leaves(one), flat,
+                                                   strict=True)):
+                dg = (grads[i].to(tr.device) - b).abs()
+                e = float(dg.max()) / max(float(b.abs().max()), 1e-30)
+                if b.ndim:
+                    g_worst = max(g_worst, (e, k))
+                else:
+                    g0_worst = max(g0_worst, (e, k))
+                want = sharding.local_shard(p1.detach(), sp, mesh)
+                rng = float(want.max() - want.min()) or 1.0
+                up = start[i].to(tr.device)
+                adamw_update(opt, [up], [b], OptState(
+                    torch.zeros((), dtype=torch.int32), [torch.zeros_like(up)],
+                    [torch.zeros_like(up)]), decay=[mask[i]], gnorm=gnorm)
+                u_worst = max(u_worst, (float((up - want).abs().max()) / rng, k))
+                d = (after0[i].to(tr.device) - want).abs()
+                n_off += int((d > 1e-5 * rng).sum())
+                n_all += d.numel()
+                allowed = (lr * torch.clamp(clip * dg / opt.eps, max=2.0) + 1e-5 * rng
+                           + 1e-6 * want.abs())
+                n_past += int((d > allowed).sum())
+                b_worst = max(b_worst, (float((d / allowed).max()), k))
+                s_worst = max(s_worst, (float(d.max()) / lr, k))
+            out = dict(grad_worst=g_worst, grad0_worst=g0_worst,
+                       update_worst=u_worst, params_off=n_off, params_past=n_past,
+                       params_bound=b_worst,
+                       params_all=n_all, params_gap_lr=s_worst,
+                       one_gnorm=m1[0]["grad_norm"])
+            del one, blocks
+            torch.cuda.empty_cache()
+        dist.barrier()
+        res[name] = dict(out, metrics=metrics, ms=ms, coll=coll_ms, peak_gb=peak,
+                         state_gb=state_gb, launches=launches)
+        del start, grads, after0
+    print("phase12a " + json.dumps(res), flush=True)
+
+
+def p12_predicted(cfg, steps, grid=None):
+    """Host launches of one rank's prefill and ``steps`` decode steps: one
+    decode attention per self-attention layer and step (``attn``,
+    ``local``, the self half of ``selfcross``), its partial branch where
+    the model axis splits the ring's slots (kv heads that do not divide
+    it); prefill and cross attention run the plain versions."""
+    n = steps * sum(k in ("attn", "local", "selfcross") for k in cfg.layer_kinds)
+    slots = grid is not None and cfg.n_kv_heads % grid[1] != 0
+    return {"decode_attention": n, "decode_attention[partial]": n if slots else 0}
+
+
+def p12_serve_setup(torch, name, dtype, dev):
+    """(config, params, prompts, stub inputs) of 12(b)'s ``name`` in
+    ``dtype``: f32 at one period, bf16 at the serving depth."""
+    from repro_torch.models.stubs import extra_inputs
+    P = P12_SERVE[name]
+    if dtype == torch.float32:
+        cfg = p12_cfg(name, n_layers=P["period"],
+                      encoder_layers=1 if name == "whisper-large-v3" else None)
+    else:
+        cfg = p12_cfg(name, n_layers=P["layers"])
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    prompts = torch.randint(2, cfg.vocab, (P12_BATCH, P["prompt_len"]),
+                            generator=gen).to(dev)
+    return (cfg, registry_params(torch, cfg, dtype, dev), prompts,
+            extra_inputs(cfg, P12_BATCH, dtype=dtype, device=dev))
+
+
+def p12_serve_one(torch, name, dev, out_dir):
+    """12(b)'s ``name`` in one process, f32 then bf16: prefill + greedy
+    decode steps (launches counted), saved under ``out_dir`` with the
+    bf16 prefilled cache, then the same steps again, timed.  Returns
+    {dtype: (ms per step, peak GB, launches)}."""
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    P, out = P12_SERVE[name], {}
+    for dt in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, prompts, extras = p12_serve_setup(torch, name, dt, dev)
+        kept = []
+        reset_launch_counts()
+        logits, toks, _, _ = p11_serve(torch, cfg, params, prompts, P["max_seq"],
+                                       steps=P["steps"], keep=kept, extras=extras)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v for k, v in p12_predicted(cfg, P["steps"]).items() if v}
+        require(launches == want, f"phase 12(b) {name} {dt} one process: launches "
+                f"{launches}, predicted {want}")
+        ms = p11_serve(torch, cfg, params, prompts, P["max_seq"], steps=P["steps"],
+                       extras=extras)[2]
+        out[str(dt)] = (statistics.median(ms[1:]),
+                        torch.cuda.max_memory_allocated() / 1e9, launches)
+        torch.save({"logits": logits, "tokens": toks,
+                    "cache": kept[0] if dt == torch.bfloat16 else None},
+                   out_dir / f"p12-{name}-{str(dt).split('.')[-1]}.pt")
+        del params, kept
+        torch.cuda.empty_cache()
+    return out
+
+
+def p12_serve_child(torch, grid_key, out_dir):
+    """One rank of 12(b) for the models served on ``grid_key`` ("1x4" or
+    "1x2"): its blocks of the ``registry_params`` draw under
+    ``ModelParallel``.  f32 (one period): prefill + greedy decode, the
+    tokens equal to one process's and the logits within 5e-4 of their
+    range.  bf16: the steps fed one process's tokens (each timed), one
+    decode step from one process's prefilled cache (the rank's blocks of
+    it) held by phase 11's rule (``check_bf16_logits``: 5% of the range;
+    no routing in these models), the prefill's logits beside one
+    process's printed (16 tokens through mamba2's 48 bf16 layers part by
+    ~5% of the range: each model-axis sum adds a bf16 rounding the one
+    process does not have), and the collectives of one decode step
+    replayed alone on the host clock.
+    Every run's launches set to 0 just before and read just after, held
+    to ``p12_predicted``.  Prints one JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ModelParallel
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.training.optimizer import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = [k for k, P in P12_SERVE.items() if "x".join(map(str, P["grid"])) == grid_key]
+    grid = P12_SERVE[names[0]]["grid"]
+    tr = MultiControllerTransport(device="cuda")
+    mesh = make_mesh(grid, ("data", "model"), device=tr.device)
+    dev, rank = tr.device, tr.process_index
+    res = {"rank": rank, "device": str(dev), "backend": tr.backend}
+    mesh_all_reduce = mesh.all_reduce
+    for name in names:
+        P = P12_SERVE[name]
+
+        def run(cfg, params, prompts, extras, label, **kw):
+            dist.barrier()
+            reset_launch_counts()
+            with ModelParallel(mesh).install():
+                got = p11_serve(torch, cfg, params, prompts, P["max_seq"],
+                                steps=P["steps"], extras=extras, **kw)
+            launches = {k: v for k, v in launch_counts().items() if v}
+            want = {k: v for k, v in p12_predicted(cfg, P["steps"], grid).items() if v}
+            require(launches == want, f"phase 12(b) {name} {label} rank {rank}: "
+                    f"launches {launches}, predicted {want}")
+            return got, launches
+
+        for dt in (torch.float32, torch.bfloat16):
+            label = str(dt).split(".")[-1]
+            for r in range(mesh.size("model")):     # one whole draw at a time
+                dist.barrier()
+                if r == rank:
+                    cfg, full, prompts, extras = p12_serve_setup(torch, name, dt, dev)
+                    params = sharding.shard_tree(
+                        full, sharding.param_specs(cfg, full, mesh), mesh)
+                    del full
+                    torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ref = torch.load(Path(out_dir) / f"p12-{name}-{label}.pt")
+            r = {"params_gb": sum(p.numel() * p.element_size()
+                                  for p in leaves(params)) / 1e9}
+            if dt == torch.float32:
+                (logits, toks, ms, _), r["launches"] = run(cfg, params, prompts,
+                                                           extras, label)
+                require(torch.equal(toks, ref["tokens"]),
+                        f"phase 12(b) {name} f32 rank {rank}: greedy tokens differ "
+                        f"from one process's")
+                worst = max(float((g - w).abs().max() / w.abs().max())
+                            for g, w in zip(logits, ref["logits"], strict=True))
+                require(worst <= 5e-4, f"phase 12(b) {name} f32 rank {rank}: logits "
+                        f"off by {worst:.3e} of their range")
+                r.update(logits_rel=worst, ms=ms)
+            else:
+                step_calls, cur = [], [-1]
+
+                def recording(t, axes, op="sum"):
+                    if cur[0] == P["steps"] - 1:        # the last decode step's
+                        step_calls.append((tuple(t.shape), t.dtype, axes, op))
+                    return mesh_all_reduce(t, axes, op)
+
+                mesh.all_reduce = recording
+                try:
+                    (logits, _, ms, _), r["launches"] = run(
+                        cfg, params, prompts, extras, label,
+                        forced=ref["tokens"][:-1],
+                        before_step=lambda s: cur.__setitem__(0, s))
+                finally:
+                    del mesh.all_reduce
+                g0, w0 = logits[0], ref["logits"][0]
+                line = (f"prefill logits within "
+                        f"{float((g0 - w0).abs().max() / w0.abs().max()):.3e} of the "
+                        f"range, argmax agreement "
+                        f"{float((g0.argmax(-1) == w0.argmax(-1)).float().mean()):.2f}")
+                blocks = sharding.shard_cache(ref["cache"], mesh, P12_BATCH)
+                blocks = [{k: t.to(dev) for k, t in e.items()} for e in blocks]
+                pos = torch.full((P12_BATCH,), P["prompt_len"], dtype=torch.int32,
+                                 device=dev)
+                with torch.no_grad(), ModelParallel(mesh).install():
+                    got, _ = decode_step(params, cfg, ref["tokens"][0].to(dev),
+                                         blocks, pos)
+                line += "; one step from one process's cache " + check_bf16_logits(
+                    torch, f"phase 12(b) {name} bf16 rank {rank} step",
+                    ref["logits"][1], got.float().cpu(), [], [], cfg.n_layers)
+                del blocks
+                agree = float((torch.stack([lg.argmax(-1) for lg in logits[1:]])
+                               == ref["tokens"][1:]).float().mean())
+                bufs = [torch.zeros(shape, dtype=dtp, device=dev)
+                        for shape, dtp, _, _ in step_calls]
+                reps = []
+                for _ in range(3):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b, (_, _, axes, op) in zip(bufs, step_calls):
+                        mesh_all_reduce(b, axes, op)
+                    torch.cuda.synchronize()
+                    reps.append((time.perf_counter() - t0) * 1e3)
+                r.update(check=line, agree=agree, ms=ms,
+                         coll_ms=statistics.median(reps), n_coll=len(step_calls),
+                         coll_bytes=sum(b.numel() * b.element_size() for b in bufs))
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            res[f"{name}/{label}"] = r
+            del params
+            torch.cuda.empty_cache()
+    dist.barrier()
+    print("phase12b " + json.dumps(res), flush=True)
+
+
+def partial_attention_row_hd256(torch, dev):
+    """The partial branch of ``decode_attention`` at 12(b)'s recurrentgemma
+    shape on one of 4 ranks: q (8, 10, 256) over a (8, 512, 1, 256) block
+    of a 2048-slot ring that every row has wrapped (window 2048), held
+    against its plain version (f32 1e-5, bf16 2e-2) on the block a middle
+    rank holds and with one row of it empty (out 0, lse -inf); timed in
+    bf16 beside the plain version and SDPA over the same block.  Returns
+    the kernels line's shape entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import decode_attention_partial as plain
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, Hkv, hd, W, m = P12_BATCH, 10, 1, 256, 2048, 4
+    Wl = W // m
+    pos = torch.randint(W, 3 * W, (B,), generator=gen, device=dev).to(torch.int32)
+    slots = torch.arange(Wl, 2 * Wl, device=dev)           # rank 1's block
+    cpos = (pos[:, None] - (pos[:, None] - slots[None]) % W).to(torch.int32)
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q = torch.randn(B, H, hd, device=dev, generator=gen).to(dt)
+        k = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(dt)
+        v = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(dt)
+        cp = cpos.clone()
+        cp[0] = -1                                         # row 0: an empty block
+        out, lse = kops.decode_attention(q, k, v, cp, pos, window=W, partial=True)
+        p_out, p_lse = plain(q, k, v, cp, pos, window=W)
+        torch.cuda.synchronize()
+        require(out.dtype == lse.dtype == torch.float32, "partial hd 256: not f32")
+        require(bool(torch.isneginf(lse[0]).all()) and float(out[0].abs().max()) == 0,
+                "partial hd 256: a row with no valid slot")
+        check_close(torch, f"decode_attention[partial] hd 256 {dt}", out, p_out,
+                    tol, tol)
+        check_close(torch, f"decode_attention[partial] hd 256 {dt} lse", lse[1:],
+                    p_lse[1:], tol, tol)
+    q = torch.randn(B, H, hd, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, Wl, Hkv, hd, device=dev, generator=gen).to(torch.bfloat16)
+    args = (q, k, v, cpos, pos)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ok = (cpos >= 0) & (cpos <= pos[:, None]) & (cpos > pos[:, None] - W)
+    valid = int(ok.sum())
+    got, want = kops.decode_attention(*args, window=W, partial=True), \
+        plain(*args, window=W)
+    err = max(max_err(torch, got[0], want[0]), max_err(torch, got[1], want[1]))
+    nbytes = (q.numel() * 2 + valid * Hkv * hd * 2 * 2 + cpos.numel() * 4 + B * 4
+              + B * H * hd * 4 + B * H * 4)
+    r = dict(err=err,
+             ms=time_ms(torch, lambda: kops.decode_attention(*args, window=W,
+                                                             partial=True),
+                        flush=flush),
+             plain_ms=time_ms(torch, lambda: plain(*args, window=W), flush=flush),
+             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                 attn_mask=ok[:, None, None, :], enable_gqa=True), flush=flush),
+             bound=bound_ms(nbytes, 4 * valid * H * hd, "bfloat16"),
+             shape=f"q {tuple(q.shape)} block {tuple(k.shape)} of a wrapped "
+                   f"{W}-slot ring, window {W}, {valid // B} valid slots a row")
+    print(f"decode_attention[partial] {r['shape']}: {r['ms']:.4f} ms, sdpa "
+          f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.5f} ms, max |err| {err:.3e}; f32 within 1e-5 and bf16 "
+          f"within 2e-2 of the plain version, a row with no valid slot 0 and -inf")
+    return r
+
+
+def p12_ranks(torch, flag, arg, n, prefix):
+    """Run ``chip_smoke.py flag arg DIR`` as ``n`` ranks; each rank's JSON
+    line (``prefix``), in rank order."""
+    from repro_torch.launch.dist_smoke import run_ranks
+    out_dir = ROOT / "build" / "phase12"
+    out = run_ranks([str(ROOT / "chip_smoke.py"), flag, arg, str(out_dir)], n,
+                    timeout=P12_TIMEOUT)
+    ranks = []
+    for rank, (rc, text) in enumerate(out):
+        require(rc == 0, f"phase 12 {arg}: rank {rank} exited {rc}:\n{text[-4000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith(prefix + " ")]
+        require(len(lines) == 1, f"phase 12 {arg}: rank {rank} printed no result:\n"
+                f"{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(prefix) + 1:]))
+    return sorted(ranks, key=lambda g: g["rank"])
+
+
+def phase_every_kind(torch, dev):
+    """Phase 12: (a) training and (b) serving of the four families on a
+    rank's shards, each first in one process (memory freed before the
+    ranks start), and (c) the partial branch at hd 256.  Returns the
+    kernels line's partial-branch shape entry, with each recurrentgemma
+    rank's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "phase12"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    med = lambda xs: statistics.median(xs[1:])
+    R = P12_TRAIN_RUN
+    t0 = time.perf_counter()
+    one = {name: p12_train_one(torch, name, dev) for name in P12_TRAIN}
+    ranks = p12_ranks(torch, "--phase12", "a", R["grid"][0] * R["grid"][1],
+                      "phase12a")
+    for name, (ref, ref_ms, ref_peak) in one.items():
+        for g in ranks:
+            r = g[name]
+            step = med(r["ms"])
+            coll = [c[0] for c in r["coll"]]
+            print(f"phase 12(a) {name} rank {g['rank']} on {g['device']} over "
+                  f"{g['backend']}: {step:.2f} ms/step vs {med(ref_ms):.2f} in one "
+                  f"process; {r['coll'][1][1]} model-axis all_reduces a step, "
+                  f"{med(coll):.2f} ms ({med(coll) / step:.3f} of the step); "
+                  f"{r['state_gb']:.2f} GB of params, grads and moments, peak "
+                  f"{r['peak_gb']:.2f} GB (one process {ref_peak:.2f}); losses "
+                  f"{[round(m['loss'], 6) for m in r['metrics']]} vs "
+                  f"{[round(m['loss'], 6) for m in ref]}; worst gradient "
+                  f"{r['grad_worst'][0]:.2e} of max |g| ({r['grad_worst'][1]})"
+                  + (f", of the 0-d leaves {r['grad0_worst'][0]:.2e} "
+                     f"({r['grad0_worst'][1]})" if r["grad0_worst"][1] else "")
+                  + f"; the "
+                  f"update of the same gradients {r['update_worst'][0]:.2e} of the "
+                  f"range; step 0's own params: {r['params_past']} past the gap "
+                  f"their gradients allow (at most {r['params_bound'][0]:.3f} of it, "
+                  f"{r['params_bound'][1]}), {r['params_off']} of {r['params_all']} "
+                  f"past 1e-5 of the range (8(a)'s count), widest gap "
+                  f"{r['params_gap_lr'][0]:.2f} lr ({r['params_gap_lr'][1]})")
+            for s, (m, w) in enumerate(zip(r["metrics"], ref, strict=True)):
+                require(abs(m["loss"] - w["loss"]) <= 1e-5 * abs(w["loss"]),
+                        f"phase 12(a) {name} rank {g['rank']} step {s}: loss "
+                        f"{m['loss']} vs {w['loss']} (one process)")
+            require(abs(r["metrics"][0]["grad_norm"] - r["one_gnorm"])
+                    <= 1e-5 * r["one_gnorm"], f"phase 12(a) {name} rank {g['rank']}: "
+                    f"step 0's norm {r['metrics'][0]['grad_norm']} vs "
+                    f"{r['one_gnorm']}")
+            require(r["grad_worst"][0] <= 1e-4, f"phase 12(a) {name} rank "
+                    f"{g['rank']}: gradient {r['grad_worst'][1]} off by "
+                    f"{r['grad_worst'][0]:.2e} of its max |g|")
+            # a 0-d leaf's gradient (llama-vision's tanh gates) is one sum
+            # of B * T * d products of both signs (4.2 M at width 8192),
+            # each rounded otherwise on the two paths; cancellation over so
+            # many terms lifts the sum's relative rounding error about
+            # sqrt(N)-fold, so it is held at 1e-2 of |g| where every other
+            # leaf is held at 1e-4 of its max |g| (8(a)'s rule)
+            require(r["grad0_worst"][0] <= 1e-2, f"phase 12(a) {name} rank "
+                    f"{g['rank']}: gradient {r['grad0_worst'][1]} off by "
+                    f"{r['grad0_worst'][0]:.2e} of |g|")
+            require(r["update_worst"][0] <= 1e-5, f"phase 12(a) {name} rank "
+                    f"{g['rank']}: the update of one process's gradients gives "
+                    f"{r['update_worst'][1]} off by {r['update_worst'][0]:.2e} of "
+                    f"its range")
+            require(r["params_past"] == 0, f"phase 12(a) {name} rank {g['rank']}: "
+                    f"{r['params_past']} elements of step 0's params past what their "
+                    f"gradients' gap allows through AdamW's first step")
+            require(not r["launches"], f"phase 12(a) {name}: the training path "
+                    f"launched {r['launches']}")
+    print(f"phase 12(a) f32, TF32 off, batch {R['batch']} x seq {R['seq']}, "
+          f"{R['steps']} steps on a {R['grid']} grid: {time.perf_counter() - t0:.1f} s "
+          f"with the one-process runs and the ranks' start")
+    t0 = time.perf_counter()
+    row = partial_attention_row_hd256(torch, dev)
+    one = {name: p12_serve_one(torch, name, dev, out_dir) for name in P12_SERVE}
+    for key in ("1x4", "1x2"):
+        names = [k for k, P in P12_SERVE.items()
+                 if "x".join(map(str, P["grid"])) == key]
+        grid = P12_SERVE[names[0]]["grid"]
+        ranks = p12_ranks(torch, "--phase12", key, grid[0] * grid[1], "phase12b")
+        for name in names:
+            P = P12_SERVE[name]
+            ms1, peak1, l1 = one[name]["torch.bfloat16"]
+            for g in ranks:
+                b, f = g[f"{name}/bfloat16"], g[f"{name}/float32"]
+                step = med(b["ms"])
+                print(f"phase 12(b) {name} rank {g['rank']} on a {grid} grid over "
+                      f"{g['backend']}: bf16 {step:.2f} ms per decode step (fed one "
+                      f"process's tokens, median of steps 2-{P['steps']}) vs "
+                      f"{ms1:.2f} in one process (greedy); "
+                      f"model-axis collectives of one step ({b['n_coll']} "
+                      f"all_reduces, {b['coll_bytes'] / 1e6:.3f} MB) replayed alone "
+                      f"{b['coll_ms']:.2f} ms ({b['coll_ms'] / step:.3f} of the "
+                      f"step); params {b['params_gb']:.2f} GB, peak "
+                      f"{b['peak_gb']:.2f} GB (one process {peak1:.2f}); launches "
+                      f"{b['launches']} (one process {l1}); argmax agreement "
+                      f"{b['agree']:.3f}; f32 tokens exact, logits within "
+                      f"{f['logits_rel']:.2e} of their range, {med(f['ms']):.2f} "
+                      f"ms/step vs {one[name]['torch.float32'][0]:.2f}; bf16: "
+                      f"{b['check']}")
+            if name == "recurrentgemma-2b":
+                row["rank_launches"] = [
+                    g[f"{name}/bfloat16"]["launches"]["decode_attention[partial]"]
+                    for g in ranks]
+    print(f"phase 12(b) {P12_BATCH} requests, bf16 at published width "
+          f"(llama-3.2-vision-90b at 5 layers), f32 at one period: "
+          f"{time.perf_counter() - t0:.1f} s with the one-process runs and the "
+          f"ranks' start")
+    return row
+
+
+def phase12_child(argv) -> int:
+    """``chip_smoke.py --phase12 a|1x4|1x2 OUT_DIR``: one rank of phase
+    12(a) or of 12(b) on one grid, started by ``phase_every_kind`` with
+    the ``REPRO_*`` variables, on cuda:0 over gloo."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    if argv[0] == "a":
+        p12_train_child(torch, argv[1])
+    else:
+        p12_serve_child(torch, argv[0], argv[1])
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def phase11_child(argv) -> int:
     """``chip_smoke.py --phase11 a|b OUT_DIR``: one rank of phase 11(a) or
     (b), started by ``phase_serving_grid`` with the ``REPRO_*``
@@ -3832,7 +4512,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
         rows["decode_attention[partial]"] = phase_serving_grid(torch, dev)
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        p12_row = phase_every_kind(torch, dev)
         t_end = time.perf_counter()
+        partial = rows["decode_attention[partial]"]
+        partial["phase12_rank_launches"] = p12_row["rank_launches"]
+        partial["shapes"] = [dict(partial, model="minitron-4b (phase 11(b))",
+                                  path_launches=partial["launches"]),
+                             dict(p12_row, model="recurrentgemma-2b (phase 12(b))",
+                                  path_launches=p12_row["rank_launches"][0])]
         for name in ("decode_attention", "gating_dispatch", "grouped_matmul"):
             for sh in rows[name]["shapes"]:
                 if "model" in sh:
@@ -3855,6 +4544,7 @@ def main() -> int:
                 kernels[-1][f"phase{phase}_rank_launches"] = r["rank_launches"]
             if name == "decode_attention[partial]":
                 kernels[-1]["shape"] = r["shape"]
+                kernels[-1]["phase12_rank_launches"] = r["phase12_rank_launches"]
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
@@ -3870,7 +4560,8 @@ def main() -> int:
         return 1
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
           f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t10 - t9:.1f} s, phase 10 in "
-          f"{t11 - t10:.1f} s, phase 11 in {t_end - t11:.1f} s")
+          f"{t11 - t10:.1f} s, phase 11 in {t12 - t11:.1f} s, phase 12 in "
+          f"{t_end - t12:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3928,6 +4619,33 @@ def phase11_only() -> int:
     return 0
 
 
+def phase12_only() -> int:
+    """``chip_smoke.py --phase12-only``: phase 12 alone (its kernels built
+    first, one ``nvcc`` per source)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
+    from repro_torch.kernels.cuda_build import build_all
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_line()}, "
+          f"{torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    try:
+        build_all()
+        t1 = time.perf_counter()
+        row = phase_every_kind(torch, torch.device("cuda", 0))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: build {t1 - t0:.1f} s, phase 12 in "
+          f"{time.perf_counter() - t1:.1f} s; partial row at hd 256 "
+          f"{json.dumps({k: v for k, v in row.items()})}")
+    return 0
+
+
 def child_exit(rc: int):
     """Leave a rank process without the interpreter's finalization, where
     the gloo groups' leftover C++ objects can abort it ("terminate called
@@ -3939,6 +4657,10 @@ def child_exit(rc: int):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase12"]:
+        child_exit(phase12_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase12-only"]:
+        sys.exit(phase12_only())
     if sys.argv[1:2] == ["--phase11"]:
         child_exit(phase11_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase11-only"]:

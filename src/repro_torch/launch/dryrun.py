@@ -26,14 +26,13 @@ tensor on it lives).  The record keeps the JAX record's keys; its
 ``t_compile_s`` the time of the meta run.
 
 Each record is "ok", "skipped" (the JAX package's reasons) or
-"unsupported" with its reason: the layer kinds without a model axis
-(``parallel.check_kinds``: mamba2, recurrentgemma, whisper,
-llama-vision), query heads that do not split over "model"
-(minitron-4b's 24 and arctic-480b's 56 on 16 ranks), ``--seq-parallel``
-(the port has no sequence parallelism), and a train step under
-``--fsdp``, ``--expert-shard ep2d`` or ``--moe-impl m2n|m2n2d`` (the
-port's grid train step takes the "ep" rules' blocks and routes the
-experts the JAX baseline's way).  Serving under ``--moe-impl m2n`` /
+"unsupported" with its reason: a layer kind without a model axis
+(``parallel.check_kinds``; every kind of the registry has one),
+``--seq-parallel`` (the port has no sequence parallelism), a train step
+under ``--fsdp``, ``--expert-shard ep2d`` or ``--moe-impl m2n|m2n2d``
+(the port's grid train step takes the "ep" rules' blocks and routes the
+experts the JAX baseline's way), and m2n2d where the data ranks do not
+divide an expert's d_ff.  Serving under ``--moe-impl m2n`` /
 ``m2n2d`` runs ``core.m2n`` over "model" (``weights_2d`` with each
 expert's d_ff split over the data axes), each rank holding its m2n
 shard of the experts.  Serving
@@ -117,13 +116,6 @@ def unsupported_reason(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, *,
         parallel.check_kinds(cfg.layer_kinds)
     except NotImplementedError as e:
         return str(e)
-    m, H, hd = mesh.size("model"), cfg.n_heads, cfg.resolved_head_dim
-    if (H * hd) % m == 0 and H % m:
-        return (f"{H} query heads do not split over the {m} ranks of 'model': "
-                f"the rule splits wq's {H * hd} columns mid-head, and the port's "
-                f"attention on a rank's shards takes whole heads")
-    if (H * hd) % m and shape_cfg.kind == "decode":
-        return "decode under a model axis needs wq's heads split over it"
     if seq_parallel:
         return ("the port has no sequence parallelism (JAX's ACT_SPEC): every "
                 "model rank holds the batch's activations")

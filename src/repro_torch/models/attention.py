@@ -1,7 +1,8 @@
 """Attention math: grouped-query attention for prefill (chunked over
 queries), single-token decode attention over a ring-buffer KV cache
 or, through a block table, over a paged KV pool, and full cross
-attention to static source embeddings.
+attention to static source embeddings (or to a block of them, with its
+log-sum-exp, for a merge across ranks).
 
 Shapes follow the JAX package:
   q: (B, Sq, H, hd)    k, v: (B, Sk, Hkv, hd)    H = Hkv * rep (GQA).
@@ -131,3 +132,16 @@ def cross_attention(q, k, v) -> torch.Tensor:
     q: (B, Sq, H, hd); k, v: (B, Ssrc, Hkv, hd).  Returns (B, Sq, H, hd)."""
     s = _grouped_scores(q, k, q.shape[-1] ** -0.5)
     return _grouped_out(torch.softmax(s, dim=-1), v, q.dtype)
+
+
+def cross_attention_partial(q, k, v):
+    """``cross_attention`` over a block of the source's slots (a rank's,
+    where a model axis splits the cached source): (out (B, Sq, H, hd) f32,
+    lse (B, Sq, H) f32), the softmax-weighted row over the block and its
+    log-sum-exp, which ``models.parallel.merge_partials`` merges into the
+    row over every block."""
+    s = _grouped_scores(q, k, q.shape[-1] ** -0.5)                  # (B,g,r,Sq,S)
+    lse = torch.logsumexp(s, dim=-1)                                # (B,g,r,Sq)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", torch.exp(s - lse[..., None]), v.float())
+    B, Sq, H = q.shape[:3]
+    return o.reshape(B, Sq, H, -1), lse.permute(0, 3, 1, 2).reshape(B, Sq, H)

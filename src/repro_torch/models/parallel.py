@@ -40,18 +40,41 @@ through two conjugate operators (Megatron's f and g):
     ``torch.distributed.nn.functional.all_reduce`` sums again in
     backward, which would count each rank's gradient m times here.
 
+Two compositions recur.  A rank's block that the next op needs whole
+(RG-LRU's conv output before the gate matrices, split by column only;
+SSD's projection and conv output, whose blocks straddle the
+``[z | x | B | C | dt]`` segments) is gathered and then entered:
+``enter_gather``.  A statistic over a dim split across the ranks (the
+sum of squares of SSD's gated RMSNorm over all of d_inner) is summed
+and then entered: ``enter_sum``.  ``reduce`` alone would hand each rank
+only its own block's share of the gradient.
+
 Under remat the non-reentrant checkpoint re-runs a block period's
 forward, collectives included, in backward: every rank reaches them in
-the same order because every rank builds the same graph.  Only the
-``attn`` and ``local`` kinds have a model axis (``KINDS``);
-``training.loop.make_train_step``, ``transformer.prefill`` and
-``transformer.decode_step`` raise for the others.
+the same order because every rank builds the same graph.  Every layer
+kind of ``config.LAYER_KINDS`` has a model axis (``KINDS``):
 
-Serving (``prefill``, ``decode_step``) holds each layer's KV ring in the
-rank's block under ``launch.sharding.cache_entry_specs``: its kv heads
-where they split over "model", else every kv head on its block of the
-ring's slots (``kv_spec``).  With slots split the ranks' partial softmax
-rows are merged by ``merge_partials``.
+  * ``attn`` / ``local`` / the self half of ``selfcross``: as above.
+    Query heads that do not split over the axis (24 on 16 ranks: the
+    rule cuts ``wq``'s columns mid-head) are all computed on every rank
+    from the gathered, entered weight, and the rank keeps its block of
+    the flattened head columns before its rows of ``wo``;
+  * ``cross`` / the cross half of ``selfcross``: q from the rank's
+    columns, K / V of the source from the rank's kv heads (or every kv
+    head, the split weight gathered), ``wo``'s rows, a sum;
+  * ``rglru``: the rank's block of the recurrence width; the gates read
+    every channel of the conv output (``enter_gather``);
+  * ``ssd``: the rank's heads, with the whole B and C (one group) and a
+    cross-rank RMSNorm.
+
+Serving (``prefill``, ``decode_step``) holds each layer's cache in the
+rank's block under ``launch.sharding.cache_entry_specs``.  A KV ring or
+a cross source (``k_src`` / ``v_src``) holds the rank's kv heads where
+they split over "model", else every kv head on its block of the slots
+(``kv_spec``), or the whole source where its length does not divide.
+With slots split the ranks' partial softmax rows are merged by
+``merge_partials``.  The recurrent states ``h`` / ``ssm`` and the conv
+windows hold the rank's channels or heads.
 """
 from __future__ import annotations
 
@@ -63,8 +86,9 @@ import torch
 
 _ACTIVE: Optional["ModelParallel"] = None
 
-# the layer kinds that run with a model axis above 1
-KINDS = ("attn", "local")
+# the layer kinds that run with a model axis above 1 (every kind of
+# ``config.LAYER_KINDS``; ``check_kinds`` refuses a kind added later)
+KINDS = ("attn", "local", "cross", "selfcross", "rglru", "ssd")
 
 
 def current() -> Optional["ModelParallel"]:
@@ -123,6 +147,17 @@ class ModelParallel:
     def enter(self, t: torch.Tensor) -> torch.Tensor:
         return _Enter.apply(t, self.mesh) if self.size > 1 else t
 
+    def enter_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``gather`` of the rank's block, entered: the whole tensor for a
+        use inside the rank's region, whose gradient (partial on each rank)
+        is summed before each rank takes its block's."""
+        return self.enter(self.gather(t, dim))
+
+    def enter_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over "model" of each rank's ``t``, entered: a statistic
+        over a split dim used inside the ranks' regions."""
+        return self.enter(self.reduce(t))
+
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order,
         replicated: each rank's block in a zero-filled tensor, summed (gloo
@@ -158,10 +193,12 @@ class ModelParallel:
                        axes="model") -> torch.Tensor:
         """The flash-decoding merge of each rank's attention row over its
         block of the ring's slots: ``out`` (B, H, hd) f32 and ``lse`` (B, H)
-        f32 from ``decode_attention(partial=True)``.  A ``MAX``
+        f32 from ``decode_attention(partial=True)``, or (B, Sq, H, hd) and
+        (B, Sq, H) from ``attention.cross_attention_partial`` over a block
+        of a cross source's slots.  A ``MAX``
         ``all_reduce`` of lse gives the shift M, then one ``SUM`` of
         exp(lse - M) * out beside exp(lse - M) gives the row over every
-        rank's slots, (B, H, hd) f32.  A row that no rank holds a valid
+        rank's slots, in ``out``'s shape, f32.  A row that no rank holds a valid
         slot of (lse -inf everywhere) comes out 0.  Serving runs no
         autograd, so there is no conjugate operator here (the values are
         merged as plain tensors)."""

@@ -10,13 +10,26 @@ heads.
 The recurrence across chunk states runs as a loop over the chunks here;
 the JAX package runs it as an ``associative_scan``.  The same products
 and sums in another order: the two agree to f32 rounding.
+
+Under a model axis (``models.parallel``) a rank runs its heads.  The
+rules cut ``in_proj``'s columns and ``conv_w`` / the ``conv`` window
+into contiguous blocks that straddle the ``[zg | xin | B | C | dt]``
+segments, so a layer takes four collectives: the projection gathered
+(entered), the rank's block of the conv on its window, the conv output
+gathered (entered); then the rank's heads of ``xin``, ``dt``,
+``dt_bias``, ``A_log``, ``D`` and the ``ssm`` state with the whole B and
+C; the gated RMSNorm over all of d_inner with its sum of squares summed
+over the ranks (entered); ``out_proj``'s rows, then a sum.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SSMConfig
+from repro_torch.models import parallel
 from repro_torch.models.common import rms_norm
 from repro_torch.models.rglru import causal_conv1d
 
@@ -118,46 +131,148 @@ def _heads(params: dict, dt: torch.Tensor):
             -torch.exp(params["A_log"].float()))
 
 
+class _Shards(NamedTuple):
+    """A rank's place in an SSD layer under a model axis: its heads, and
+    its blocks of ``in_proj``'s columns and of the conv width (None where
+    the rule leaves the leaf whole)."""
+    mp: "parallel.ModelParallel"
+    heads: slice
+    proj: Optional[slice]
+    conv: Optional[slice]
+
+
+def _shards(params: dict, cfg: SSMConfig, d_model: int) -> Optional[_Shards]:
+    """The layer's ``_Shards``, or None where nothing is split (one
+    process, or every leaf whole).  The heads must split where any leaf
+    does: the rules split them with d_inner whenever the axis divides
+    them."""
+    mp = parallel.current()
+    if mp is None:
+        return None
+    di, n, h = cfg.d_inner(d_model), cfg.d_state, cfg.n_heads(d_model)
+    heads = mp.block(h, params["A_log"].shape[0])
+    proj = mp.block(2 * di + 2 * n + h, params["in_proj"].shape[1])
+    conv = mp.block(di + 2 * n, params["conv_w"].shape[1])
+    if heads is None:
+        if proj is None and conv is None and mp.block(di, params["norm"].shape[0]) is None:
+            return None
+        raise NotImplementedError(f"{h} SSD heads do not split over {mp.size} "
+                                  f"ranks while the rules split the layer's leaves")
+    return _Shards(mp, heads, proj, conv)
+
+
+def _project(params: dict, x: torch.Tensor, sh: _Shards) -> torch.Tensor:
+    """Every column of ``x @ in_proj`` on every rank, entered (each rank's
+    block gathered where the rule splits the columns)."""
+    if sh.proj is None:
+        return sh.mp.enter(x @ params["in_proj"])
+    return sh.mp.enter_gather(sh.mp.enter(x) @ params["in_proj"], -1)
+
+
+def _conv_weight(params: dict, sh: _Shards) -> torch.Tensor:
+    """``conv_w`` as this rank's block uses it: a whole weight enters the
+    rank's region."""
+    return params["conv_w"] if sh.conv is not None else sh.mp.enter(params["conv_w"])
+
+
+def _conv_cols(t: torch.Tensor, sh: _Shards) -> torch.Tensor:
+    """This rank's block of the conv width of ``t`` (..., di + 2n)."""
+    return t if sh.conv is None else t[..., sh.conv]
+
+
+def _conv_all(t: torch.Tensor, sh: _Shards) -> torch.Tensor:
+    """Every channel of the conv output from this rank's block of it."""
+    return t if sh.conv is None else sh.mp.enter_gather(t, -1)
+
+
+def _head_cols(sh: _Shards, p: int) -> slice:
+    return slice(sh.heads.start * p, sh.heads.stop * p)
+
+
+def _gated_norm(params: dict, y: torch.Tensor, zg: torch.Tensor,
+                sh: Optional[_Shards], di: int, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm(y, norm) * silu(zg)`` over all of d_inner; with ``sh``,
+    y holds the rank's heads' columns and the sum of squares is summed
+    over the ranks."""
+    if sh is None:
+        return rms_norm(y, params["norm"]) * F.silu(zg)
+    yf = y.float()
+    ss = sh.mp.enter_sum(yf.square().sum(dim=-1, keepdim=True))
+    out = (yf * torch.rsqrt(ss / di + eps) * (1.0 + params["norm"].float())).to(y.dtype)
+    return out * F.silu(zg)
+
+
+def _out(params: dict, y: torch.Tensor, sh: Optional[_Shards]) -> torch.Tensor:
+    y = y @ params["out_proj"]
+    return y if sh is None else sh.mp.reduce(y)
+
+
 def ssd_block(params: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
               state: dict | None = None):
     """Full Mamba-2 block over a sequence.  x: (B, T, d).
 
-    state: {"ssm": (B, h, p, n) f32, "conv": (B, K-1, di+2n)} or None."""
+    state: {"ssm": (B, h, p, n) f32, "conv": (B, K-1, di+2n)} or None;
+    under a model axis the rank's heads and conv block (``_Shards``)."""
     Bsz, T, _ = x.shape
-    h, p, n = cfg.n_heads(d_model), cfg.head_dim, cfg.d_state
+    p, n = cfg.head_dim, cfg.d_state
     di = cfg.d_inner(d_model)
-    zg, xin, Bc, Cc, dt = _split_proj(x @ params["in_proj"], cfg, d_model)
+    sh = _shards(params, cfg, d_model)
+    z = x @ params["in_proj"] if sh is None else _project(params, x, sh)
+    zg, xin, Bc, Cc, dt = _split_proj(z, cfg, d_model)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)
     cache = state["conv"] if state is not None else None
-    conv_out, new_conv = causal_conv1d(conv_in, params["conv_w"], cache)
+    if sh is None:
+        conv_out, new_conv = causal_conv1d(conv_in, params["conv_w"], cache)
+    else:
+        conv_out, new_conv = causal_conv1d(_conv_cols(conv_in, sh),
+                                           _conv_weight(params, sh), cache)
+        conv_out = _conv_all(conv_out, sh)
+        cols = _head_cols(sh, p)
+        zg, dt = zg[..., cols], dt[..., sh.heads]
     xin, Bc, Cc = torch.split(F.silu(conv_out), [di, n, n], dim=-1)
+    if sh is not None:
+        xin = xin[..., cols]
     dt, A = _heads(params, dt)                                    # (B,T,h), (h,)
+    h = A.shape[0]                                                # the rank's heads
     xh = xin.reshape(Bsz, T, h, p)
     x_dt = xh.float() * dt[..., None]
     h0 = state["ssm"] if state is not None else None
     y, final = ssd_chunked(x_dt, dt * A, Bc, Cc, cfg.chunk, h0)
     y = y + params["D"].float()[:, None] * xh.float()
-    y = y.reshape(Bsz, T, di).to(x.dtype)
-    y = rms_norm(y, params["norm"]) * F.silu(zg)
-    return y @ params["out_proj"], {"ssm": final, "conv": new_conv}
+    y = y.reshape(Bsz, T, h * p).to(x.dtype)
+    y = _gated_norm(params, y, zg, sh, di)
+    return _out(params, y, sh), {"ssm": final, "conv": new_conv}
 
 
 def ssd_block_step(params: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
                    state: dict):
     """Single-token decode.  x: (B, d).  Returns (y, new_state); the
-    caller writes the new state into its cache."""
+    caller writes the new state into its cache (as ``ssd_block``, the
+    rank's blocks under a model axis)."""
     Bsz = x.shape[0]
-    h, p, n = cfg.n_heads(d_model), cfg.head_dim, cfg.d_state
+    p, n = cfg.head_dim, cfg.d_state
     di = cfg.d_inner(d_model)
-    zg, xin, Bc, Cc, dt = _split_proj(x @ params["in_proj"], cfg, d_model)
+    sh = _shards(params, cfg, d_model)
+    z = x @ params["in_proj"] if sh is None else _project(params, x, sh)
+    zg, xin, Bc, Cc, dt = _split_proj(z, cfg, d_model)
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)                    # (B, di+2n)
+    w = params["conv_w"]
+    if sh is not None:
+        conv_in = _conv_cols(conv_in, sh)
+        cols = _head_cols(sh, p)
+        zg, dt = zg[..., cols], dt[..., sh.heads]
     xc = torch.cat([state["conv"].to(conv_in.dtype), conv_in[:, None]], dim=1)
-    conv_out = (xc.float() * params["conv_w"].float()[None]).sum(dim=1)
+    conv_out = (xc.float() * w.float()[None]).sum(dim=1)
+    if sh is not None:
+        conv_out = _conv_all(conv_out, sh)
     xin, Bc, Cc = torch.split(F.silu(conv_out).to(x.dtype), [di, n, n], dim=-1)
+    if sh is not None:
+        xin = xin[..., cols]
     dt, A = _heads(params, dt)                                    # (B,h)
+    h = A.shape[0]
     xh = xin.reshape(Bsz, h, p)
     y, new_ssm = ssd_step(xh, dt * A, dt, Bc, Cc, state["ssm"])
     y = y + params["D"].float()[:, None] * xh.float()
-    y = y.reshape(Bsz, di).to(x.dtype)
-    y = rms_norm(y, params["norm"]) * F.silu(zg)
-    return y @ params["out_proj"], {"ssm": new_ssm, "conv": xc[:, 1:]}
+    y = y.reshape(Bsz, h * p).to(x.dtype)
+    y = _gated_norm(params, y, zg, sh, di)
+    return _out(params, y, sh), {"ssm": new_ssm, "conv": xc[:, 1:]}

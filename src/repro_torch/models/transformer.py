@@ -269,42 +269,92 @@ def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str,
     return _maybe_post(p, "ln2_post", y, cfg), aux
 
 
-def _qkv(p, h, cfg: ModelConfig):
-    """(q (B, T, Hl, hd), k, v (B, T, Hkv', hd)): the projections of the
-    normed h for this rank's query heads; without a model axis (or where
-    the rules left ``wq`` whole) every head.
+def _qkv(p, h, cfg: ModelConfig, source=None, prefix: str = ""):
+    """(q (B, T, Hq, hd), k, v (B, S, Hkv', hd)): the projections of the
+    normed h (and of ``source`` (B, S, d) for K / V where given: a cross
+    layer, whose weights carry ``prefix``) for this rank's query heads;
+    without a model axis (or where the rules left ``wq`` whole) every
+    head.
 
-    Under a model axis ``wq`` holds the contiguous heads [h0, h0 + Hl)
-    of this rank.  ``wk`` / ``wv`` hold the matching kv heads where Hkv
-    splits over the axis, and k / v are then those Hkv / m heads; where
-    it does not (reduced mixtral and granite have one kv head), the rule
-    still splits their columns whenever Hkv * hd divides the axis, so
-    the whole weight is gathered first and enters the rank's region (its
-    gradient the sum over the ranks), as is a weight the rule left
-    whole, and k / v hold every kv head (``_rank_kv`` picks the ones the
-    rank's query heads read)."""
+    Under a model axis ``wq`` holds the rank's block of the H * hd
+    columns: the contiguous heads [h0, h0 + Hl) where H splits over the
+    axis, else a block that cuts a head, and then the whole weight is
+    gathered and enters the rank's region, so q holds every head (the
+    rank keeps its columns before ``wo``: ``_out_proj``).  ``wk`` / ``wv``
+    hold the matching kv heads where Hkv splits over the axis, and k / v
+    are then those Hkv / m heads; where it does not (reduced mixtral and
+    granite have one kv head), the rule still splits their columns
+    whenever Hkv * hd divides the axis, so the whole weight is gathered
+    first and enters the rank's region (its gradient the sum over the
+    ranks), as is a weight the rule left whole, and k / v hold every kv
+    head (``_rank_kv`` picks the ones the rank's query heads read)."""
     B, T, _ = h.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    src = h if source is None else source
+    S = src.shape[1]
+    wq, wk, wv = (p[prefix + n] for n in ("wq", "wk", "wv"))
     mp = parallel.current()
-    heads = mp.block(H * hd, p["wq"].shape[1]) if mp is not None else None
+    heads = mp.block(H * hd, wq.shape[1]) if mp is not None else None
     if heads is None:
-        return ((h @ p["wq"]).reshape(B, T, H, hd),
-                (h @ p["wk"]).reshape(B, T, Hkv, hd),
-                (h @ p["wv"]).reshape(B, T, Hkv, hd))
-    if H % mp.size:
-        raise NotImplementedError(f"{H} heads do not split over {mp.size} ranks")
+        return ((h @ wq).reshape(B, T, H, hd),
+                (src @ wk).reshape(B, S, Hkv, hd),
+                (src @ wv).reshape(B, S, Hkv, hd))
     x = mp.enter(h)
-    q = (x @ p["wq"]).reshape(B, T, H // mp.size, hd)
+    xs = x if source is None else mp.enter(source)
+    if H % mp.size:
+        wq = mp.enter_gather(wq, 1)
+    q = (x @ wq).reshape(B, T, -1, hd)
     kv = []
-    for name in ("wk", "wv"):
-        w = p[name]
+    for w in (wk, wv):
         if Hkv % mp.size == 0 and w.shape[1] * mp.size == Hkv * hd:
-            kv.append((x @ w).reshape(B, T, Hkv // mp.size, hd))
+            kv.append((xs @ w).reshape(B, S, Hkv // mp.size, hd))
             continue
-        if w.shape[1] != Hkv * hd:
-            w = mp.gather(w, 1)
-        kv.append((x @ mp.enter(w)).reshape(B, T, Hkv, hd))
+        w = mp.enter(w) if w.shape[1] == Hkv * hd else mp.enter_gather(w, 1)
+        kv.append((xs @ w).reshape(B, S, Hkv, hd))
     return q, kv[0], kv[1]
+
+
+def _out_proj(p, out, cfg: ModelConfig, name: str = "wo"):
+    """``out`` (..., n_q * hd) through ``p[name]``: under a model axis that
+    splits its rows, this rank's block of the flattened head columns (all
+    of them are computed where the query heads do not split) times its
+    rows, summed over the axis."""
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    wo = p[name]
+    mp = parallel.current()
+    rows = mp.block(H * hd, wo.shape[0]) if mp is not None else None
+    if rows is None:
+        return out @ wo
+    if out.shape[-1] != wo.shape[0]:
+        out = out[..., rows]
+    return mp.reduce(out @ wo)
+
+
+def _every_head(p, h, cfg: ModelConfig, names, prefix: str = ""):
+    """Every head of the projections ``names`` (of "wq", "wk", "wv") of the
+    normed h (B, d), on every rank, for serving (no autograd): a weight
+    the rules split (by heads or mid-head) is applied as the rank's
+    columns and the blocks of all of them gathered in one collective; a
+    whole weight is applied as it is.  Returns (B, heads, hd) each."""
+    B = h.shape[0]
+    hd = cfg.resolved_head_dim
+    width = {"wq": cfg.n_heads * hd, "wk": cfg.n_kv_heads * hd,
+             "wv": cfg.n_kv_heads * hd}
+    mp = parallel.current()
+    out, split = {}, []
+    for n in names:
+        w = p[prefix + n]
+        if w.shape[1] == width[n]:
+            out[n] = h @ w
+        else:
+            split.append((n, h @ w))
+    if split:
+        cols = [y.shape[-1] for _, y in split]
+        g = mp.gather(torch.cat([y for _, y in split], dim=-1), -1)
+        g = g.reshape(B, mp.size, sum(cols))
+        for (n, _), part in zip(split, torch.split(g, cols, dim=-1)):
+            out[n] = part.reshape(B, -1)
+    return [out[n].reshape(B, -1, hd) for n in names]
 
 
 def _rank_kv(t, cfg: ModelConfig, n_q: int):
@@ -319,6 +369,25 @@ def _rank_kv(t, cfg: ModelConfig, n_q: int):
     return t[:, :, torch.arange(h0, h0 + n_q, device=t.device) // (H // Hkv)]
 
 
+def _kv_layout(mp, rows: int, S: int, Hkv: int, hd: int):
+    """This rank's block of a (rows, S, Hkv, hd) KV ring or cross source
+    under ``sharding.cache_entry_specs``: (its kv heads (a slice, or None
+    for every head), its slots (a slice, or None), the axes the slots
+    split over (or None))."""
+    spec = mp.kv_spec(rows, S, Hkv, hd)
+    heads = None
+    if spec[2] is not None:
+        g = Hkv // mp.mesh.size(spec[2])
+        i = mp.mesh.index(spec[2])
+        heads = slice(i * g, (i + 1) * g)
+    slots = None
+    if spec[1] is not None:
+        wl = S // mp.mesh.size(spec[1])
+        i = mp.mesh.index(spec[1])
+        slots = slice(i * wl, (i + 1) * wl)
+    return heads, slots, spec[1]
+
+
 def _slot_axes(mp, rows: int, W: int, Hkv: int, hd: int):
     """The axes ``cache_entry_specs`` splits a ring's slots over where
     they divide (None for none): the rule's choice for a width that every
@@ -327,28 +396,14 @@ def _slot_axes(mp, rows: int, W: int, Hkv: int, hd: int):
 
 
 def _ring_layout(mp, rows: int, W: int, Hkv: int, hd: int):
-    """This rank's block of a (rows, W, Hkv, hd) KV ring under
-    ``sharding.cache_entry_specs``: (its kv heads (a slice, or None for
-    every head), its slots (a slice, or None), the axes the slots split
-    over (or None)).  A ring whose slots the rule would split over axes
-    that do not divide them is refused: the rank could not tell its
-    block from its shape."""
-    spec = mp.kv_spec(rows, W, Hkv, hd)
+    """``_kv_layout`` of a (rows, W, Hkv, hd) KV ring.  A ring whose slots
+    the rule would split over axes that do not divide them is refused:
+    the rank could not tell its block from its shape."""
     want = _slot_axes(mp, rows, W, Hkv, hd)
-    if spec[1] != want:
+    if mp.kv_spec(rows, W, Hkv, hd)[1] != want:
         raise NotImplementedError(f"a ring of {W} slots does not split over "
                                   f"the {want} axes")
-    heads = None
-    if spec[2] is not None:
-        g = Hkv // mp.mesh.size(spec[2])
-        i = mp.mesh.index(spec[2])
-        heads = slice(i * g, (i + 1) * g)
-    slots = None
-    if spec[1] is not None:
-        wl = W // mp.mesh.size(spec[1])
-        i = mp.mesh.index(spec[1])
-        slots = slice(i * wl, (i + 1) * wl)
-    return heads, slots, spec[1]
+    return _kv_layout(mp, rows, W, Hkv, hd)
 
 
 def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = True,
@@ -367,10 +422,7 @@ def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = Tru
     out = attn_lib.attention(q, _rank_kv(k, cfg, n_q), _rank_kv(v, cfg, n_q),
                              positions, positions, causal=causal,
                              window=window, attn_softcap=cfg.attn_softcap)
-    y = out.reshape(B, T, -1) @ p["wo"]
-    if n_q != cfg.n_heads:     # this rank's heads: wo's rows of them
-        y = parallel.current().reduce(y)
-    delta = _maybe_post(p, "ln1_post", y, cfg)
+    delta = _maybe_post(p, "ln1_post", _out_proj(p, out.reshape(B, T, -1), cfg), cfg)
     if not build_cache:
         return delta, None
     W = cache_len
@@ -393,15 +445,29 @@ def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = Tru
     return delta, {"k": k_c, "v": v_c, "pos": pos_c}
 
 
-def _cross_kv(p, cfg: ModelConfig, source, prefix=""):
-    """K / V of the source embeddings (B, S, d): ``ln_kv``-normed first
-    where the layer has one (the llama-3.2-vision cross layer)."""
-    B, S, _ = source.shape
-    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+def _cross_sublayer(p, x, cfg: ModelConfig, source, ln: str, prefix: str,
+                    build_cache: bool):
+    """Cross attention of the ``ln``-normed x to the source embeddings (B,
+    S, d), ``ln_kv``-normed first where the layer has one (the
+    llama-3.2-vision cross layer).  Returns (delta, {"k_src", "v_src"} or
+    None): under a model axis the rank's heads (``_qkv``) and its block of
+    the source's K / V (``_kv_layout``: its kv heads, its slots or the
+    whole source)."""
+    B, T, _ = x.shape
     src = rms_norm(source, p["ln_kv"]) if "ln_kv" in p else source
-    k = (src @ p[prefix + "wk"]).reshape(B, S, Hkv, hd)
-    v = (src @ p[prefix + "wv"]).reshape(B, S, Hkv, hd)
-    return k, v
+    q, k, v = _qkv(p, rms_norm(x, p[ln]), cfg, source=src, prefix=prefix)
+    n_q = q.shape[2]
+    out = attn_lib.cross_attention(q, _rank_kv(k, cfg, n_q), _rank_kv(v, cfg, n_q))
+    delta = _out_proj(p, out.reshape(B, T, -1), cfg, prefix + "wo")
+    if not build_cache:
+        return delta, None
+    mp = parallel.current()
+    if mp is not None:
+        _, slots, _ = _kv_layout(mp, B, k.shape[1], cfg.n_kv_heads, k.shape[3])
+        if slots is not None:
+            k, v = (t[:, slots].clone(memory_format=torch.contiguous_format)
+                    for t in (k, v))
+    return delta, {"k_src": k, "v_src": v}
 
 
 def _gated(gate, y, dtype):
@@ -431,30 +497,21 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         dff, aux = ffn(p, x)
         x = x + dff
     elif kind == "cross":
-        B, T, _ = x.shape
-        H, hd = cfg.n_heads, cfg.resolved_head_dim
-        q = (rms_norm(x, p["ln1"]) @ p["wq"]).reshape(B, T, H, hd)
-        k, v = _cross_kv(p, cfg, source)
-        out = attn_lib.cross_attention(q, k, v).reshape(B, T, H * hd)
-        x = x + _gated(p["gate_attn"], out @ p["wo"], x.dtype)
+        delta, cache = _cross_sublayer(p, x, cfg, source, "ln1", "", build_cache)
+        x = x + _gated(p["gate_attn"], delta, x.dtype)
         dff, aux = ffn(p, x)
         x = x + _gated(p["gate_ffn"], dff, x.dtype)
-        if build_cache:
-            cache = {"k_src": k, "v_src": v}
     elif kind == "selfcross":
         delta, cache = _self_attn_sublayer(
             p, x, cfg, positions, build_cache=build_cache, cache_len=max_seq)
         x = x + delta
-        B, T, _ = x.shape
-        H, hd = cfg.n_heads, cfg.resolved_head_dim
-        q = (rms_norm(x, p["ln_cross"]) @ p["c_wq"]).reshape(B, T, H, hd)
-        k, v = _cross_kv(p, cfg, source, prefix="c_")
-        out = attn_lib.cross_attention(q, k, v).reshape(B, T, H * hd)
-        x = x + out @ p["c_wo"]
+        delta, src_cache = _cross_sublayer(p, x, cfg, source, "ln_cross", "c_",
+                                           build_cache)
+        x = x + delta
         dff, aux = ffn(p, x)
         x = x + dff
         if build_cache:
-            cache = dict(cache, k_src=k, v_src=v)
+            cache = dict(cache, **src_cache)
     elif kind == "rglru":
         y, state = rglru_block(p, rms_norm(x, p["ln1"]), cfg.rglru, _gelu, None)
         x = x + y
@@ -516,7 +573,8 @@ def lm_head(params, cfg: ModelConfig, x):
 def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     """Whisper-style encoder over stubbed frame embeddings (B, S, d): a
     learned position embedding, non-causal ``attn`` layers, a final
-    norm."""
+    norm.  Under a model axis its layers are tensor-parallel as the
+    decoder's (the whole ``pos_embed`` on every rank)."""
     enc = params["encoder"]
     x = frames.to(enc["pos_embed"].dtype) + enc["pos_embed"][None]
     B, S, _ = x.shape
@@ -696,37 +754,37 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
 
 
 def _decode_on_shards(p: dict, cfg: ModelConfig, x, pos, cache: dict, window: int):
-    """The decode self-attention sublayer on this rank's shards: its query
-    heads [h0, h0 + Hl) through ``_qkv``, its block of the ring
-    (``_ring_layout``), ``wo``'s rows of its heads, then a sum over
-    "model".
+    """The decode self-attention sublayer on this rank's shards: its block
+    of the ring (``_ring_layout``), ``wo``'s rows of its block of the head
+    columns (``_out_proj``), then a sum over "model".
 
-    * kv heads over "model": the rank's query heads read exactly its kv
-      heads, so it writes its heads' K / V into its ring and attends there.
-    * every kv head on the rank's block of slots: only the rank that holds
-      slot ``pos % W`` of a row writes it.  The query heads are gathered
-      (every rank's q, a zero-filled sum: B * H * hd values, where sending
-      each rank's heads round would take m - 1 collectives), every rank
+    * kv heads over "model": the rank's query heads (``_qkv``) read
+      exactly its kv heads, so it writes its heads' K / V into its ring
+      and attends there.
+    * every kv head on the rank's block of slots: every rank makes every
+      head's q, k and v (``_every_head``: its columns of the split
+      weights, one gather for all of them: B * (H + 2 Hkv) * hd values,
+      where gathering the weights would move d times that per row), only
+      the rank that holds slot ``pos % W`` of a row writes it, every rank
       attends with all H heads over its slots (``decode_attention``'s
       partial branch), ``merge_partials`` combines the ranks, and each
-      keeps its own heads' rows for ``wo``.
+      keeps its own block of the head columns for ``wo``.
     A ring whose slots are also split over the data axes (a batch they do
     not divide) merges over those axes too."""
     mp = parallel.current()
     B = x.shape[0]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     h = rms_norm(x, p["ln1"])
-    q, k, v = _qkv(p, h[:, None], cfg)
-    if q.shape[2] == H:
-        raise NotImplementedError("decode under a model axis needs wq's heads "
-                                  "split over it")
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)[:, 0]
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)[:, 0]
-    v = v[:, 0]
     Wl = cache["k"].shape[1]
     # the axes the rule splits the slots over, hence the ring's width
     n_w = mp.mesh.size(_slot_axes(mp, B, Wl, Hkv, hd) or ())
     heads, slots, w_axes = _ring_layout(mp, B, Wl * n_w, Hkv, hd)
+    if heads is not None:
+        q, k, v = (t[:, 0] for t in _qkv(p, h[:, None], cfg))
+    else:
+        q, k, v = _every_head(p, h, cfg, ("wq", "wk", "wv"))
+    q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     block = (B, Wl, k.shape[1], hd)     # k / v: the rank's kv heads, or all
     if tuple(cache["k"].shape) != block:
         raise ValueError(f"a cache block of {tuple(cache['k'].shape)} where the "
@@ -745,17 +803,12 @@ def _decode_on_shards(p: dict, cfg: ModelConfig, x, pos, cache: dict, window: in
         out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
                                     window=window, attn_softcap=cfg.attn_softcap)
     else:
-        n_q = q.shape[1]
-        q_all = q if heads is not None else mp.gather(q, 1)
-        part, lse = kops.decode_attention(q_all, cache["k"], cache["v"],
-                                          cache["pos"], pos, window=window,
+        part, lse = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                          pos, window=window,
                                           attn_softcap=cfg.attn_softcap,
                                           partial=True)
-        out = mp.merge_partials(part, lse, w_axes)
-        if heads is None:
-            out = out[:, mp.index * n_q:(mp.index + 1) * n_q]
-        out = out.to(q.dtype)
-    delta = mp.reduce(out.reshape(B, -1) @ p["wo"])
+        out = mp.merge_partials(part, lse, w_axes).to(q.dtype)
+    delta = _out_proj(p, out.reshape(B, -1), cfg)
     return _maybe_post(p, "ln1_post", delta, cfg)
 
 
@@ -768,14 +821,38 @@ def ffn_decode_sublayer(p: dict, cfg: ModelConfig, x, capacity_mode: str):
     return _maybe_post(p, "ln2_post", y, cfg)
 
 
-def _cross_decode(p: dict, cfg: ModelConfig, x, cache: dict, ln: str,
+def _cross_decode(p: dict, cfg: ModelConfig, kind: str, x, cache: dict, ln: str,
                   prefix: str):
-    """Single-token cross attention over the cached source K/V."""
+    """Single-token cross attention over the cached source K/V.  Under a
+    model axis ``cache`` holds the rank's block of them (``_kv_layout``):
+    with its kv heads the rank attends with its query heads; with every
+    kv head on the rank's block of the source's slots every rank attends
+    with every head over its slots (``_every_head``: one gather of q) and
+    the rows are merged (``merge_partials``); with the whole source the
+    rank attends with its heads where they split, else with every head.
+    The rank then keeps its block of the head columns for ``wo``."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q = (rms_norm(x, p[ln]) @ p[prefix + "wq"]).reshape(B, 1, H, hd)
-    out = attn_lib.cross_attention(q, cache["k_src"], cache["v_src"])
-    return out.reshape(B, H * hd) @ p[prefix + "wo"]
+    h = rms_norm(x, p[ln])
+    mp = parallel.current()
+    if mp is None:
+        q = (h @ p[prefix + "wq"]).reshape(B, 1, H, hd)
+        out = attn_lib.cross_attention(q, cache["k_src"], cache["v_src"])
+        return out.reshape(B, H * hd) @ p[prefix + "wo"]
+    heads, slots, axes = _kv_layout(mp, B, _source_len(cfg, kind), cfg.n_kv_heads, hd)
+    if heads is None and (slots is not None or H % mp.size):
+        q = _every_head(p, h, cfg, ("wq",), prefix)[0]
+    else:
+        q = (h @ p[prefix + "wq"]).reshape(B, -1, hd)
+    q = q[:, None]
+    if slots is None:
+        n_q = q.shape[2]
+        out = attn_lib.cross_attention(q, _rank_kv(cache["k_src"], cfg, n_q),
+                                       _rank_kv(cache["v_src"], cfg, n_q))
+    else:
+        part, lse = attn_lib.cross_attention_partial(q, cache["k_src"], cache["v_src"])
+        out = mp.merge_partials(part, lse, axes).to(q.dtype)
+    return _out_proj(p, out.reshape(B, -1), cfg, prefix + "wo")
 
 
 def _write_state(cache: dict, state: dict):
@@ -792,13 +869,13 @@ def apply_layer_decode(kind: str, p: dict, cfg: ModelConfig, x, pos,
         x = x + self_attn_decode_sublayer(p, cfg, x, pos, cache, window)
         x = x + ffn_decode_sublayer(p, cfg, x, capacity_mode)
     elif kind == "cross":
-        x = x + _gated(p["gate_attn"], _cross_decode(p, cfg, x, cache, "ln1", ""),
+        x = x + _gated(p["gate_attn"], _cross_decode(p, cfg, kind, x, cache, "ln1", ""),
                        x.dtype)
         x = x + _gated(p["gate_ffn"], ffn_decode_sublayer(p, cfg, x, capacity_mode),
                        x.dtype)
     elif kind == "selfcross":
         x = x + self_attn_decode_sublayer(p, cfg, x, pos, cache, 0)
-        x = x + _cross_decode(p, cfg, x, cache, "ln_cross", "c_")
+        x = x + _cross_decode(p, cfg, kind, x, cache, "ln_cross", "c_")
         x = x + ffn_decode_sublayer(p, cfg, x, capacity_mode)
     elif kind == "rglru":
         y, state = rglru_block_step(p, rms_norm(x, p["ln1"]), cfg.rglru, _gelu,

@@ -138,11 +138,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     the data axes as above, and each rank passes its shards of the
     params under ``launch.sharding.param_specs``' "ep" rules
     (``sharding.local_shard``) and of the optimizer state alike.  The
-    model code runs on them under ``models.parallel`` (only the kinds of
-    ``parallel.KINDS``); a replicated leaf's gradient is the same on
-    every model rank, every gradient is averaged over the data axes, the
-    clip's global norm counts each sharded element once, and AdamW
-    updates each rank's blocks.  The metrics hold "dropped"."""
+    model code runs on them under ``models.parallel`` (every kind of
+    ``parallel.KINDS``: attention, cross attention, RG-LRU, SSD); a
+    replicated leaf's gradient is the same on every model rank, every
+    gradient is averaged over the data axes, the clip's global norm
+    counts each sharded element once, and AdamW updates each rank's
+    blocks.  The metrics hold "dropped"."""
     n_data, mp, split = dp.group_size(group), None, None
     if mesh is not None:
         group, n_data = mesh.group(data_axes(mesh)), mesh.size(data_axes(mesh))

@@ -155,12 +155,14 @@ def run_train(out_dir: str, args_json: str):
 
 
 def grid_config(case):
-    """The port's config of a ``grid`` case: the reduced ``arch`` with the
-    case's MoE overrides (``moe``) and layer count (``n_layers``)."""
+    """The port's config of a ``grid`` case: the reduced ``arch`` (with
+    ``n_heads`` query heads where the case sets it) with the case's MoE
+    overrides (``moe``)."""
     import dataclasses
 
     from repro_torch.config import get_config, reduced
-    cfg = reduced(get_config(case["arch"]))
+    cfg = reduced(get_config(case["arch"]),
+                  **({"n_heads": case["n_heads"]} if case.get("n_heads") else {}))
     if case.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                **case["moe"]))
@@ -178,8 +180,11 @@ def run_grid(in_path: str, out_dir: str):
     on rank 0 the gathered step-0 gradients and final params; every rank
     gathers the grid's checkpoint (rank 0 writes it under OUT_DIR/ck-NAME)
     and restores the case's one-process checkpoint (``ckpt`` in IN.pkl)
-    into its blocks.  A case with ``raises`` must raise it from
-    ``make_train_step``."""
+    into its blocks.  ``extras`` (numpy, the global batch's frames /
+    patches) go to the passes as the stub inputs.  A case with
+    ``against_one`` holds no JAX reference: its steps on the rank's
+    blocks of ``init_params(cfg, 0)`` and one process's steps on the
+    whole params, both in the rank, save their losses."""
     import torch
 
     from repro_torch.bridge import params_from_jax, shards_from_jax
@@ -202,20 +207,22 @@ def run_grid(in_path: str, out_dir: str):
     for case in cases:
         cfg = grid_config(case)
         opt = AdamWConfig(**case["opt"])
-        if case.get("raises"):
-            try:
-                loop.make_train_step(cfg, opt, mesh=mesh)
-            except NotImplementedError as e:
-                results[case["name"]] = {"raised": str(e)}
-                continue
-            raise AssertionError(f"{case['name']}: make_train_step did not raise")
-        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
         toks = torch.from_numpy(case["tokens"])
+        extras = {k: torch.from_numpy(v) for k, v in case.get("extras", {}).items()}
+        if case.get("against_one"):
+            one = _steps(cfg, opt, init_params(cfg, 0, device="cpu"), toks, extras)
+            full = init_params(cfg, 0, device="cpu")      # a draw of its own
+            local = sh.shard_tree(full, sh.param_specs(cfg, full, mesh), mesh)
+            results[case["name"]] = {
+                "losses": [one, _steps(cfg, opt, local, toks, extras, mesh=mesh)]}
+            continue
+        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
         with torch.no_grad():           # the gathered vocabulary-parallel logits
             want = forward_train(params_from_jax(case["params"], cfg, device="cpu"),
-                                 cfg, toks[0, :, :-1], remat="none")[0]
+                                 cfg, toks[0, :, :-1], remat="none", **extras)[0]
             with ModelParallel(mesh).install():
-                got = forward_train(params, cfg, toks[0, :, :-1], remat="none")[0]
+                got = forward_train(params, cfg, toks[0, :, :-1], remat="none",
+                                    **extras)[0]
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), \
             f"{case['name']}: logits off by {float((got - want).abs().max())}"
         for p in leaves(params):
@@ -231,11 +238,12 @@ def run_grid(in_path: str, out_dir: str):
             return update(opt_cfg, params, g, state, **kw)
 
         loop.adamw_update = keep
-        step = loop.make_train_step(cfg, opt, remat=case["remat"], mesh=mesh)
+        step = loop.make_train_step(cfg, opt, remat=case["remat"], mesh=mesh,
+                                    extras_keys=tuple(extras))
         state = init_opt_state(params)
         metrics = []
         for s in range(toks.shape[0]):
-            params, state, m = step(params, state, toks[s])
+            params, state, m = step(params, state, toks[s], *extras.values())
             metrics.append({k: float(v) for k, v in m.items()})
         loop.adamw_update = update
         names = [k for k, _ in named_leaves(params)]
@@ -262,16 +270,35 @@ def run_grid(in_path: str, out_dir: str):
         pickle.dump(results, fh)
 
 
+def _steps(cfg, opt, params, toks, extras, mesh=None):
+    """The losses of ``len(toks)`` train steps of ``params`` (the rank's
+    blocks on ``mesh``, or whole in one process)."""
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import init_opt_state, leaves
+    for p in leaves(params):
+        p.requires_grad_(True)
+    step = loop.make_train_step(cfg, opt, remat="none", mesh=mesh,
+                                extras_keys=tuple(extras))
+    state, losses = init_opt_state(params), []
+    for t in toks:
+        params, state, m = step(params, state, t, *extras.values())
+        losses.append(float(m["loss"]))
+    return losses
+
+
 def run_serve(in_path: str, out_dir: str):
     """Serving on a grid: for each case of IN.pkl (all on one grid
     shape), this rank's blocks of the JAX params; its rows of the prompt
     through ``prefill`` and ``steps`` greedy ``decode_step``s under
     ``ModelParallel`` (with ``m2n`` also under ``core.m2n.use_m2n`` over
     "model", the kernel path of the expert shards).  Saves per rank each
-    pass's logits, the greedy tokens and the final cache blocks.  A case
-    with ``raises`` must raise ``NotImplementedError`` from ``prefill``
-    and from ``decode_step``.  Rank 0 also keeps the cache gathered from
-    every rank's blocks (``sharding.gather_cache``)."""
+    pass's logits, the greedy tokens and the final cache blocks.
+    ``extras`` (numpy, the global batch's frames / patches) go to
+    ``prefill``, the rank's rows of them.  A case with ``against_one``
+    holds no JAX reference: the same passes on the rank's blocks of
+    ``init_params(cfg, 0)`` and, in the rank, on the whole params in one
+    process.  Rank 0 also keeps the cache gathered from every rank's
+    blocks (``sharding.gather_cache``)."""
     import contextlib
 
     import torch
@@ -291,37 +318,25 @@ def run_serve(in_path: str, out_dir: str):
     n_data, i = mesh.size("data"), mesh.index("data")
     for case in cases:
         cfg = grid_config(case)
-        if case.get("raises"):
-            meta = tf.init_params(cfg, device="meta")
-            raised = []
-            with ModelParallel(mesh).install():
-                for call in (lambda: tf.prefill(meta, cfg, torch.zeros((2, 4), dtype=torch.int64), 8),
-                             lambda: tf.decode_step(meta, cfg, torch.zeros(2, dtype=torch.int64),
-                                                    [], torch.zeros(2, dtype=torch.int32))):
-                    try:
-                        call()
-                    except NotImplementedError as e:
-                        raised.append(str(e))
-            results[case["name"]] = {"raised": raised}
-            continue
-        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
         toks = torch.from_numpy(case["tokens"]).long()
         b = toks.shape[0] // n_data
         toks = toks[i * b:(i + 1) * b]
+        extras = {k: torch.from_numpy(v[i * b:(i + 1) * b])
+                  for k, v in case.get("extras", {}).items()}
+        if case.get("against_one"):
+            full = tf.init_params(cfg, 0, device="cpu")
+            local = sh.shard_tree(full, sh.param_specs(cfg, full, mesh), mesh)
+            with torch.no_grad():
+                one = _serve(tf, cfg, full, toks, extras, case)
+                with ModelParallel(mesh).install():
+                    got = _serve(tf, cfg, local, toks, extras, case)
+            results[case["name"]] = {"one": one[:2], "grid": got[:2]}
+            continue
+        params = shards_from_jax(case["params"], cfg, mesh, device="cpu")
         m2n = (use_m2n(mesh=mesh, expert_axis="model") if case.get("m2n")
                else contextlib.nullcontext())
-        logits, tokens = [], []
         with torch.no_grad(), ModelParallel(mesh).install(), m2n:
-            lg, cache = tf.prefill(params, cfg, toks, max_seq=case["max_seq"])
-            logits.append(lg.numpy())
-            tok = lg.argmax(-1)
-            for s in range(case["steps"]):
-                tokens.append(tok.numpy())
-                pos = torch.full((b,), toks.shape[1] + s, dtype=torch.int32)
-                lg, cache = tf.decode_step(params, cfg, tok, cache, pos)
-                logits.append(lg.numpy())
-                tok = lg.argmax(-1)
-            tokens.append(tok.numpy())
+            logits, tokens, cache = _serve(tf, cfg, params, toks, extras, case)
         whole = sh.gather_cache(cache, cfg, mesh, b * n_data, case["max_seq"])
         results[case["name"]] = {
             "logits": logits, "tokens": tokens, "rows": (i * b, (i + 1) * b),
@@ -331,6 +346,26 @@ def run_serve(in_path: str, out_dir: str):
                 {k: t.numpy() for k, t in e.items()} for e in whole]
     with open(os.path.join(out_dir, f"serve{rank}.pkl"), "wb") as fh:
         pickle.dump(results, fh)
+
+
+def _serve(tf, cfg, params, toks, extras, case):
+    """``prefill`` of ``toks`` then ``case["steps"]`` greedy
+    ``decode_step``s under whatever is installed: (each pass's logits,
+    the greedy tokens, the final cache)."""
+    import torch
+    b = toks.shape[0]
+    logits, tokens = [], []
+    lg, cache = tf.prefill(params, cfg, toks, max_seq=case["max_seq"], **extras)
+    logits.append(lg.numpy())
+    tok = lg.argmax(-1)
+    for s in range(case["steps"]):
+        tokens.append(tok.numpy())
+        pos = torch.full((b,), toks.shape[1] + s, dtype=torch.int32)
+        lg, cache = tf.decode_step(params, cfg, tok, cache, pos)
+        logits.append(lg.numpy())
+        tok = lg.argmax(-1)
+    tokens.append(tok.numpy())
+    return logits, tokens, cache
 
 
 def run_shard(out_dir: str):

@@ -4,9 +4,11 @@ the test process, whose JAX sees one device):
 
   python tests/_torch_grid_ref.py IN.pkl OUT.pkl
 
-For each reference of IN.pkl (arch, MoE overrides, grid or None, the
-AdamW config, the token batches of the steps, the JAX params as numpy)
-it runs the JAX train step, its gradients kept: on a (data, model) grid
+For each reference of IN.pkl (arch, query heads where set, MoE
+overrides, grid or None, the AdamW config, the token batches of the
+steps, the stub inputs (``extras``: frames / patches) where the model
+reads them, the JAX params as numpy) it runs the JAX train step, its
+gradients kept: on a (data, model) grid
 the JAX launcher's way (params placed by ``shlib.param_specs``, tokens
 by ``shlib.input_spec``, GSPMD shards the step), or on one device.  It
 writes per reference each step's loss and aux, step 0's gradients, the
@@ -36,7 +38,8 @@ from repro.training import optimizer as jopt  # noqa: E402
 
 
 def config(ref):
-    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]))
+    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]),
+                          **({"n_heads": ref["n_heads"]} if ref.get("n_heads") else {}))
     if ref.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **ref["moe"]))
     return cfg
@@ -70,9 +73,9 @@ def run(ref):
     cfg = config(ref)
     opt = jopt.AdamWConfig(**ref["opt"])
 
-    def step(params, state, tokens):
+    def step(params, state, tokens, extras):
         (_, (loss, aux)), grads = jax.value_and_grad(jloop.lm_loss, has_aux=True)(
-            params, cfg, tokens, {}, "none")
+            params, cfg, tokens, extras, "none")
         params, state, _ = jopt.adamw_update(opt, params, grads, state)
         return params, state, grads, loss, aux
 
@@ -89,15 +92,20 @@ def run(ref):
         fn = jax.jit(step)
         tok_sh = NamedSharding(mesh, shlib.input_spec(ref["tokens"].shape[1:], mesh))
         place = lambda t: jax.device_put(jnp.asarray(t), tok_sh)
+    extras = {k: jnp.asarray(v) for k, v in ref.get("extras", {}).items()}
+    if mesh is not None:
+        extras = {k: jax.device_put(v, NamedSharding(
+            mesh, shlib.input_spec(v.shape, mesh))) for k, v in extras.items()}
     state = jopt.init_opt_state(params)
     out = {"loss": [], "aux": [], "before": []}
     for toks in ref["tokens"]:
         out["before"].append(jax.tree.map(np.asarray, params))
         if mesh is not None:
             with mesh:
-                params, state, grads, loss, aux = fn(params, state, place(toks))
+                params, state, grads, loss, aux = fn(params, state, place(toks),
+                                                     extras)
         else:
-            params, state, grads, loss, aux = fn(params, state, place(toks))
+            params, state, grads, loss, aux = fn(params, state, place(toks), extras)
         out["loss"].append(float(loss))
         out["aux"].append(float(aux))
         out.setdefault("grads", jax.tree.map(np.asarray, grads))

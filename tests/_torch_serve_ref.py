@@ -4,8 +4,9 @@ the test process, whose JAX sees one device):
 
   python tests/_torch_serve_ref.py IN.pkl OUT.pkl
 
-For each reference of IN.pkl (arch, grid, prompt tokens, decode steps,
-max_seq, the JAX params as numpy) it runs the JAX ``prefill`` and then
+For each reference of IN.pkl (arch, query heads where set, grid, prompt
+tokens, decode steps, max_seq, the stub inputs (``extras``: frames /
+patches) where the model reads them, the JAX params as numpy) it runs the JAX ``prefill`` and then
 greedy ``decode_step``s on a (data, model) grid the JAX dry run's way:
 params placed by ``shlib.param_specs``, tokens and positions by
 ``shlib.input_spec``, the cache by ``shlib.cache_specs`` (GSPMD shards
@@ -30,7 +31,8 @@ from repro.models import transformer as jtf  # noqa: E402
 
 
 def run(ref):
-    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]))
+    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]),
+                          **({"n_heads": ref["n_heads"]} if ref.get("n_heads") else {}))
     n = ref["grid"][0] * ref["grid"][1]
     mesh = Mesh(np.array(jax.devices()[:n]).reshape(ref["grid"]), ("data", "model"))
     toks = ref["tokens"]
@@ -43,9 +45,11 @@ def run(ref):
     cspecs = shlib.cache_specs(cfg, jstubs.cache_specs(cfg, B, S, jnp.float32),
                                mesh, B)
     csh = shlib.to_shardings(mesh, cspecs)
+    extras = {k: row(v) for k, v in ref.get("extras", {}).items()}
     with mesh:
-        logits, cache = jax.jit(lambda p, t: jtf.prefill(p, cfg, t, max_seq=S))(
-            params, row(toks))
+        logits, cache = jax.jit(lambda p, t, ex: jtf.prefill(p, cfg, t, max_seq=S,
+                                                             **ex))(
+            params, row(toks), extras)
         cache = jax.device_put(cache, csh)
         step = jax.jit(lambda p, t, c, q: jtf.decode_step(p, cfg, t, c, q,
                                                           capacity_mode="full"))

@@ -7,14 +7,17 @@ by hand, on the CPU (meta tensors: nothing is allocated).
     JAX dry run's (compiled from its source: importing the module sets a
     512-device flag);
   * one rank's decode and prefill of reduced qwen2-moe (kv heads over
-    "model") and reduced mixtral (slots over "model") on a (2, 4)
+    "model") and reduced mixtral (slots over "model"), and one rank's
+    decode of reduced mamba2 (SSD heads) and recurrentgemma (RG-LRU
+    channels, 4 query heads and the local ring's slots), on a (2, 4)
     ``RecordingMesh``: the matrix-product FLOPs and the collective bytes
     by kind equal counts made by hand from the shapes, the argument bytes
     the rank's blocks;
   * a record has the JAX record's keys and the roofline JAX's fields;
   * the report renders its tables from a directory of records;
-  * mamba2, recurrentgemma, whisper and llama-vision come out
-    "unsupported" with the reason; ``--seq-parallel`` too; the JAX-only
+  * mamba2, recurrentgemma, whisper and llama-vision (once
+    "unsupported") come out "ok" on both production meshes;
+    ``--seq-parallel`` is unsupported with the reason; the JAX-only
     flags are refused;
   * under fsdp the leaves JAX splits on their stacked block dim are
     ``test_torch_sharding.FSDP_BLOCK_DIM``'s, and a rank holds the bytes
@@ -117,8 +120,8 @@ def _matmul_flops_by_hand(cfg, kind, b, T, W):
     n = b * T
     Hl = H // m
     kv_cols = cfg.n_kv_heads * hd        # every kv head (gathered weight) ...
-    if cfg.n_kv_heads % m == 0:
-        kv_cols //= m                    # ... or the rank's kv heads
+    if cfg.n_kv_heads % m == 0 or kind == "decode":
+        kv_cols //= m                    # ... or the rank's kv heads or columns
     # a decode over split slots gathers every head's q; a prefill attends
     # with the rank's heads
     q_heads = H if kind == "decode" and cfg.n_kv_heads % m else Hl
@@ -137,8 +140,10 @@ def _collective_bytes_by_hand(cfg, b, T):
     """What one rank hands its mesh (bf16 activations, f32 expert
     combine): per layer the sums after wo, the expert combine and the
     shared expert's w2; the embedding's sum and the LM head's zero-filled
-    gather; with the slots over "model", the gathered K / V weights and
-    q and the two merges ("all-reduce-max" of the lse)."""
+    gather; with the slots over "model", the gathered K / V weights (a
+    prefill) or every head's q, k and v gathered from the rank's columns
+    in one collective and the two merges ("all-reduce-max" of the lse; a
+    decode)."""
     m = GRID[1]
     d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
     n = b * T
@@ -146,13 +151,95 @@ def _collective_bytes_by_hand(cfg, b, T):
     if cfg.moe.n_shared_experts:
         per_layer += 2 * n * d
     out = {"all-reduce": 2 * n * d + 2 * b * cfg.vocab}
-    if cfg.n_kv_heads % m:
+    if cfg.n_kv_heads % m and T > 1:
         per_layer += 2 * (2 * d * cfg.n_kv_heads * hd)     # wk, wv gathered
-        if T == 1:
-            per_layer += 2 * b * H * hd + 4 * b * H * (hd + 1)
-            out["all-reduce-max"] = len(cfg.layer_kinds) * 4 * b * H
+    elif cfg.n_kv_heads % m:
+        per_layer += 2 * b * (H + 2 * cfg.n_kv_heads) * hd + 4 * b * H * (hd + 1)
+        out["all-reduce-max"] = len(cfg.layer_kinds) * 4 * b * H
     out["all-reduce"] += len(cfg.layer_kinds) * per_layer
     return out
+
+
+def _recurrent_decode_by_hand(cfg, b, W):
+    """(matrix-product FLOPs, collective bytes by kind) of one rank's decode
+    step of reduced mamba2 or recurrentgemma over the 4 model ranks, b
+    rows (bf16 activations; the SSD conv output, the norm's sum of squares
+    and the attention merge in f32):
+      * ``ssd``: the rank's in_proj columns, gathered (bf16); the conv
+        output gathered (f32); its heads' state read-out (h/m heads, p x
+        n); the norm's sum of squares (f32, one per row); out_proj's rows
+        and their sum;
+      * ``rglru``: w_in_x / w_in_gate / w_a / w_x columns, w_out's rows;
+        the conv output gathered and the output summed;
+      * ``local`` (1 kv head: the slots split): every head's q, k, v from
+        the rank's columns in one gather, all H heads over the rank's W / m
+        slots, the merge (a max of the lse, a sum of out and the weights),
+        wo's rows of the rank's head columns and their sum;
+      * the dense FFN's d_ff block and its sum; the embedding's sum and
+        the LM head's zero-filled gather."""
+    m = GRID[1]
+    d, V = cfg.d_model, cfg.vocab
+    flops = 2 * b * d * (V // m)
+    coll = {"all-reduce": 2 * b * d + 2 * b * V}
+    ffn_flops = 3 * 2 * b * d * (cfg.d_ff // m)
+    for kind in cfg.layer_kinds:
+        if kind == "ssd":
+            s = cfg.ssm
+            di, n, h, p = s.d_inner(d), s.d_state, s.n_heads(d), s.head_dim
+            P, Cw = 2 * di + 2 * n + h, di + 2 * n
+            flops += 2 * b * d * (P // m) + 2 * b * (h // m) * p * n + 2 * b * (di // m) * d
+            coll["all-reduce"] += 2 * b * P + 4 * b * Cw + 4 * b + 2 * b * d
+        elif kind == "rglru":
+            w = cfg.rglru.lru_width
+            flops += 2 * 2 * b * d * (w // m) + 2 * 2 * b * w * (w // m)
+            flops += 2 * b * (w // m) * d + ffn_flops
+            coll["all-reduce"] += 2 * b * w + 2 * b * d + 2 * b * d
+        else:
+            H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+            flops += 2 * b * d * (H + 2 * Hkv) * hd // m
+            flops += 2 * 2 * b * H * (W // m) * hd + 2 * b * (H * hd // m) * d
+            flops += ffn_flops
+            coll["all-reduce"] += (2 * b * (H + 2 * Hkv) * hd + 4 * b * H * (hd + 1)
+                                   + 2 * b * d + 2 * b * d)
+            coll["all-reduce-max"] = coll.get("all-reduce-max", 0) + 4 * b * H
+    return flops, coll
+
+
+def _argument_bytes(cfg, mesh, shape_cfg, b, T):
+    """The rank's blocks of the params under the "ep" rules (bf16), its
+    rows of the tokens, and for decode its cache blocks and positions."""
+    full = init_params(cfg, dtype=torch.bfloat16, device="meta")
+    specs = tsh.param_specs(cfg, full, mesh)
+    want = sum(t.numel() * t.element_size()
+               for t in leaves(tsh.shard_tree(full, specs, mesh)))
+    want += b * (1 if shape_cfg.kind == "decode" else T) * 4
+    if shape_cfg.kind == "decode":
+        from repro_torch.models import stubs
+        cache = stubs.cache_specs(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
+                                  mesh=mesh)
+        want += sum(t.numel() * t.element_size() for e in cache for t in e.values())
+        want += b * 4                                       # pos
+    return want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b"])
+def test_recurrent_decode_flops_and_collective_bytes_are_the_counts_by_hand(arch):
+    cfg, mesh, args, cost, mem, coll, by_axes = _record(arch, DECODE)
+    b = DECODE.global_batch // GRID[0]
+    W = min(cfg.window, DECODE.seq_len)
+    flops, want = _recurrent_decode_by_hand(cfg, b, W)
+    assert cost["flops"] == flops
+    assert coll == want
+    assert set(by_axes) == {"model"}
+    assert mem["argument_size"] == _argument_bytes(cfg, mesh, DECODE, b, 1)
+    # the cache blocks: the rank's channels / heads / slots of each entry
+    for entry, kind in zip(args[2], cfg.layer_kinds):
+        if kind == "ssd":
+            assert entry["ssm"].shape[1] == cfg.ssm.n_heads(cfg.d_model) // GRID[1]
+        elif kind == "rglru":
+            assert entry["h"].shape[1] == cfg.rglru.lru_width // GRID[1]
+        else:
+            assert entry["k"].shape[1] == W // GRID[1]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
@@ -165,19 +252,7 @@ def test_flops_and_collective_bytes_are_the_counts_by_hand(arch, shape_cfg):
                                                   shape_cfg.seq_len)
     assert coll == _collective_bytes_by_hand(cfg, b, T)
     assert set(by_axes) == {"model"}
-    # the arguments: the rank's blocks of the params under the "ep" rules
-    # (bf16), its rows of the tokens, and for decode its cache blocks
-    full = init_params(cfg, dtype=torch.bfloat16, device="meta")
-    specs = tsh.param_specs(cfg, full, mesh)
-    want = sum(t.numel() * t.element_size()
-               for t in leaves(tsh.shard_tree(full, specs, mesh)))
-    want += b * (1 if shape_cfg.kind == "decode" else T) * 4
-    if shape_cfg.kind == "decode":
-        from repro_torch.models import stubs
-        cache = stubs.cache_specs(cfg, shape_cfg.global_batch, shape_cfg.seq_len,
-                                  mesh=mesh)
-        want += sum(t.numel() * t.element_size() for e in cache for t in e.values())
-        want += b * 4                                       # pos
+    want = _argument_bytes(cfg, mesh, shape_cfg, b, T)
     assert mem["argument_size"] == want
     assert 0 < mem["temp_size"] and cost["bytes accessed"] > want
 
@@ -197,6 +272,8 @@ def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
     recs = [tdr.run_one("granite-3-8b", "decode_32k", mp, out_dir=out, verbose=False)
             for mp in (False, True)]
     recs.append(tdr.run_one("granite-3-8b", "long_500k", False, out_dir=out))
+    recs.append(tdr.run_one("granite-3-8b", "decode_32k", False, seq_parallel=True,
+                            out_dir=out))
     recs.append(tdr.run_one("mamba2-1.3b", "decode_32k", False, out_dir=out))
     ok = recs[0]
     assert rec_keys <= set(ok), rec_keys - set(ok)
@@ -206,12 +283,12 @@ def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
     assert set(ok["roofline"]) == jax_fields
     assert set(ok["memory_analysis"]) >= {"argument_size", "output_size", "temp_size"}
     assert set(ok["cost_analysis"]) == {"flops", "bytes accessed", "transcendentals"}
-    assert [r["status"] for r in recs] == ["ok", "ok", "skipped", "unsupported"]
+    assert [r["status"] for r in recs] == ["ok", "ok", "skipped", "unsupported", "ok"]
     for r in recs[:2]:
         json.dumps(r)
         assert r["roofline"]["n_chips"] == MESHES[r["mesh"]]
         assert r["roofline"]["hbm_bw"] == 3.35e12 and r["roofline"]["ici_bw"] == 900e9
-    assert len(os.listdir(out)) == 4
+    assert len(os.listdir(out)) == 5
     capsys.readouterr()
     import sys
     argv, sys.argv = sys.argv, ["report", out]
@@ -222,16 +299,23 @@ def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "## §Roofline" in text and "## §Dry-run" in text
     assert "| granite-3-8b | decode_32k |" in text
-    assert "| mamba2-1.3b | decode_32k | 16x16 | unsupported |" in text
+    assert "| granite-3-8b | decode_32k | 16x16 | unsupported |" in text
+    assert "| mamba2-1.3b | decode_32k | 16x16 | ok |" in text
     assert "| granite-3-8b | long_500k | 16x16 | skipped |" in text
 
 
 @pytest.mark.parametrize("arch", OTHER_KINDS)
 def test_the_other_kinds_are_unsupported_with_the_reason(arch, tmp_path):
-    for shape in ("train_4k", "decode_32k"):
-        rec = tdr.run_one(arch, shape, False, out_dir=str(tmp_path), verbose=False)
-        assert rec["status"] == "unsupported"
-        assert "layer kind has no model axis" in rec["note"]
+    """Once "unsupported" (no model axis for their layer kinds): a rank's
+    decode of each now runs on both production meshes (128 rows split
+    over the data axes, its collectives over "model" only), its matrix
+    products counted."""
+    for multi_pod in (False, True):
+        rec = tdr.run_one(arch, "decode_32k", multi_pod, out_dir=str(tmp_path),
+                          verbose=False)
+        assert rec["status"] == "ok", rec.get("note")
+        assert rec["cost_analysis"]["flops"] > 0
+        assert set(rec["collectives_by_axes"]) == {"model"}
 
 
 def test_seq_parallel_is_unsupported_and_jax_only_flags_are_refused(tmp_path):

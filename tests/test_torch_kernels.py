@@ -569,7 +569,74 @@ def test_decode_attention_partial_on_cpu_is_the_plain_partial(b, h, hkv, hd, w,
     _close(out, decode_attention_plain(*args, **kw).numpy())
 
 
+def _wrapped_ring_block(b, h, hd, W, n, i, seed=0):
+    """Block i of n of a W-slot ring with one kv head that every row has
+    wrapped (recurrentgemma-2b's local layer on n model ranks): q (b, h,
+    hd), the whole ring's k / v (b, W, 1, hd) and positions, pos (b,), and
+    the block's slice of the slots.  Slot s holds the row's latest
+    position congruent to s mod W."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, hd).astype(np.float32)
+    k = rng.randn(b, W, 1, hd).astype(np.float32)
+    v = rng.randn(b, W, 1, hd).astype(np.float32)
+    pos = rng.randint(W, 3 * W, size=b).astype(np.int32)
+    cpos = np.stack([p - (p - np.arange(W)) % W for p in pos]).astype(np.int32)
+    wl = W // n
+    return q, k, v, cpos, pos, slice(i * wl, (i + 1) * wl)
+
+
+def test_decode_attention_partial_on_a_wrapped_ring_block_on_cpu():
+    """The partial branch at recurrentgemma's local shape on a rank's
+    block (rep 10, one kv head, hd 256, a 2048-slot ring in 4 blocks of
+    512, window 2048) on CPU tensors: the plain version's, and the 4
+    blocks merged by ``merge_partials`` equal the whole ring's row."""
+    from repro_torch.models.attention import decode_attention_partial
+    from repro_torch.models.parallel import ModelParallel
+    from test_torch_model_axis_decode import _Stacked
+    outs, lses = [], []
+    for i in range(4):
+        q, k, v, cpos, pos, sl = _wrapped_ring_block(2, 10, 256, 2048, 4, i)
+        args = [_t(q), _t(k[:, sl]), _t(v[:, sl]), _t(cpos[:, sl]), _t(pos)]
+        out, lse = kops.decode_attention(*args, partial=True, window=2048)
+        want_out, want_lse = decode_attention_partial(*args, window=2048)
+        assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+        outs.append(out)
+        lses.append(lse)
+    whole = decode_attention_plain(_t(q), _t(k), _t(v), _t(cpos), _t(pos),
+                                   window=2048)
+    merged = ModelParallel(_Stacked(4)).merge_partials(torch.stack(outs),
+                                                       torch.stack(lses))
+    for i in range(4):
+        _close(merged[i], whole.numpy())
+
+
 # ---------------------------------------------------------------- on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [0, 1, 3])
+def test_decode_attention_partial_kernel_on_a_wrapped_ring_block(cuda, dtype, block):
+    """The partial branch at recurrentgemma-2b's local shape on one of 4
+    ranks (q (8, 10, 256) over a (8, 512, 1, 256) block of a wrapped
+    2048-slot ring) against its plain version: f32 1e-5, bf16 2e-2; a
+    row whose block holds no valid slot gives 0 and -inf."""
+    from repro_torch.models.attention import decode_attention_partial
+    q, k, v, cpos, pos, sl = _wrapped_ring_block(8, 10, 256, 2048, 4, block)
+    cpos = np.ascontiguousarray(cpos[:, sl])
+    cpos[0] = -1                                  # row 0: no valid slot
+    args = [_t(a).to(cuda).to(dtype) for a in (q, np.ascontiguousarray(k[:, sl]),
+                                               np.ascontiguousarray(v[:, sl]))]
+    args += [_t(cpos).to(cuda), _t(pos).to(cuda)]
+    n0 = da_mod.KERNEL.variant_launches["partial"]
+    out, lse = kops.decode_attention(*args, partial=True, window=2048)
+    torch.cuda.synchronize()
+    assert da_mod.KERNEL.variant_launches["partial"] == n0 + 1
+    want_out, want_lse = decode_attention_partial(*args, window=2048)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    assert torch.isneginf(lse[0]).all() and float(out[0].abs().max()) == 0
+    _close(out, want_out.cpu().numpy(), tol)
+    _close(lse[1:], want_lse[1:].cpu().numpy(), tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,hd,w,window,cap", ATTN_CASES

@@ -28,7 +28,9 @@ JAX step without remat, which computes the same values.  Held:
     on every model rank;
   * the grid's checkpoint restores into one process, and a
     one-process checkpoint into each rank's blocks (in the ranks);
-  * recurrentgemma (``rglru``) on m = 2 raises;
+  * recurrentgemma (``rglru``, once refused) on m = 2: the steps' losses
+    on the rank's blocks equal one process's (the four other kinds
+    against JAX: ``test_torch_model_axis_kinds.py``);
   * (in the ranks) ``forward_train``'s gathered vocabulary-parallel
     logits within 1e-5 of one process's.
 """
@@ -82,7 +84,7 @@ def _ref_key(arch, moe, grid, ref):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{case: (JAX reference, [each rank's results])}, and the rglru
-    refusal under "raises"."""
+    case's losses (grid and one process, per rank) under "rglru"."""
     jax = pytest.importorskip("jax")
     import dataclasses
 
@@ -117,7 +119,9 @@ def runs(tmp_path_factory):
         inputs[grid].append(dict(case, tokens=refs[key]["tokens"],
                                  params=refs[key]["params"], ckpt=ck))
     inputs[(1, 2)].append({"name": "rglru", "arch": "recurrentgemma-2b",
-                           "grid": (1, 2), "opt": OPT, "raises": True})
+                           "grid": (1, 2), "opt": OPT, "against_one": True,
+                           "tokens": np.random.RandomState(4).randint(
+                               0, 512, (STEPS, BATCH, SEQ)).astype(np.int32)})
     with open(tmp / "refs.pkl", "wb") as fh:
         pickle.dump(list(refs.values()), fh)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
@@ -151,7 +155,7 @@ def runs(tmp_path_factory):
     assert jax_child.returncode == 0, text[-3000:]
     with open(tmp / "want.pkl", "rb") as fh:
         want = pickle.load(fh)
-    out = {"raises": got["rglru"][0]}
+    out = {"rglru": got["rglru"][0]}
     for name, arch, moe, grid, remat, ref in CASES:
         out[name] = (want[_ref_key(arch, moe, grid, ref)], *got[name])
     return out
@@ -207,4 +211,9 @@ def _lrs():
 
 
 def test_rglru_on_a_model_axis_raises(runs):
-    assert "'rglru' layer kind has no model axis" in runs["raises"][0]["raised"]
+    """Once a refusal: RG-LRU now trains on a model axis of 2, each rank's
+    loss in every step that of one process's steps."""
+    for r in runs["rglru"]:
+        one, grid = r["losses"]
+        assert len(one) == STEPS
+        np.testing.assert_allclose(grid, one, rtol=1e-5)

@@ -21,7 +21,9 @@ configs, reduced:
 Held: each pass's logits within 5e-4, the greedy tokens exact, each
 rank's cache blocks equal to the JAX cache's blocks under
 ``cache_entry_specs`` (values within 5e-4, positions exact), the gathered
-cache equal to the whole one; ``rglru`` refuses both passes.  Without
+cache equal to the whole one; recurrentgemma (``rglru``, once refused)
+on (1, 2) gives one process's logits and tokens (the four other kinds
+against JAX: ``test_torch_model_axis_kinds_decode.py``).  Without
 ranks: ``decode_attention``'s partial branch (plain) merged over 2-4
 blocks of slots by ``ModelParallel.merge_partials`` equals the whole
 ring, and a ``migrate_kv`` without a transport is one "kv" hop of the
@@ -66,7 +68,7 @@ GRIDS = [(1, 2), (2, 2), (1, 4)]
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{case: (JAX reference, [each rank's results])} and the rglru
-    refusals under "raises"."""
+    case's passes (grid and one process, per rank) under "rglru"."""
     jax = pytest.importorskip("jax")
     from repro import config as jconfig
     from repro.models import transformer as jtf
@@ -86,7 +88,10 @@ def runs(tmp_path_factory):
                              "tokens": refs[key]["tokens"], "steps": STEPS,
                              "max_seq": MAX_SEQ, "params": refs[key]["params"]})
     inputs[(1, 2)].append({"name": "rglru", "arch": "recurrentgemma-2b",
-                           "grid": (1, 2), "raises": True})
+                           "grid": (1, 2), "against_one": True, "steps": STEPS,
+                           "max_seq": MAX_SEQ,
+                           "tokens": np.random.RandomState(6).randint(
+                               0, 512, (BATCH, 20)).astype(np.int32)})
     with open(tmp / "refs.pkl", "wb") as fh:
         pickle.dump(list(refs.values()), fh)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
@@ -119,7 +124,7 @@ def runs(tmp_path_factory):
     assert jax_child.returncode == 0, text[-3000:]
     with open(tmp / "want.pkl", "rb") as fh:
         want = pickle.load(fh)
-    out = {"raises": got["rglru"]}
+    out = {"rglru": got["rglru"]}
     for name, arch, grid, T, _ in CASES:
         out[name] = (want[(arch, grid, T)], got[name])
     return out
@@ -172,9 +177,16 @@ def test_cache_blocks_are_the_jax_blocks(runs, case):
 
 
 def test_rglru_refuses_prefill_and_decode_on_a_model_axis(runs):
-    for res in runs["raises"]:
-        assert len(res["raised"]) == 2
-        assert all("'rglru' layer kind has no model axis" in e for e in res["raised"])
+    """Once a refusal: RG-LRU now serves on a model axis of 2, each rank's
+    prefill and decode logits within 5e-4 of one process's and its greedy
+    tokens equal (a 20-token prompt wraps the 16-slot local ring)."""
+    for res in runs["rglru"]:
+        (l1, t1), (lg, tg) = res["one"], res["grid"]
+        assert len(lg) == len(l1) == STEPS + 1
+        for g, w in zip(lg, l1):
+            np.testing.assert_allclose(g, w, rtol=5e-4, atol=5e-4)
+        for g, w in zip(tg, t1):
+            assert np.array_equal(g, w)
 
 
 class _Stacked:
