@@ -203,6 +203,24 @@ then:
      shape of ``decode_attention[partial]``.  ``chip_smoke.py
      --phase12-only`` runs this phase alone.
 
+ 13. the disaggregated runtime on disjoint ranks of the card (gloo; a
+     card per rank: NCCL), mixtral-8x22b at published width cut in depth,
+     every rank drawing the weights in turn and keeping what its role
+     reads.  (a) f32, 2 layers, 1 attention + 4 expert ranks, phase 2's
+     placement workload (zipf(1.2), rebalanced every 2 iterations), the
+     dispatch path and then M2N on one runtime: tokens equal to phase 2's
+     one process, rebalances, a replicated expert, the "weights" hop
+     bytes.  (b) bf16, 4 layers, 1 prefill + 1 attention + 2 expert
+     ranks: one decode step against one process's monolithic step by
+     phase 3's rule, then 8 requests of 32-token prompts (24 shared)
+     contiguous with async KV, paged with the prefix cache on a cold tree
+     (tokens equal), and paged after a warm request (8 prefix hits).
+     Each rank prints its role, ms per decode iteration (host), t_a /
+     t_e (CUDA events), hops sent and waited on, params and peak; the
+     profiler counts each rank's decode attention, gating dispatch and
+     grouped matmul kernels (``phase13_rank_launches`` in the kernels
+     line).  ``chip_smoke.py --phase13-only`` runs this phase alone.
+
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
@@ -1140,6 +1158,7 @@ def phase_placement_parity(torch, dev, cfg, params):
           f"expert nodes, zipf({PLACE['zipf']}), rebalance every "
           f"{PLACE['rebalance_every']}): " + ", ".join(PLACE_RUNS)
           + f" give identical greedy tokens for {len(prompts)} requests")
+    return toks["static"]
 
 
 def serve(torch, eng, prompts, max_new):
@@ -1216,7 +1235,7 @@ def phase_f32_parity(torch, dev, base_cfg):
               + " ".join(f"{k}={v}" for k, v in counts.items()))
     torch.cuda.empty_cache()
     phase_prefill_worker_parity(torch, cfg, params, prompts, toks["monolithic"])
-    phase_placement_parity(torch, dev, cfg, params)
+    return phase_placement_parity(torch, dev, cfg, params)
 
 
 def warm_prompt(prompt, spec):
@@ -3781,13 +3800,13 @@ P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
 # period (5 of 100 layers) on (1, 2)
 P12_SERVE = {
     "recurrentgemma-2b": dict(grid=(1, 4), layers=None, period=3, prompt_len=1600,
-                              max_seq=2048, steps=16),
+                              max_seq=2048, steps=8),
     "mamba2-1.3b": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                        max_seq=64, steps=16),
+                        max_seq=64, steps=8),
     "whisper-large-v3": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                             max_seq=64, steps=16),
+                             max_seq=64, steps=8),
     "llama-3.2-vision-90b": dict(grid=(1, 2), layers=5, period=5, prompt_len=16,
-                                 max_seq=64, steps=16),
+                                 max_seq=64, steps=8),
 }
 P12_BATCH = 8
 P12_TIMEOUT = 300          # seconds for all ranks of one sub-phase
@@ -4391,6 +4410,405 @@ def phase_every_kind(torch, dev):
     return row
 
 
+# phase 13: the disaggregated runtime on disjoint ranks, every rank a
+# process on cuda:0 over gloo (with a card per rank: NCCL).  (a) f32, 2
+# layers, 1 attention + 4 expert ranks (JAX's 4 expert devices of
+# tests/test_multidevice.py:143), phase 2's placement workload: on 2
+# expert ranks top-2 routing gives no expert more than the half of the
+# picks a node serves anyway, so nothing is replicated; (b) bf16, phase
+# 3's 4 layers, 1 prefill + 1 attention + 2 expert ranks
+P13_A = dict(PLACE_F32, n_layers=2, attn_ranks=[0], expert_ranks=[1, 2, 3, 4])
+P13_B = dict(PAGED, max_new=32)
+P13_TIMEOUT = 420          # seconds for all ranks of one sub-phase
+# 13(b)'s runs: contiguous; paged with the prefix cache on a cold tree
+# (the worker prefills every request whole, as contiguous: tokens equal);
+# paged after a warm request that publishes the shared prefix (every
+# request a suffix prefill: bf16 rounds it unlike a whole prefill, and
+# the tokens part where a near-tie flips, in one process too:
+# scripts/paged_prefix_numerics.py)
+P13_LAYOUTS = ("contiguous", "paged", "paged+warm")
+# (kernel, its device function) counted per rank from the profiler
+P13_KERNELS = (("decode_attention", "decode_attention_split"),
+               ("gating_dispatch", "gating_dispatch_kernel"),
+               ("grouped_matmul", "grouped_matmul_kernel"))
+
+
+def p13_config(torch, spec, dtype, **kw):
+    from repro_torch.serving.config import ServingConfig
+    return ServingConfig(arch="mixtral-8x22b", n_layers=spec["n_layers"],
+                         dtype=dtype, device="cuda", runtime="pingpong",
+                         microbatches=spec["microbatches"],
+                         max_batch=spec["max_batch"], max_seq=spec["max_seq"],
+                         transport="multi", verbose=False, **kw)
+
+
+def p13_profiled(torch, eng, prompts, max_new, warm=None):
+    """Serve ``prompts`` (after ``warm``, served alone), profiling decode
+    iterations 3-6 with torch.profiler: (tokens, seconds, device
+    kernels of each P13_KERNELS function in the window, the host launch
+    counts of the window, whether the session saw the device)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.cuda_build import launch_counts
+    from repro_torch.serving.engine import Request
+    if warm is not None:
+        eng.submit(Request(rid=-1, prompt=list(warm), max_new_tokens=2))
+        eng.run_until_done()
+        eng.finished.clear()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=list(p), max_new_tokens=max_new))
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+    host = {k: v - before[k] for k, v in launch_counts().items()}
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {k: sum(fn in n for n in dev) for k, fn in P13_KERNELS}
+    return ({r.rid: list(r.generated) for r in eng.finished if r.rid >= 0}, dt, seen,
+            host, bool(dev))
+
+
+def p13_rank_line(st):
+    """Per rank of a run: role, decode ms per iteration (host clock), its
+    stage times on the card, hops, params and peak."""
+    reps = {r["rank"]: r for r in st.get("stages", {}).get("ranks", [])}
+    out = []
+    for r in st["ranks"]:
+        ph, rep = r["phases"], reps.get(r["rank"], {})
+        t = ""
+        if rep.get("attn_n"):
+            t = f", t_a {(rep['attn_s'] + rep['combine_s']) / rep['attn_n'] * 1e3:.3f} ms"
+        elif rep.get("expert_n"):
+            t = f", t_e {rep['expert_s'] / rep['expert_n'] * 1e3:.3f} ms"
+        hops = " ".join(
+            f"{k} {h['hops']} sent / {h['bytes'] / 1e6:.3f} MB"
+            + (f", waited {h['wait_s'] * 1e3:.1f} ms over {h['waits']}"
+               if "wait_s" in h else "")
+            for k, h in r["transport"].items() if isinstance(h, dict))
+        out.append(dict(rank=r["rank"], role=r["role"],
+                        ms_per_iter=ph["decode_s"] * 1e3 / max(1, ph["decode_n"]),
+                        line=f"rank {r['rank']} [{r['role']}]: "
+                        f"{ph['decode_s'] * 1e3 / max(1, ph['decode_n']):.2f} ms/iter "
+                        f"(host){t}; {hops or 'no hops'}; params "
+                        f"{r['params_bytes'] / 1e9:.2f} GB, peak "
+                        f"{r['peak_bytes'] / 1e9:.2f} GB"))
+    return out
+
+
+def p13a_child(torch, out_dir):
+    """One rank of 13(a): ping-pong m = 2 on 1 attention + 4 expert ranks,
+    f32, under the zipf router bias, rebalanced every 2 iterations,
+    without and then with M2N on one runtime (the weights drawn once, in
+    turn); each run profiled.  Prints one JSON line."""
+    from repro_torch.config import get_config
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import reset_launch_counts
+    from repro_torch.launch.mesh import ServingRoles
+    from repro_torch.core.disagg import DisaggPlan, DisaggregatedInstance
+    from repro_torch.launch.serve import draw_for_rank
+    from repro_torch.serving.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    tr.setup_serving(ServingRoles(tr.process_count, 0, attn_ranks=P13_A["attn_ranks"],
+                                  expert_ranks=P13_A["expert_ranks"]))
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=P13_A["n_layers"])
+    prompts = prompts_for(P13_A, cfg.vocab)
+    base = p13_config(torch, P13_A, "float32", zipf_route_bias=PLACE["zipf"],
+                      expert_rebalance_every=PLACE["rebalance_every"])
+    res = {"rank": tr.process_index, "role": tr.roles.role(tr.process_index)}
+    # one runtime for both runs (the expert ranks keep the router): the
+    # M2N run starts from the placement the first run installed, so the
+    # f32 slots (2.42 GB each, through gloo on the host) move once
+    params = draw_for_rank(base.with_overrides(use_m2n=True), cfg, tr)
+    runtime = DisaggregatedInstance(
+        cfg, params, plan=DisaggPlan(n_microbatches=P13_A["microbatches"],
+                                     use_m2n=True), transport=tr)
+    if res["role"] == "expert":
+        params = {}         # the runtime's slots replace its static experts
+    for m2n in (False, True):
+        runtime.plan.use_m2n = m2n
+        eng = Engine(cfg, params, config=base.with_overrides(use_m2n=m2n),
+                     runtime=runtime, transport=tr)
+        tr.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        toks, dt, seen, host, saw = p13_profiled(torch, eng, prompts, P13_A["max_new"])
+        st = eng.stats()
+        res["m2n" if m2n else "dispatch"] = dict(
+            tokens=toks, wall_s=dt, profiled=seen, host=host, saw_device=saw,
+            rebalances=st["rebalances"], replicated=st["replicated_experts"],
+            imbalance=st["imbalance"], transport=st["transport"],
+            ranks=p13_rank_line(st))
+        del eng
+    print("phase13a " + json.dumps(res), flush=True)
+
+
+def p13b_child(torch, out_dir):
+    """One rank of 13(b): bf16, 1 prefill + 1 attention + 2 expert ranks,
+    ping-pong m = 2 through the dispatch kernel path.  One decode step of
+    the runtime from the parent's prefilled cache (the attention rank
+    holds it against the parent's monolithic step by phase 3's rule), the
+    contiguous layout with async KV transfer (profiled), then paged with
+    the radix prefix cache on a cold tree and after a warm request (as
+    phase 6): ``P13_LAYOUTS``.  Prints one JSON line."""
+    from repro_torch.config import get_config
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import reset_launch_counts
+    from repro_torch.launch.mesh import ServingRoles
+    from repro_torch.launch.serve import draw_for_rank, engine_for
+    tr = MultiControllerTransport(device="cuda")
+    tr.setup_serving(ServingRoles(tr.process_count, 1))
+    me = tr.process_index
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=MAIN["n_layers"])
+    prompts = prompts_for(P13_B, cfg.vocab)
+    # one request a prefill batch: the inline path's B = 1 numerics, so
+    # the paged run's suffix prefills meet what phase 4 holds in one
+    # process (a batch of 8 rounds bf16 otherwise)
+    base = p13_config(torch, P13_B, "bfloat16", prefill_devices=1, transfer="async",
+                      prefill_chunk_tokens=P13_B["prompt_len"])
+    params = draw_for_rank(base, cfg, tr)
+    res = {"rank": me, "role": tr.roles.role(me)}
+    eng = engine_for(base, cfg, params, tr)
+    if res["role"] != "prefill":
+        ref = (torch.load(Path(out_dir) / "ref_b.pt") if res["role"] == "attn"
+               else None)
+        toks = torch.load(Path(out_dir) / "ref_toks.pt").to(tr.device)
+        pos = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.int32,
+                         device=tr.device)
+        cache = ([{k: v.to(tr.device) for k, v in e.items()} for e in ref["cache"]]
+                 if ref is not None else None)
+        with record_routing() as (_, pp):
+            pp.active = True
+            got, _ = eng.runtime.decode_microbatched(toks[:, -1], cache, pos,
+                                                     eng.mb_slices)
+        if ref is not None:
+            calls = [tuple(t.to(tr.device) for t in c) for c in ref["calls"]]
+            res["step"] = check_bf16_logits(torch, "phase 13(b) step", ref["want"]
+                                            .to(tr.device), got, calls, pp.calls,
+                                            cfg.n_layers)
+        eng.runtime.reset_stage_times()
+    tr.barrier()
+    for layout in P13_LAYOUTS:
+        if layout != "contiguous":
+            eng = engine_for(base.with_overrides(kv_layout="paged",
+                                                 page_size=P13_B["page_size"]),
+                             cfg, params, tr)
+        tr.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        toks, dt, seen, host, saw = p13_profiled(
+            torch, eng, prompts, P13_B["max_new"],
+            warm=warm_prompt(prompts[0], P13_B) if layout == "paged+warm" else None)
+        st = eng.stats()
+        res[layout] = dict(tokens=toks, wall_s=dt, profiled=seen, host=host,
+                           saw_device=saw, transport=st["transport"],
+                           phases=st["phases"], prefix=st.get("prefix_cache"),
+                           decode_tok_s=(sum(map(len, toks.values())) - len(toks))
+                           / max(st["phases"]["decode_s"], 1e-9),
+                           ranks=p13_rank_line(st))
+        del eng
+        torch.cuda.empty_cache()
+    print("phase13b " + json.dumps(res), flush=True)
+
+
+def p13_reference_b(torch, dev, out_dir):
+    """13(b)'s one-process reference: phase 3's bf16 model (drawn here,
+    freed after) prefills phase 3's 8 x 16 step tokens, and its
+    monolithic decode step's logits and routing are written beside the
+    cache for the attention rank."""
+    from repro_torch.config import get_config
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=MAIN["n_layers"])
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    toks = torch.randint(2, cfg.vocab, (MAIN["max_batch"], MAIN["prompt_len"]),
+                         device=dev, generator=torch.Generator(dev).manual_seed(1))
+    _, cache = prefill(params, cfg, toks, max_seq=P13_B["max_seq"])
+    pos = torch.full((MAIN["max_batch"],), MAIN["prompt_len"], dtype=torch.int32,
+                     device=dev)
+    with record_routing() as (mono, _):
+        mono.active = True
+        want, _ = decode_step(params, cfg, toks[:, -1], cache, pos)
+    host = lambda t: t.to("cpu", copy=True)
+    torch.save({"cache": [{k: host(v) for k, v in e.items()} for e in cache],
+                "want": host(want), "calls": [(host(e), host(p)) for e, p in mono.calls]},
+               Path(out_dir) / "ref_b.pt")
+    torch.save(host(toks), Path(out_dir) / "ref_toks.pt")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def p13_one_process_a(torch, dev):
+    """13(a)'s tokens in one process where phase 2 did not run: phase 2's
+    static ping-pong over its 4 expert nodes."""
+    from repro_torch.config import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=P13_A["n_layers"])
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    eng = build_engine(torch, cfg, zipf_params(torch, cfg, params), PLACE_F32,
+                       "pingpong", nodes=PLACE["expert_nodes"])
+    toks = serve(torch, eng, prompts_for(PLACE_F32, cfg.vocab), PLACE_F32["max_new"])[0]
+    del eng, params
+    torch.cuda.empty_cache()
+    return toks
+
+
+def phase_disagg_ranks(torch, dev, want_a=None):
+    """Phase 13: the disaggregated runtime on disjoint ranks of cuda:0.
+    (a) against phase 2's one-process tokens (``want_a``; computed here
+    where phase 2 did not run); (b) one step against the parent's
+    monolithic step, paged tokens equal to contiguous.  Prints each
+    rank's role, ms per decode iteration, t_a / t_e, hops, params and
+    peak.  Returns each P13_KERNELS kernel's per-rank device launches
+    (13(b)'s contiguous window; ``gating_dispatch[owner]`` 13(a)'s m2n
+    window)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "phase13"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if want_a is None:
+        want_a = p13_one_process_a(torch, dev)
+    p13_reference_b(torch, dev, out_dir)
+    ranks = {}
+    for sub, n in (("a", 1 + len(P13_A["expert_ranks"])), ("b", 4)):
+        ta = time.perf_counter()
+        from repro_torch.launch.dist_smoke import run_ranks
+        out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase13", sub, str(out_dir)],
+                        n, timeout=P13_TIMEOUT)
+        got = []
+        failed = [(rank, rc, text) for rank, (rc, text) in enumerate(out) if rc]
+        require(not failed, f"phase 13({sub}): ranks " + "; ".join(
+            f"{rank} exited {rc}:\n{text[-2500:]}" for rank, rc, text in failed))
+        for rank, (rc, text) in enumerate(out):
+            lines = [ln for ln in text.splitlines() if ln.startswith(f"phase13{sub} ")]
+            require(len(lines) == 1, f"phase 13({sub}): rank {rank} printed no "
+                    f"result:\n{text[-4000:]}")
+            got.append(json.loads(lines[0][len(f"phase13{sub} "):]))
+        ranks[sub] = sorted(got, key=lambda g: g["rank"])
+        print(f"phase 13({sub}): {n} ranks in {time.perf_counter() - ta:.1f} s")
+    A, B = ranks["a"], ranks["b"]
+    require([g["role"] for g in A] == ["attn"] + ["expert"] * 4,
+            f"phase 13(a) roles {[g['role'] for g in A]}")
+    require([g["role"] for g in B] == ["attn", "expert", "expert", "prefill"],
+            f"phase 13(b) roles {[g['role'] for g in B]}")
+    want_a = {int(k): v for k, v in want_a.items()}
+    for run in ("dispatch", "m2n"):
+        r0 = A[0][run]
+        for g in A:
+            toks = {int(k): v for k, v in g[run]["tokens"].items()}
+            require(toks == want_a, f"phase 13(a) {run}: rank {g['rank']} tokens "
+                    f"{toks} != one process's {want_a}")
+        require(r0["rebalances"] > 0, f"phase 13(a) {run}: never rebalanced")
+        require(r0["replicated"] >= 1, f"phase 13(a) {run}: no expert replicated")
+        w = r0["transport"].get("weights", {})
+        print(f"phase 13(a) [{run}] (f32, {P13_A['n_layers']} layers, 1 attention + 4 "
+              f"expert ranks, zipf({PLACE['zipf']}), rebalance every "
+              f"{PLACE['rebalance_every']}): tokens equal one process's for "
+              f"{len(want_a)} requests; {r0['rebalances']} rebalances, "
+              f"{r0['replicated']} replicated, imbalance {r0['imbalance']:.4f}; "
+              f"weights hop {w.get('bytes', 0) / 1e9:.3f} GB in {w.get('hops', 0)} "
+              f"hops; {r0['wall_s']:.2f} s")
+        for line in r0["ranks"]:
+            print(f"phase 13(a) [{run}] {line['line']}")
+    for g in A:
+        seen, host = g["m2n"]["profiled"], g["m2n"]["host"]
+        require(g["m2n"]["saw_device"], f"phase 13(a): rank {g['rank']}'s profiler "
+                f"saw no device kernel")
+        owner = seen["gating_dispatch"]
+        if g["role"] == "expert":
+            require(owner > 0 and host["gating_dispatch[owner]"] > 0
+                    and seen["grouped_matmul"] > 0,
+                    f"phase 13(a) m2n: expert rank {g['rank']} launches {seen} {host}")
+        else:
+            require(owner == 0 and seen["decode_attention"] > 0,
+                    f"phase 13(a) m2n: attention rank launches {seen}")
+        print(f"phase 13(a) [m2n] rank {g['rank']} [{g['role']}] device kernels in 4 "
+              f"decode iterations (profiler): "
+              + " ".join(f"{k}={seen[k]}" for k, _ in P13_KERNELS)
+              + "; host counts " + " ".join(f"{k}={v}" for k, v in host.items() if v))
+    a0 = B[0]
+    require("step" in a0, "phase 13(b): the attention rank held no step")
+    print(f"phase 13(b) step (bf16, {MAIN['n_layers']} layers, m = 2, against one "
+          f"process's monolithic step): {a0['step']}")
+    contig = {int(k): v for k, v in a0["contiguous"]["tokens"].items()}
+    require(len(contig) == P13_B["n_requests"], "phase 13(b): requests unfinished")
+    parted = {}
+    for g in B:
+        for layout in P13_LAYOUTS:
+            toks = {int(k): v for k, v in g[layout]["tokens"].items()}
+            require(sorted(toks) == sorted(contig) and all(
+                len(v) == P13_B["max_new"] for v in toks.values()),
+                f"phase 13(b) {layout}: rank {g['rank']} requests unfinished")
+            parted[layout] = [(r, next(i for i, (a, b) in enumerate(zip(toks[r],
+                                                                          contig[r]))
+                                       if a != b)) for r in contig if toks[r] != contig[r]]
+            require(layout == "paged+warm" or toks == contig,
+                    f"phase 13(b) {layout}: rank {g['rank']} tokens differ from the "
+                    f"contiguous run's at (request, token) {parted[layout]}")
+    for layout in P13_LAYOUTS[1:]:
+        px = a0[layout]["prefix"]
+        require(px["hits"] == (P13_B["n_requests"] if layout == "paged+warm" else 0),
+                f"phase 13(b) {layout}: prefix {px}")
+    for layout in P13_LAYOUTS:
+        r = a0[layout]
+        kv, px = r["transport"].get("kv", {}), r["prefix"]
+        print(f"phase 13(b) [{layout}] (1 prefill + 1 attention + 2 expert ranks, "
+              f"async KV): {P13_B['n_requests']} requests in {r['wall_s']:.2f} s, "
+              f"{r['decode_tok_s']:.1f} tok/s decoding; kv {kv.get('hops', 0)} hops / "
+              f"{kv.get('bytes', 0) / 1e6:.3f} MB"
+              + (f"; prefix {px['hits']} hits / {px['misses']} misses; tokens part "
+                 f"from contiguous at (request, token) {parted[layout]}"
+                 if px else ""))
+        for line in r["ranks"]:
+            print(f"phase 13(b) [{layout}] {line['line']}")
+    launches = {k: [] for k, _ in P13_KERNELS}
+    for g in B:
+        c = g["contiguous"]
+        # the prefill rank has prefilled every request by the window: it
+        # only meets the others' collectives there
+        require(c["saw_device"] or g["role"] == "prefill",
+                f"phase 13(b): rank {g['rank']}'s profiler saw no device kernel")
+        seen = c["profiled"]
+        for k, _ in P13_KERNELS:
+            launches[k].append(seen[k])
+        want_here = {"attn": ("decode_attention", "gating_dispatch"),
+                     "expert": ("grouped_matmul",), "prefill": ()}[g["role"]]
+        for k, _ in P13_KERNELS:
+            require((seen[k] > 0) == (k in want_here),
+                    f"phase 13(b): {g['role']} rank {g['rank']} launched {k} "
+                    f"{seen[k]} times (profiler)")
+        print(f"phase 13(b) rank {g['rank']} [{g['role']}] device kernels in 4 "
+              f"decode iterations (profiler): "
+              + " ".join(f"{k}={seen[k]}" for k, _ in P13_KERNELS)
+              + "; host counts " + " ".join(f"{k}={v}" for k, v in c["host"].items() if v))
+    launches["gating_dispatch[owner]"] = [g["m2n"]["profiled"]["gating_dispatch"]
+                                          for g in A]
+    print(f"phase 13 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase13_child(argv) -> int:
+    """``chip_smoke.py --phase13 a|b OUT_DIR``: one rank of phase 13(a) or
+    (b), started by ``phase_disagg_ranks`` with the ``REPRO_*`` variables,
+    on cuda:0 over gloo (or its own card over NCCL)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    {"a": p13a_child, "b": p13b_child}[argv[0]](torch, argv[1])
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def phase12_child(argv) -> int:
     """``chip_smoke.py --phase12 a|1x4|1x2 OUT_DIR``: one rank of phase
     12(a) or of 12(b) on one grid, started by ``phase_every_kind`` with
@@ -4481,7 +4899,7 @@ def main() -> int:
                       f"spill stores {st} B, loads {ld} B")
         rows = phase_kernels(torch, dev)
         cfg = get_config("mixtral-8x22b")
-        phase_f32_parity(torch, dev, cfg)
+        placed_tokens = phase_f32_parity(torch, dev, cfg)
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(cfg, n_layers=MAIN["n_layers"])
         params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
@@ -4515,6 +4933,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         p12_row = phase_every_kind(torch, dev)
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        p13 = phase_disagg_ranks(torch, dev, placed_tokens)
         t_end = time.perf_counter()
         partial = rows["decode_attention[partial]"]
         partial["phase12_rank_launches"] = p12_row["rank_launches"]
@@ -4545,6 +4966,8 @@ def main() -> int:
             if name == "decode_attention[partial]":
                 kernels[-1]["shape"] = r["shape"]
                 kernels[-1]["phase12_rank_launches"] = r["phase12_rank_launches"]
+            if name in p13:
+                kernels[-1]["phase13_rank_launches"] = p13[name]
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
@@ -4561,7 +4984,7 @@ def main() -> int:
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
           f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t10 - t9:.1f} s, phase 10 in "
           f"{t11 - t10:.1f} s, phase 11 in {t12 - t11:.1f} s, phase 12 in "
-          f"{t_end - t12:.1f} s")
+          f"{t13 - t12:.1f} s, phase 13 in {t_end - t13:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4646,6 +5069,33 @@ def phase12_only() -> int:
     return 0
 
 
+def phase13_only() -> int:
+    """``chip_smoke.py --phase13-only``: phase 13 alone (its kernels built
+    first, one ``nvcc`` per source; 13(a)'s one-process tokens computed
+    here)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
+    from repro_torch.kernels.cuda_build import build_all
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_line()}, "
+          f"{torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    try:
+        build_all()
+        t1 = time.perf_counter()
+        launches = phase_disagg_ranks(torch, torch.device("cuda", 0))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: build {t1 - t0:.1f} s, phase 13 in "
+          f"{time.perf_counter() - t1:.1f} s; per-rank launches {json.dumps(launches)}")
+    return 0
+
+
 def child_exit(rc: int):
     """Leave a rank process without the interpreter's finalization, where
     the gloo groups' leftover C++ objects can abort it ("terminate called
@@ -4657,6 +5107,10 @@ def child_exit(rc: int):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase13"]:
+        child_exit(phase13_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase13-only"]:
+        sys.exit(phase13_only())
     if sys.argv[1:2] == ["--phase12"]:
         child_exit(phase12_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase12-only"]:

@@ -47,6 +47,34 @@ T_a and T_e the micro-batch count of paper eq. 3 (``auto_microbatches``).
 Per-micro-batch cache rows are views of the engine's cache, and the
 attention sublayer writes the new K/V token into them in place, so no
 cache merge follows the step (the JAX runtime rebuilt the cache).
+
+On ranks (a ``MultiControllerTransport`` whose ``setup_serving`` placed
+the attention and the expert group on disjoint ranks, the JAX
+runtime's two meshes) each rank runs its own stage, issuing its
+collectives in the order of ``pingpong.build_schedule``:
+
+  * an attention rank owns a contiguous run of the m micro-batches
+    (``even_partition(m, A)``: the "dp" of JAX's attention mesh, whole
+    micro-batches, so each is routed as in one process) and their KV
+    rows.  It sends micro-batch i's M2N hop (asynchronous), posts the
+    receive of its N2M return, and issues attention for i + 1 before it
+    waits on i's return;
+  * an expert rank holds E / N whole experts (JAX's ``P("ep")``) or, for
+    a dense FFN, its column block of w1 / w3 and row block of w2, and
+    serves every micro-batch in schedule order: without M2N it receives
+    only its experts' capacity rows (a broadcast in the pair group of
+    the attention rank and itself) and returns their outputs the same
+    way; with M2N the (T, d) activations come to every expert rank (a
+    broadcast in the attention rank's micro-batch group), the group runs
+    ``m2n.sharded_routed_experts`` over its ranks (``GroupMesh`` "ep") and
+    its first rank returns the combined rows; a dense FFN's partial
+    outputs are summed in the N2M hop (a zero-filled ``all_reduce``).
+
+The attention rank accounts both hops of its micro-batches (JAX's
+bytes), every rank records its waits.  ``stage_report`` and the routing
+counts are merged over the decode ranks, so every rank reads the same.
+With one decode rank both groups are that rank: the two-stream runtime
+above, unchanged.
 """
 from __future__ import annotations
 
@@ -64,6 +92,7 @@ from repro_torch.core import m2n as m2n_lib
 from repro_torch.core import pingpong
 from repro_torch.core.transport import InProcessTransport
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import GroupMesh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import gated_ffn
@@ -75,6 +104,87 @@ DENSE_KEYS = ("w1", "w3", "w2")
 # pipeline stages timed by the runtime (attention compute, M2N dispatch
 # hop, expert compute, N2M return hop, attention-side combine)
 STAGES = ("attn", "m2n", "expert", "n2m", "combine")
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def microbatch_owners(attn_ranks: Sequence[int], m: int) -> List[int]:
+    """The attention rank of each of ``m`` micro-batches: contiguous
+    runs over ``attn_ranks``, ``even_partition(m, A)``."""
+    if m < len(attn_ranks):
+        raise ValueError(f"{m} micro-batches for {len(attn_ranks)} attention "
+                         f"ranks: each attention rank serves whole micro-batches")
+    out = []
+    for a, part in zip(attn_ranks, pingpong.even_partition(m, len(attn_ranks))):
+        out += [a] * (part.stop - part.start)
+    return out
+
+
+def check_expert_group(cfg: ModelConfig, n: int):
+    """Raise unless an expert group of ``n`` ranks splits the model's
+    experts into whole blocks (JAX's ``P("ep")`` of the (E, ...) expert
+    weights), or a dense FFN's hidden width into column blocks."""
+    if cfg.moe is not None and cfg.moe.n_experts % n:
+        raise ValueError(f"an expert group of {n} ranks does not divide the "
+                         f"{cfg.moe.n_experts} experts of {cfg.name}: each "
+                         f"expert rank holds E / N whole experts")
+    if cfg.moe is None and cfg.d_ff % n:
+        raise ValueError(f"an expert group of {n} ranks does not divide "
+                         f"{cfg.name}'s d_ff {cfg.d_ff}")
+
+
+def rank_params(cfg: ModelConfig, params: dict, roles, rank: int, *,
+                use_m2n: bool = False, inline_prefill: bool = False) -> dict:
+    """The leaves rank ``rank`` of the layout ``roles`` keeps of the
+    whole ``params``: a prefill rank, the one decode rank, and an
+    attention rank that prefills inline keep everything (their prefill
+    reads every leaf); an attention rank otherwise everything but the
+    expert (or dense FFN) weights; an expert rank its block of E / N
+    whole experts, copied so the rest can be freed (with M2N also the
+    router, which JAX replicates on the expert mesh), or a dense FFN's
+    column block of w1 / w3 and row block of w2.  Leaves already cut to
+    the rank's block are kept as they are."""
+    role = roles.role(rank)
+    if role in ("prefill", "attn+expert") or (role == "attn" and inline_prefill):
+        return params
+    split = EXPERT_KEYS if cfg.moe is not None else DENSE_KEYS
+    if role == "attn":
+        return dict({k: params[k] for k in ("embed", "final_norm", "lm_head")
+                     if k in params},
+                    layers=[{k: v for k, v in lp.items() if k not in split}
+                            for lp in params["layers"]])
+    if role != "expert":
+        raise ValueError(f"rank {rank} has no stage in {roles}")
+    n, j = len(roles.expert), roles.expert.index(rank)
+    check_expert_group(cfg, n)
+    layers = []
+    for lp in params["layers"]:
+        if cfg.moe is not None:
+            E = cfg.moe.n_experts
+            b = E // n
+            keep = {k: (lp[k][j * b:(j + 1) * b].clone()
+                        if lp[k].shape[0] == E else lp[k]) for k in EXPERT_KEYS}
+            if use_m2n:
+                keep.update({k: lp[k] for k in ("router", "router_bias")
+                             if k in lp})
+        else:
+            f = cfg.d_ff // n
+            cols = lambda t: (t[:, j * f:(j + 1) * f].clone()
+                              if t.shape[1] == cfg.d_ff else t)
+            keep = {"w1": cols(lp["w1"]), "w3": cols(lp["w3"]),
+                    "w2": (lp["w2"][j * f:(j + 1) * f].clone()
+                           if lp["w2"].shape[0] == cfg.d_ff else lp["w2"])}
+        layers.append(keep)
+    return {"layers": layers}
 
 
 @dataclass
@@ -106,6 +216,16 @@ class DisaggregatedInstance:
         serving engine reports the same one."""
         if expert_nodes < 1:
             raise ValueError(f"expert_nodes must be >= 1, got {expert_nodes}")
+        roles = getattr(transport, "roles", None)
+        # across ranks: this rank's stage of a layout whose attention and
+        # expert groups are disjoint
+        self.on_ranks = roles is not None and roles.disjoint
+        if self.on_ranks:
+            if expert_nodes not in (1, len(roles.expert)):
+                raise ValueError(f"expert_nodes={expert_nodes}, but the expert "
+                                 f"group has {len(roles.expert)} ranks")
+            expert_nodes = len(roles.expert)
+            check_expert_group(cfg, expert_nodes)
         # the JAX runtime's rule: self-attention layers with an FFN only
         # (recurrent, SSD and cross layers have no attention/expert split)
         for kind in cfg.layer_kinds:
@@ -118,17 +238,37 @@ class DisaggregatedInstance:
         self.transport = (transport if transport is not None
                           else InProcessTransport())
         self.n_expert_nodes = expert_nodes
-        self.device = params["embed"].device
-        # the two stages share the caller's parameter tensors (no copy)
         split = EXPERT_KEYS if cfg.moe is not None else DENSE_KEYS
-        self.layers_attn = [{k: v for k, v in lp.items() if k not in split}
-                            for lp in params["layers"]]
-        self.layers_expert = [{k: lp[k] for k in split}
-                              for lp in params["layers"]]
-        self.head = {k: params[k] for k in ("embed", "final_norm", "lm_head")
-                     if k in params}
+        self.rank, self.role, self.roles = 0, "attn+expert", roles
+        if roles is not None:
+            self.rank = transport.process_index
+            self.role = roles.role(self.rank)
+        if self.on_ranks:
+            params = rank_params(cfg, params, roles, self.rank,
+                                 use_m2n=self.plan.use_m2n)
+        leaf = next(t for t in _tensors(params))
+        self.device, self.dtype = leaf.device, (
+            params["embed"].dtype if "embed" in params else leaf.dtype)
+        is_attn = self.role in ("attn", "attn+expert")
+        is_expert = self.role in ("expert", "attn+expert")
+        # the two stages share the caller's parameter tensors (no copy);
+        # a rank keeps what its stage reads
+        self.layers_attn = ([{k: v for k, v in lp.items() if k not in split}
+                             for lp in params["layers"]] if is_attn else None)
+        self.layers_expert = ([{k: lp[k] for k in split} for lp in params["layers"]]
+                              if is_expert else None)
+        self.layers_router = ([{k: lp[k] for k in ("router", "router_bias")
+                                if k in lp} for lp in params["layers"]]
+                              if is_expert and self.on_ranks and cfg.moe is not None
+                              and self.plan.use_m2n else None)
+        self.head = ({k: params[k] for k in ("embed", "final_norm", "lm_head")
+                      if k in params} if is_attn else {})
         self.expert_stream = (torch.cuda.Stream(self.device)
-                              if self.device.type == "cuda" else None)
+                              if self.device.type == "cuda" and not self.on_ranks
+                              else None)
+        if self.on_ranks:
+            self._expert_mesh = GroupMesh("ep", roles.expert,
+                                          transport.groups["expert"])
         E = cfg.moe.n_experts if cfg.moe is not None else 0
         # the live traffic trace: per-expert routed-token counts of the
         # live rows, added on the attention stream
@@ -266,7 +406,8 @@ class DisaggregatedInstance:
         rep["hops"] = self.stage_counts["m2n"] + self.stage_counts["n2m"]
         rep["t_c"] = ((self.stage_times["m2n"] + self.stage_times["n2m"])
                       / max(1, rep["hops"]))
-        return rep
+        # across ranks every decode rank takes part, and reads the same
+        return self._stage_report_ranks(rep) if self.on_ranks else rep
 
     def measure_stage_times(self, batch: int, max_seq: int = 32) -> dict:
         """Profile one decode iteration of ``batch`` rows on a throwaway
@@ -279,8 +420,10 @@ class DisaggregatedInstance:
         cfg = self.cfg
         tokens = torch.zeros(batch, dtype=torch.int64, device=self.device)
         pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
-        cache = init_cache(cfg, batch, max_seq, dtype=self.head["embed"].dtype,
-                           device=self.device)
+        rows = (self.attn_rows(pingpong.even_partition(batch, self.plan.n_microbatches))
+                if self.on_ranks else slice(0, batch))
+        cache = (init_cache(cfg, rows.stop - rows.start, max_seq, dtype=self.dtype,
+                            device=self.device) if rows is not None else None)
         counts, active = self.expert_counts.clone(), self._active
         prev = self.plan.profile_stages
         self.plan.profile_stages = True
@@ -372,22 +515,26 @@ class DisaggregatedInstance:
         src = np.where(flat < 0, 0, flat)          # pad slots hold expert 0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        if self.layers_expert_placed is None:
-            self.layers_expert_placed = [
-                {k: raw[k].new_empty((flat.size,) + tuple(raw[k].shape[1:]))
-                 for k in EXPERT_KEYS} for raw in self.layers_expert]
-            changed = np.arange(flat.size)
+        if self.on_ranks:
+            if self.layers_expert is not None:
+                self._regather_ranks(np.where(flat < 0, -1, flat))
         else:
-            changed = np.nonzero(src != self._slot_experts)[0]
-        moved = []
-        for raw, placed in zip(self.layers_expert, self.layers_expert_placed):
-            for k in EXPERT_KEYS:
-                for slot in changed.tolist():
-                    placed[k][slot].copy_(raw[k][int(src[slot])])
-                    moved.append(placed[k][slot])
+            if self.layers_expert_placed is None:
+                self.layers_expert_placed = [
+                    {k: raw[k].new_empty((flat.size,) + tuple(raw[k].shape[1:]))
+                     for k in EXPERT_KEYS} for raw in self.layers_expert]
+                changed = np.arange(flat.size)
+            else:
+                changed = np.nonzero(src != self._slot_experts)[0]
+            moved = []
+            for raw, placed in zip(self.layers_expert, self.layers_expert_placed):
+                for k in EXPERT_KEYS:
+                    for slot in changed.tolist():
+                        placed[k][slot].copy_(raw[k][int(src[slot])])
+                        moved.append(placed[k][slot])
+            # the regather is the "weights" hop of the ledger
+            self.transport.regather_weights(moved)
         self._slot_experts = src
-        # the regather is the "weights" hop of the ledger
-        self.transport.regather_weights(moved)
         self._tables_dev = {
             k: torch.as_tensor(getattr(tables, k), dtype=dt, device=self.device)
             for k, dt in (("rep_node", torch.int32), ("rep_slot", torch.int32),
@@ -434,8 +581,10 @@ class DisaggregatedInstance:
 
     def peek_expert_counts(self) -> np.ndarray:
         """Per-expert routed-token counts since the last reset (waits
-        for the attention stream)."""
-        return self.expert_counts.double().cpu().numpy()
+        for the attention stream); across ranks merged over the decode
+        ranks, every one of which must call it."""
+        counts = self._merged_counts() if self.on_ranks else self.expert_counts
+        return counts.double().cpu().numpy()
 
     def take_expert_counts(self) -> np.ndarray:
         """``peek_expert_counts`` and a reset: one interval of live
@@ -467,6 +616,8 @@ class DisaggregatedInstance:
                     or (mbs and mbs[-1].stop != B):
                 raise ValueError(f"micro-batch slices {mbs} must cover "
                                  f"[0, {B}) contiguously")
+        if self.on_ranks:
+            return self._decode_ranks(tokens, cache, pos, mbs)
         attn_s = (torch.cuda.current_stream(self.device)
                   if self.expert_stream is not None else None)
         exp_s = self.expert_stream
@@ -533,3 +684,288 @@ class DisaggregatedInstance:
         logits = torch.cat([lm_head(self.head, cfg, x) for x in xs], 0)
         self.last_trace = trace
         return logits, cache
+
+    # ------------------------------------------------------------- ranks
+    def owners(self, m: int) -> List[int]:
+        """The attention rank of each of ``m`` micro-batches."""
+        return microbatch_owners(self.roles.attn if self.roles else (0,), m)
+
+    def attn_rows(self, mbs: Sequence[slice]) -> Optional[slice]:
+        """The batch rows (KV slots) this rank's attention stage owns for
+        the micro-batches ``mbs``, or None on a rank without one."""
+        if self.layers_attn is None:
+            return None
+        own = [s for s, a in zip(mbs, self.owners(len(mbs))) if a == self.rank]
+        return slice(own[0].start, own[-1].stop)
+
+    def _decode_ranks(self, tokens, cache, pos, mbs):
+        """``decode_microbatched`` on this rank's stage: (logits of its
+        rows, or None on an expert rank; cache)."""
+        cfg, tr = self.cfg, self.transport
+        owners = self.owners(len(mbs))
+        B = tokens.shape[0]
+        act = (self._active if self._active is not None else
+               torch.ones(B, dtype=torch.float32, device=self.device))
+        placed = self.layers_expert_placed is not None
+        # an attention rank holds the tables, not the placed weights
+        tbl = self._tables_dev if self.tables is not None else None
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        sends, trace = [], []
+        if self.layers_attn is not None:
+            own = [i for i, a in enumerate(owners) if a == self.rank]
+            lo = mbs[own[0]].start
+            xs = {i: embed_tokens(self.head, cfg, tokens[mbs[i]]) for i in own}
+        for l, kind in enumerate(cfg.layer_kinds):
+            if self.layers_attn is None:
+                pe = (self.layers_expert_placed[l] if placed
+                      else self.layers_expert[l])
+                for i, s in enumerate(mbs):
+                    sends += self._serve_expert(l, pe, s, owners[i], act[s], tbl,
+                                                stream)
+                    trace.append(("expert", i, l))
+                continue
+            window = cfg.window if kind == "local" else 0
+            pa = self.layers_attn[l]
+            inflight: deque = deque()
+
+            def drain_one():
+                i, x, h, back, disp = inflight.popleft()
+                out = back()
+                xs[i] = self._timed("combine", stream, self._combine_phase, pa, x,
+                                    h, out, disp)
+
+            for i in own:
+                s = mbs[i]
+                rows = slice(s.start - lo, s.stop - lo)
+                entry = {k: v[rows] for k, v in cache[l].items()}
+                x, h, disp = self._timed("attn", stream, self._attn_phase, pa,
+                                         xs[i], act[s], entry, pos[s], window, tbl)
+                if disp is not None:
+                    self.expert_counts += disp["counts"]
+                trace.append(("attn", i, l))
+                back, sent = self._send_micro_batch(h, disp)
+                sends += sent
+                inflight.append((i, x, h, back, disp))
+                # the return of micro-batch i is waited on only after
+                # attention for i + 1 is issued
+                if len(inflight) > 1:
+                    drain_one()
+            while inflight:
+                drain_one()
+        for hop in sends:
+            hop.wait()
+        self.last_trace = trace
+        if self.layers_attn is None:
+            return None, cache
+        return torch.cat([lm_head(self.head, cfg, xs[i]) for i in own], 0), cache
+
+    def _send_micro_batch(self, h, disp):
+        """The attention rank's M2N hop of one micro-batch (asynchronous)
+        and the receive of its N2M return, posted at once so that every
+        group sees its hops in the same order on every rank.  Returns
+        (a function that waits for the return and gives the expert
+        output, the sends to wait on at the step's end)."""
+        cfg, tr, ex = self.cfg, self.transport, self.roles.expert
+        t0 = time.perf_counter()
+        a = self.rank
+        if cfg.moe is None or self.plan.use_m2n:
+            payload = h
+            sends = [tr.broadcast(h, root=a, group=tr.groups["mb", a],
+                                  kind="tokens", async_op=True, account=False)]
+        else:
+            payload = disp["xe"]
+            b = payload.shape[0] // len(ex)
+            sends = [tr.broadcast(payload[j * b:(j + 1) * b].contiguous(), root=a,
+                                  group=tr.pair(a, x), kind="tokens",
+                                  async_op=True, account=False)
+                     for j, x in enumerate(ex)]
+        fan = (len(ex) if cfg.moe is not None and self.plan.use_m2n else 1)
+        self._account_hop("m2n", payload, fan, time.perf_counter() - t0)
+        if cfg.moe is not None and self.plan.use_m2n:
+            if len(ex) > 1:
+                self._account_combine(h.shape[0], h.shape[1], h.element_size())
+            ret = [tr.broadcast(None, root=ex[0], group=tr.pair(a, ex[0]),
+                                kind="tokens", like=h, async_op=True)]
+            out = lambda: {"y": ret[0].wait()}
+        elif cfg.moe is not None:
+            ret = [tr.broadcast(None, root=x, group=tr.pair(a, x), kind="tokens",
+                                like=payload[:b], async_op=True) for x in ex]
+            out = lambda: torch.cat([r.wait() for r in ret], 0)
+        else:
+            ret = [tr.reduce_hop(torch.zeros_like(h), group=tr.groups["mb", a],
+                                 kind="tokens", async_op=True)]
+            out = lambda: ret[0].wait()
+
+        def back():
+            y = out()
+            self._account_hop("n2m", y["y"] if isinstance(y, dict) else y, 1, 0.0)
+            return y
+
+        return back, sends
+
+    def _account_hop(self, stage: str, payload, fanout: int, issue_s: float):
+        """The ledger's "tokens" hop of one stage, accounted on the
+        attention rank (its bytes as one process counts them), and the
+        stage timed at the hop's priced latency."""
+        h = self.transport.record("tokens", payload.numel() * payload.element_size()
+                                  * max(1, fanout), fanout=fanout, issue_s=issue_s)
+        self.stage_counts[stage] += 1
+        self.stage_times[stage] += h.sim_s
+
+    def _serve_expert(self, l, pe, s, a, act, tbl, stream):
+        """One micro-batch (rows ``s`` of attention rank ``a``) on this
+        expert rank: receive, compute, return.  Returns the sends to wait
+        on at the step's end."""
+        cfg, tr = self.cfg, self.transport
+        T, d = s.stop - s.start, cfg.d_model
+        me, j = self.rank, self.roles.expert.index(self.rank)
+        like = torch.empty((T, d), dtype=self.dtype, device=self.device)
+        if cfg.moe is not None and self.plan.use_m2n:
+            h = tr.broadcast(None, root=a, group=tr.groups["mb", a], kind="tokens",
+                             like=like).wait()
+            router = self.layers_router[l]
+            out = self._timed("expert", stream, self._expert_phase_ranks, pe,
+                              router, h, act, tbl)
+            self.expert_counts += out["counts"]
+            if j:
+                return []
+            return [tr.broadcast(out["y"], root=me, group=tr.pair(a, me),
+                                 kind="tokens", async_op=True, account=False)]
+        if cfg.moe is not None:
+            cap = moe_lib.expert_capacity(T, cfg.moe, self.plan.capacity_mode)
+            b = pe["we1"].shape[0]
+            xe = tr.broadcast(None, root=a, group=tr.pair(a, me), kind="tokens",
+                              like=torch.empty((b, cap, d), dtype=self.dtype,
+                                               device=self.device)).wait()
+            out = self._timed("expert", stream, self._expert_phase, pe, xe)
+            return [tr.broadcast(out, root=me, group=tr.pair(a, me),
+                                 kind="tokens", async_op=True, account=False)]
+        h = tr.broadcast(None, root=a, group=tr.groups["mb", a], kind="tokens",
+                         like=like).wait()
+        out = self._timed("expert", stream, self._expert_phase, pe, h)
+        return [tr.reduce_hop(out, group=tr.groups["mb", a], kind="tokens",
+                              async_op=True)]
+
+    def _expert_phase_ranks(self, pe, router, h, act, tbl):
+        """The M2N dispatch over the expert group's ranks (the owner
+        branch of ``gating_dispatch`` on this rank's experts, the combine
+        an ``all_reduce`` over the group): (T, d) output and the routing
+        counts."""
+        tables = (None if tbl is None
+                  else dict(tbl, slots_per_node=self.placement_slots))
+        y, counts = m2n_lib.sharded_routed_experts(
+            dict(pe, **router), h, self.cfg.moe, self.cfg.act,
+            self.plan.capacity_mode, mesh=self._expert_mesh, expert_axis="ep",
+            tables=tables, with_counts=True, count_weights=act)
+        return {"y": y, "counts": counts}
+
+    def _merged_counts(self) -> torch.Tensor:
+        """The routing counts summed over the decode ranks, each counted
+        once: the attention ranks' (disjoint micro-batches) without M2N,
+        the first expert rank's with it (every expert rank routes the same
+        tokens)."""
+        mine = self.expert_counts.clone()
+        counts_here = (self.layers_attn is not None if not self.plan.use_m2n
+                       else self.rank == self.roles.expert[0])
+        if not counts_here:
+            mine.zero_()
+        return self.transport.reduce_hop(
+            mine, group=self.transport.groups["decode"], kind="collective").wait()
+
+    def _stage_report_ranks(self, local: dict) -> dict:
+        """The merged stage report: the attention ranks' attn / combine /
+        m2n / n2m seconds and counts summed, the expert stage's seconds
+        the mean of the expert ranks' and its count the first expert
+        rank's (each runs every micro-batch); t_a, t_e, t_c from those.
+        ``ranks``: each decode rank's own report."""
+        tr = self.transport
+        mine = dict(local, rank=self.rank, role=self.role)
+        reps = tr.gather_objects(mine, group=tr.groups["decode"],
+                                 ranks=self.roles.decode)
+        attn = [r for r in reps if r["role"] == "attn"]
+        exp = [r for r in reps if r["role"] == "expert"]
+        rep = {}
+        for st in STAGES:
+            if st == "expert":
+                rep["expert_s"] = sum(r["expert_s"] for r in exp) / len(exp)
+                rep["expert_n"] = exp[0]["expert_n"]
+            else:
+                rep[f"{st}_s"] = sum(r[f"{st}_s"] for r in attn)
+                rep[f"{st}_n"] = sum(r[f"{st}_n"] for r in attn)
+        rep["t_a"] = (rep["attn_s"] + rep["combine_s"]) / max(1, rep["attn_n"])
+        rep["t_e"] = rep["expert_s"] / max(1, rep["expert_n"])
+        rep["hops"] = rep["m2n_n"] + rep["n2m_n"]
+        rep["t_c"] = (rep["m2n_s"] + rep["n2m_s"]) / max(1, rep["hops"])
+        rep["ranks"] = reps
+        return rep
+
+    def _regather_ranks(self, src: np.ndarray):
+        """Write this expert rank's virtual slots of the layout ``src``
+        (the expert of every slot, node-major; -1 a pad slot, which no
+        table routes to: zeroed here, where one process copies expert 0
+        into it): each changed slot takes its expert's weights from the
+        expert rank that holds it statically, over the pair group of the
+        two (every expert rank walks the same changes in the same order),
+        or from its own block.  The un-placed blocks go to the host at
+        the first placement, before the slots are made, so the card keeps
+        only the slots; the "weights" hop counts the rank's changed
+        slots' bytes."""
+        tr, ex, me = self.transport, self.roles.expert, self.rank
+        S = self.placement_slots
+        e_loc = self.cfg.moe.n_experts // len(ex)
+        j = ex.index(me)
+        if self.layers_expert_placed is None:
+            shapes = [{k: (raw[k].shape, raw[k].dtype) for k in EXPERT_KEYS}
+                      for raw in self.layers_expert]
+            # the card copy is freed where no caller keeps a reference
+            # (an expert rank's engine keeps none)
+            self.layers_expert = [{k: raw[k].to("cpu", copy=True) for k in EXPERT_KEYS}
+                                  for raw in self.layers_expert]
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self.layers_expert_placed = [
+                {k: torch.empty((S,) + tuple(sh[k][0][1:]), dtype=sh[k][1],
+                                device=self.device) for k in EXPERT_KEYS}
+                for sh in shapes]
+            changed = np.arange(src.size)
+        else:
+            changed = np.nonzero(src != np.where(self._slot_pad, -1,
+                                                 self._slot_experts))[0]
+        self._slot_pad = src < 0
+        wire = tr._wire_device()
+        pieces = lambda e: [raw[k][e] for raw in self.layers_expert
+                            for k in EXPERT_KEYS]
+        moved, sends = [], []
+        for slot in changed.tolist():
+            dst, e = ex[slot // S], int(src[slot])
+            if e < 0:
+                if dst == me:
+                    for placed in self.layers_expert_placed:
+                        for k in EXPERT_KEYS:
+                            placed[k][slot - j * S].zero_()
+                continue
+            owner = ex[e // e_loc]
+            if me not in (dst, owner):
+                continue
+            # one hop a weight, each a contiguous host view (nothing
+            # packed); a send does not wait, so the pairs' hops overlap
+            if owner == me and dst != me:
+                sends += [tr.broadcast(t.to(wire), root=me, group=tr.pair(me, dst),
+                                       kind="weights", async_op=True, account=False)
+                          for t in pieces(e - j * e_loc)]
+                continue
+            got = (pieces(e - j * e_loc) if owner == me else
+                   (tr.broadcast(None, root=owner, group=tr.pair(owner, me),
+                                 kind="weights",
+                                 like=torch.empty(t.shape, dtype=t.dtype,
+                                                  device=wire)).wait()
+                    for t in pieces(0)))
+            it = iter(got)
+            for placed in self.layers_expert_placed:
+                for k in EXPERT_KEYS:
+                    placed[k][slot - j * S].copy_(next(it))
+                    moved.append(placed[k][slot - j * S])
+        for hop in sends:
+            hop.wait()
+        self.transport.regather_weights(moved)

@@ -19,7 +19,12 @@ bytes times the fan-out), the same numbers the JAX package records.
     ``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``,
     with the OpenMPI and SLURM rank variables as fallbacks).  Gloo where
     the ranks run on the CPU or share a card, NCCL where each rank has a
-    card of its own.  In one process it is the in-process hop.
+    card of its own.  In one process it is the in-process hop.  Across
+    ranks of the disaggregated layout (``setup_serving``) a hop is a
+    ``broadcast`` from its source rank in a group made for it at
+    bring-up, or a zero-filled ``all_reduce`` (gloo takes no other
+    collective on a CUDA tensor); the source accounts the hop, and every
+    rank records its wait on the hops it takes part in.
 
 Hop kinds:
 
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import abc
 import os
+import pickle
 import time
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -43,11 +49,13 @@ HOP_KINDS = ("tokens", "kv", "weights", "collective")
 
 
 def _leaves(tree):
+    """The tensors of a nest, dict entries by sorted key (the order
+    ``_tree_map`` and a hop's byte layout follow on every rank)."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
@@ -57,7 +65,7 @@ def _tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return tree
@@ -137,8 +145,15 @@ class Transport(abc.ABC):
                           fanout: int = 1) -> TransportHandle:
         """Account a collective hop (the m2n combine) whose wire bytes
         are known in closed form.  No data moves here."""
-        h = TransportHandle(kind="collective", nbytes=int(nbytes),
-                            issue_s=0.0, fanout=fanout)
+        return self.record("collective", nbytes, fanout=fanout)
+
+    def record(self, kind: str, nbytes: int, *, fanout: int = 1,
+               issue_s: float = 0.0) -> TransportHandle:
+        """Account one hop of ``kind`` carrying ``nbytes`` on the wire (a
+        hop whose data moved elsewhere: a collective, or a hop between
+        ranks); priced by the backend's cost model."""
+        h = TransportHandle(kind=kind, nbytes=int(nbytes), issue_s=issue_s,
+                            fanout=fanout)
         h.sim_s = self._simulate(h)
         self._account(h)
         return h
@@ -319,6 +334,9 @@ class MultiControllerTransport(InProcessTransport):
                         and torch.cuda.device_count() >= n)
             backend = "nccl" if own_card else "gloo"
         self.backend = backend
+        self._waits = {}
+        self.roles = None
+        self.groups = {}
         if initialize and n > 1 and not dist.is_initialized():
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
@@ -343,6 +361,186 @@ class MultiControllerTransport(InProcessTransport):
             if sync and dst is None and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         return self._hop(t0, tree, dst, src, kind, sync, fanout)
+
+    # ------------------------------------------------ hops between ranks
+    def setup_serving(self, roles) -> None:
+        """Make every process group the disaggregated layout's hops need,
+        once, in the same order on every rank (a group made per hop would
+        cost its bring-up each time, and deadlock where a rank skipped
+        it): ``decode`` (attention and expert ranks), ``expert``, ``kv``
+        (prefill and attention ranks), ``("mb", a)`` for each attention
+        rank a (a and the expert ranks: its micro-batches' M2N and N2M
+        hops), and one group for every pair of ranks.  ``roles``: a
+        ``launch.mesh.ServingRoles`` of this world."""
+        self.roles = roles
+        self.groups = {}
+        if self.process_count != roles.world:
+            raise ValueError(f"{roles} for a world of {self.process_count}")
+
+        def new(ranks):
+            ranks = sorted(set(ranks))
+            # every rank makes every group, in this order, members or not
+            return dist.new_group(ranks) if len(ranks) > 1 else None
+
+        self.groups["decode"] = new(roles.decode)
+        self.groups["expert"] = new(roles.expert)
+        self.groups["kv"] = new(set(roles.prefill) | set(roles.attn))
+        for a in roles.attn:
+            self.groups["mb", a] = new({a} | set(roles.expert))
+        for i in range(roles.world):
+            for j in range(i + 1, roles.world):
+                self.groups[i, j] = new((i, j))
+
+    def pair(self, a: int, b: int):
+        """The group of ranks a and b."""
+        return self.groups[min(a, b), max(a, b)]
+
+    def _wait(self, kind: str, seconds: float):
+        w = self._waits.setdefault(kind, [0.0, 0])
+        w[0] += seconds
+        w[1] += 1
+
+    def broadcast(self, tree, *, root: int, group, kind: str, like=None,
+                  async_op: bool = False, account: bool = True) -> "RankHop":
+        """One hop from rank ``root`` to the other ranks of ``group``: a
+        ``broadcast`` of ``tree`` (on the root; its leaves packed into one
+        byte buffer) into buffers shaped as ``like`` (elsewhere).  The
+        root accounts ``kind`` with the payload's bytes (unless
+        ``account`` is False: a hop its caller accounts as a whole);
+        ``RankHop.wait`` returns the tree and records the wait (at once
+        where ``async_op`` is False)."""
+        t0 = time.perf_counter()
+        me = self.process_index
+        src = tree if me == root else like
+        leaves = list(_leaves(src))
+        one = len(leaves) == 1 and isinstance(src, torch.Tensor)
+        if one:
+            # bytes on the wire whatever the dtype (gloo's collectives
+            # do not all take bf16)
+            out = tree.contiguous() if me == root else torch.empty_like(like)
+            buf = out.view(torch.uint8)
+        elif me == root:
+            buf = torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                             for t in leaves])
+        else:
+            buf = torch.empty(sum(t.numel() * t.element_size() for t in leaves),
+                              dtype=torch.uint8, device=leaves[0].device)
+        work = dist.broadcast(buf, src=root, group=group, async_op=True)
+        if me == root and account:
+            self.record(kind, buf.numel(), issue_s=time.perf_counter() - t0)
+        unpack = (lambda: out) if one else (lambda: _unpack(buf, src))
+        return RankHop(self, kind, work, unpack, wait=not async_op)
+
+    def reduce_hop(self, t: torch.Tensor, *, group, kind: str,
+                   async_op: bool = False) -> "RankHop":
+        """One hop as a sum: every rank of ``group`` adds ``t`` in place
+        (a receiver passes zeros, so it gets the senders' sum: a dense
+        FFN's partial outputs, or each rank's share of the routing
+        counts).  Its wait goes to ``kind``; the caller accounts it."""
+        work = dist.all_reduce(t, group=group, async_op=True)
+        return RankHop(self, kind, work, lambda: t, wait=not async_op)
+
+    def gather_objects(self, obj, group=None, ranks=None) -> list:
+        """Every rank's ``obj`` (picklable), in rank order, on every rank
+        of ``group`` (the world by default; ``ranks``: the group's ranks):
+        each rank's bytes written into its part of zero-filled buffers,
+        summed (gloo takes only ``all_reduce`` / ``broadcast`` on a CUDA
+        tensor)."""
+        ranks = list(ranks) if ranks is not None else list(range(self.process_count))
+        if len(ranks) == 1:
+            return [obj]
+        dev = self._wire_device()
+        mine = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+        i = ranks.index(self.process_index)
+        sizes = torch.zeros(len(ranks), dtype=torch.int64, device=dev)
+        sizes[i] = mine.numel()
+        dist.all_reduce(sizes, group=group)
+        sizes = sizes.tolist()
+        buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=dev)
+        off = sum(sizes[:i])
+        buf[off:off + sizes[i]] = mine.to(dev)
+        dist.all_reduce(buf, group=group)
+        data, out, off = buf.cpu().numpy().tobytes(), [], 0
+        for n in sizes:
+            out.append(pickle.loads(data[off:off + n]))
+            off += n
+        return out
+
+    def barrier(self):
+        """Every rank waits for all the others (nothing in one process)."""
+        if self.process_count > 1:
+            dist.barrier()
+
+    def share(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` in place over every rank: the rows each rank made,
+        zeros elsewhere (sampled tokens)."""
+        dist.all_reduce(t)
+        return t
+
+    def broadcast_ints(self, values, *, root: int, n: int) -> list:
+        """``n`` int64 values from rank ``root`` (its ``values``, padded
+        with zeros) to every rank: a decision made on one rank."""
+        buf = torch.zeros(n, dtype=torch.int64, device=self._wire_device())
+        if self.process_index == root:
+            buf[:len(values)] = torch.as_tensor(list(values), dtype=torch.int64)
+        dist.broadcast(buf, src=root)
+        return buf.tolist()
+
+    def _wire_device(self):
+        """Where a small control tensor goes: the host under gloo, this
+        rank's card under NCCL (which takes no host tensor)."""
+        if self.backend == "nccl" and self.device is not None:
+            return self.device
+        return torch.device("cpu")
+
+    def stats(self) -> dict:
+        """The ledger of the hops this rank sent; across ranks each kind
+        also carries ``wait_s`` / ``waits``: this rank's time blocked on
+        the hops it took part in, not put into ``sim_s``."""
+        out = super().stats()
+        for kind, (sec, n) in self._waits.items():
+            hop = out.setdefault(kind, {"hops": 0, "bytes": 0, "issue_s": 0.0,
+                                        "sim_s": 0.0})
+            hop.update(wait_s=sec, waits=n)
+        return out
+
+    def reset_stats(self):
+        super().reset_stats()
+        self._waits = {}
+
+
+def _unpack(buf: torch.Tensor, like):
+    """The tree of ``like``'s structure whose leaves are consecutive byte
+    spans of ``buf``, each viewed as its template leaf's dtype and shape."""
+    off = [0]
+
+    def leaf(t):
+        n = t.numel() * t.element_size()
+        out = buf[off[0]:off[0] + n].view(t.dtype).reshape(t.shape)
+        off[0] += n
+        return out
+
+    return _tree_map(leaf, like)
+
+
+class RankHop:
+    """A hop between ranks in flight: ``wait()`` blocks until it is done
+    (the host time goes to the transport's wait ledger) and returns the
+    received tree (the sent one on its source)."""
+
+    def __init__(self, transport, kind: str, work, result, wait: bool = False):
+        self.transport, self.kind, self.work, self._result = \
+            transport, kind, work, result
+        if wait:            # a blocking hop: its wait is taken now
+            self.wait()
+
+    def wait(self):
+        if self.work is not None:
+            t0 = time.perf_counter()
+            self.work.wait()
+            self.transport._wait(self.kind, time.perf_counter() - t0)
+            self.work = None
+        return self._result()
 
 
 TRANSPORTS = {"inproc": InProcessTransport, "simrdma": SimRdmaTransport,

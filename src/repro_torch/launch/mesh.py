@@ -205,6 +205,88 @@ def split_serving_devices(n_prefill: int, devices=None):
     return devs, devs
 
 
+class ServingRoles:
+    """The disaggregated serving layout of ``world`` ranks (one rank is one
+    device of the JAX package's meshes): the JAX rules of
+    ``split_serving_devices`` and ``DisaggregatedInstance.__init__``
+    applied to ranks.  ``prefill``: the last ``prefill_devices`` ranks
+    (empty for inline prefill; every rank where they would leave decode
+    empty, the overlapping fallback); ``attn``: the first ``max(1, n //
+    2)`` of the other n ranks; ``expert``: the rest of them (the attention
+    ranks where there are none).  ``attn_ranks`` / ``expert_ranks`` pin
+    the two decode groups, as ``attn_devices`` / ``expert_devices`` do.
+    With one decode rank both groups are that rank."""
+
+    def __init__(self, world: int, prefill_devices: int = 0, *,
+                 attn_ranks: Optional[Sequence[int]] = None,
+                 expert_ranks: Optional[Sequence[int]] = None):
+        if world < 1:
+            raise ValueError(f"a layout of {world} ranks")
+        self.world = world
+        prefill, decode = split_serving_devices(prefill_devices, range(world))
+        half = max(1, len(decode) // 2)
+        self.prefill = tuple(prefill)
+        self.decode = tuple(decode)
+        self.attn = tuple(attn_ranks) if attn_ranks else tuple(decode[:half])
+        self.expert = (tuple(expert_ranks) if expert_ranks
+                       else tuple(decode[half:]) or tuple(decode[:1]))
+        for name, g in (("attention", self.attn), ("expert", self.expert)):
+            if not g or any(not 0 <= r < world for r in g) or len(set(g)) != len(g):
+                raise ValueError(f"{name} ranks {g} of a world of {world}")
+        if set(self.attn) & set(self.expert) and self.attn != self.expert:
+            raise ValueError(f"attention ranks {self.attn} and expert ranks "
+                             f"{self.expert} overlap")
+        if attn_ranks or expert_ranks:
+            self.decode = tuple(sorted(set(self.attn) | set(self.expert)))
+
+    @property
+    def disjoint(self) -> bool:
+        """Attention and expert stages on separate ranks."""
+        return not set(self.attn) & set(self.expert)
+
+    @property
+    def separate_prefill(self) -> bool:
+        """A prefill cluster that shares no rank with decode."""
+        return bool(self.prefill) and not set(self.prefill) & set(self.decode)
+
+    def role(self, rank: int) -> str:
+        """"attn", "expert", "attn+expert" (one decode rank), "prefill", or
+        "idle" for a rank no group names."""
+        if rank in self.attn and rank in self.expert:
+            return "attn+expert"
+        if rank in self.attn:
+            return "attn"
+        if rank in self.expert:
+            return "expert"
+        return "prefill" if rank in self.prefill else "idle"
+
+    def __repr__(self):
+        return (f"ServingRoles(world={self.world}, prefill={self.prefill}, "
+                f"attn={self.attn}, expert={self.expert})")
+
+
+class GroupMesh(ProcessMesh):
+    """A one-axis grid over the ranks of a process group: ``axis`` has
+    ``ranks`` in order, its collectives run in ``group`` (None in a
+    process of its own).  Built on ranks outside the group too, where
+    ``index`` is -1 and nothing may run over it."""
+
+    def __init__(self, axis: str, ranks: Sequence[int], group=None):
+        super().__init__((len(ranks),), (axis,))
+        self.ranks = tuple(ranks)
+        self._group = group
+        me = dist.get_rank() if dist.is_initialized() else 0
+        self._index = self.ranks.index(me) if me in self.ranks else -1
+
+    def index(self, axes: Axes) -> int:
+        self._axes(axes)
+        return self._index
+
+    def group(self, axes: Axes):
+        self._axes(axes)
+        return self._group if len(self.ranks) > 1 else None
+
+
 def data_axes(mesh: ProcessMesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 

@@ -17,6 +17,20 @@ Usage:
   python -m repro_torch.launch.serve --reduced --device cpu \
       --runtime pingpong --microbatches auto --prefill-devices 1 \
       --transfer async
+  # across 4 ranks (start one process per REPRO_PROCESS_ID): 1 prefill,
+  # 1 attention and 2 expert ranks
+  REPRO_COORDINATOR=127.0.0.1:29513 REPRO_NUM_PROCESSES=4 REPRO_PROCESS_ID=0 \
+      python -m repro_torch.launch.serve --reduced --device cpu \
+      --runtime pingpong --microbatches 2 --prefill-devices 1 \
+      --transport multi --use-m2n
+
+With ``--transport multi`` and more than one process (the ``REPRO_*``
+variables, or OpenMPI's / SLURM's) the engine serves on the JAX
+launcher's layout of ranks (``launch.mesh.ServingRoles``): the last
+``--prefill-devices`` ranks prefill, the first half of the others run
+attention, the rest the experts.  Each rank draws the weights from the
+seed in turn (the others at a barrier) and keeps what its role reads;
+rank 0 prints.  In one process ``multi`` is the in-process hop.
 """
 from __future__ import annotations
 
@@ -29,8 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import get_config, reduced
-from repro_torch.core.disagg import STAGES, DisaggPlan, DisaggregatedInstance
+from repro_torch.core.disagg import (STAGES, DisaggPlan, DisaggregatedInstance,
+                                     rank_params)
 from repro_torch.core.transport import HOP_KINDS, TRANSPORTS, make_transport
+from repro_torch.launch.mesh import ServingRoles
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.config import (DTYPES, KV_LAYOUTS, RUNTIMES,
                                         TRANSFERS, ServingConfig)
@@ -113,60 +129,112 @@ def inject_router_bias(params: dict, cfg, bias: torch.Tensor) -> dict:
 
 
 def build(sc: ServingConfig):
-    """(model config, engine) for one serving config."""
+    """(model config, engine) for one serving config.  With ``multi``
+    across ranks, this rank's engine over the parameters its role keeps
+    (``draw_for_rank``)."""
     cfg = get_config(sc.arch)
     if sc.use_reduced:
         cfg = reduced(cfg)
     if sc.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=sc.n_layers)
-    dtype = getattr(torch, sc.dtype)
-    params = init_params(cfg, sc.seed, dtype, device=sc.device)
+    if sc.zipf_route_bias > 0.0 and cfg.moe is None:
+        raise ValueError("--zipf-route-bias needs an MoE arch")
+    # one ledger for every hop of the run: M2N / N2M, KV, weights
+    transport = make_transport(sc.transport, **(
+        {"device": sc.device} if sc.transport == "multi" else {}))
+    if getattr(transport, "process_count", 1) > 1:
+        transport.setup_serving(ServingRoles(transport.process_count,
+                                             sc.prefill_devices))
+        params = draw_for_rank(sc, cfg, transport)
+    else:
+        params = draw_params(sc, cfg, sc.device)
+    return cfg, engine_for(sc, cfg, params, transport)
+
+
+def draw_params(sc: ServingConfig, cfg, device) -> dict:
+    """The model's weights from ``sc.seed`` (with the zipf router bias)."""
+    params = init_params(cfg, sc.seed, getattr(torch, sc.dtype), device=device)
     if sc.zipf_route_bias > 0.0:
-        if cfg.moe is None:
-            raise ValueError("--zipf-route-bias needs an MoE arch")
         inject_router_bias(params, cfg,
                            zipf_router_bias(cfg.moe.n_experts,
                                             sc.zipf_route_bias))
-    return cfg, engine_for(sc, cfg, params)
+    return params
 
 
-def engine_for(sc: ServingConfig, cfg, params: dict) -> Engine:
+def draw_for_rank(sc: ServingConfig, cfg, transport) -> dict:
+    """This rank's parameters (``core.disagg.rank_params``): the ranks
+    draw the whole model from the seed in turn, each keeping what its
+    role reads while the others wait at a barrier, so ranks that share a
+    card hold one whole draw at a time."""
+    kept, me = None, transport.process_index
+    for r in range(transport.process_count):
+        if r == me:
+            full = draw_params(sc, cfg, transport.device or sc.device)
+            kept = rank_params(cfg, full, transport.roles, me,
+                               use_m2n=sc.use_m2n,
+                               inline_prefill=not sc.prefill_devices)
+            del full
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        transport.barrier()
+    return kept
+
+
+def engine_for(sc: ServingConfig, cfg, params: dict, transport=None) -> Engine:
     """The engine of ``sc`` over ``params``: the disaggregated runtime
     (``disagg`` / ``pingpong``; with ``microbatches="auto"`` its m is
     chosen from one profiled decode iteration first), the prefill worker
-    with ``prefill_devices``, and one transport ledger for all hops."""
+    with ``prefill_devices``, and one transport ledger for all hops
+    (``transport``, by default made from ``sc``; across ranks a
+    ``MultiControllerTransport`` after ``setup_serving``)."""
     if sc.expert_rebalance_every and sc.runtime == "monolithic":
         raise ValueError("--expert-rebalance-every needs --runtime "
                          "disagg|pingpong")
-    # one ledger for every hop of the run: M2N / N2M, KV, weights
-    transport = make_transport(sc.transport)
+    if transport is None:
+        transport = make_transport(sc.transport)
+    roles = getattr(transport, "roles", None)
+    rank = transport.process_index if roles is not None else 0
+    say = print if sc.verbose and rank == 0 else (lambda *a, **k: None)
     runtime = None
     if sc.runtime in ("disagg", "pingpong"):
         auto = sc.microbatches == "auto"
+        m = (max(2, len(roles.attn)) if roles is not None else 2) if auto \
+            else sc.microbatches
         runtime = DisaggregatedInstance(
-            cfg, params, plan=DisaggPlan(n_microbatches=2 if auto
-                                         else sc.microbatches,
-                                         use_m2n=sc.use_m2n,
+            cfg, params, plan=DisaggPlan(n_microbatches=m, use_m2n=sc.use_m2n,
                                          profile_stages=sc.profile_stages),
             expert_nodes=sc.expert_nodes, transport=transport)
         if auto:
             # T_a / T_e / T_c of one profiled decode iteration, then the
-            # paper's m >= 2 (1 + T_c / T_f) feasibility bound
-            m = runtime.auto_microbatches(sc.max_batch, max_m=sc.max_batch)
+            # paper's m >= 2 (1 + T_c / T_f) feasibility bound; across
+            # ranks the decode ranks measure, and the first attention
+            # rank's m goes to every rank
+            if runtime.role != "prefill":
+                m = runtime.auto_microbatches(sc.max_batch, max_m=sc.max_batch)
+            if roles is not None:
+                m = transport.broadcast_ints([m], root=roles.attn[0], n=1)[0]
+                m = max(m, len(roles.attn))
             runtime.plan.n_microbatches = m
-            if sc.verbose:
-                print(f"auto-selected m={m} micro-batches")
+            say(f"auto-selected m={m} micro-batches")
     worker = None
     if sc.prefill_devices:
-        # one card: the prefill cluster is a stream of the decode side's
-        # device (the JAX launcher's single-device fallback)
-        if sc.verbose:
-            print("prefill cluster: 1 device(s), decode cluster: 1 device(s) "
-                  "(overlapping, single-device fallback)")
+        if roles is not None:
+            stages = (f"{len(roles.attn)} attention + {len(roles.expert)} expert"
+                      if roles.disjoint else "attention and experts on one rank")
+            say(f"prefill cluster: {len(roles.prefill)} rank(s), decode cluster: "
+                f"{len(roles.decode)} rank(s) ({stages}; "
+                f"{'disjoint' if roles.separate_prefill else 'overlapping'})")
+        else:
+            # one card: the prefill cluster is a stream of the decode
+            # side's device (the JAX launcher's single-device fallback)
+            say("prefill cluster: 1 device(s), decode cluster: 1 device(s) "
+                "(overlapping, single-device fallback)")
         worker = PrefillWorker(
             cfg, params, max_seq=sc.max_seq,
             chunk_tokens=sc.prefill_chunk_tokens,
-            page_size=sc.page_size if sc.kv_layout == "paged" else 0)
+            page_size=sc.page_size if sc.kv_layout == "paged" else 0,
+            device=runtime.device if runtime is not None else None,
+            ranks=roles.prefill if roles is not None else (), rank=rank)
     return Engine(cfg, params, config=sc, runtime=runtime, transport=transport,
                   prefill_worker=worker)
 
@@ -188,6 +256,22 @@ def prompt_maker(sc: ServingConfig, vocab: int, rng):
                                         size=plen - len(shared)).tolist()
         return rng.randint(2, vocab, size=plen).tolist()
     return make_prompt
+
+
+def since(now: dict, before: dict):
+    """Take ``before``'s cumulative phase counters (``transfer_mode`` and
+    ``prefill_devices`` are not counters), hop counters per kind and
+    kernel launches from ``now``'s, in place."""
+    for k in ("prefill_s", "prefills", "prefill_batches", "prefill_tokens",
+              "transfer_s", "transfer_n", "decode_s", "decode_n"):
+        if k in now["phases"]:
+            now["phases"][k] -= before["phases"][k]
+    for kind, hop in now["transport"].items():
+        if isinstance(hop, dict) and kind in before["transport"]:
+            for k in hop:
+                hop[k] -= before["transport"][kind].get(k, 0)
+    now["kernel_launches"] = {k: v - before["kernel_launches"][k]
+                              for k, v in now["kernel_launches"].items()}
 
 
 def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
@@ -215,14 +299,10 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
     stats = eng.stats()
     for k in ("tokens", "decode_iters", "prefills", "finished"):
         stats[k] -= pre[k]
-    # cumulative phase counters only (transfer_mode and prefill_devices
-    # are not counters)
-    for k in ("prefill_s", "prefills", "prefill_batches", "prefill_tokens",
-              "transfer_s", "transfer_n", "decode_s", "decode_n"):
-        if k in stats["phases"]:
-            stats["phases"][k] -= pre["phases"][k]
-    stats["kernel_launches"] = {k: v - pre["kernel_launches"][k]
-                                for k, v in stats["kernel_launches"].items()}
+    # the phase, hop and launch counters of the run and of each rank
+    for now, before in [(stats, pre)] + list(zip(stats.get("ranks", ()),
+                                                 pre.get("ranks", ()))):
+        since(now, before)
     # prefix-cache and page counters are cumulative too (warm-up may seed
     # the radix tree; only the measured requests' hits count)
     if "prefix_cache" in stats:
@@ -237,18 +317,13 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
     for k in ("rebalances", "placement_updates", "rebalance_s"):
         if k in stats:
             stats[k] -= pre[k]
-    # transport hop counters are cumulative per kind, too
-    for kind, hop in stats["transport"].items():
-        if isinstance(hop, dict) and kind in pre["transport"]:
-            for k in hop:
-                hop[k] -= pre["transport"][kind][k]
     stats["wall_s"] = dt
     # serve rate counts prefill and the first tokens it samples; decode
     # rate counts only tokens of decode iterations over their host time
     stats["serve_tok_per_s"] = stats["tokens"] / dt
     stats["decode_tok_per_s"] = ((stats["tokens"] - stats["prefills"])
                                  / max(stats["phases"]["decode_s"], 1e-9))
-    if sc.verbose:
+    if sc.verbose and eng.rank == 0:
         print(f"{cfg.name} x{cfg.n_layers} layers {sc.dtype} [{sc.runtime}"
               f"{'+disagg-prefill' if sc.prefill_devices else ''}] on "
               f"{stats['device']}: served {stats['finished']} requests, "
@@ -266,7 +341,24 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
             print(format_experts(stats))
         print("kernel launches: " + " ".join(
             f"{k}={v}" for k, v in sorted(stats["kernel_launches"].items())))
+        for r in stats.get("ranks", ()):
+            print(format_rank(r))
     return stats
+
+
+def format_rank(r: dict) -> str:
+    """One rank of a run across ranks: role, decode host time per
+    iteration, its hops (sent bytes / hops, and its waits), parameter
+    bytes on its device and peak device memory."""
+    ph = r["phases"]
+    hops = " ".join(
+        f"{k}={h['bytes'] / 1e6:.3f}MB/{h['hops']}"
+        + (f" wait={h['wait_s'] * 1e3:.1f}ms/{h['waits']}" if "wait_s" in h else "")
+        for k, h in r["transport"].items() if isinstance(h, dict))
+    return (f"rank {r['rank']} [{r['role']}]: "
+            f"{ph['decode_s'] * 1e3 / max(1, ph['decode_n']):.2f} ms/iter, "
+            f"params {r['params_bytes'] / 1e9:.3f} GB, peak "
+            f"{r['peak_bytes'] / 1e9:.3f} GB | {hops or 'no hops'}")
 
 
 def main():
@@ -321,7 +413,8 @@ def main():
                          "expert traffic (0 = off)")
     ap.add_argument("--transport", default="inproc", choices=sorted(TRANSPORTS),
                     help="hop ledger: inproc = the stream hop, simrdma = the "
-                         "same plus a per-hop RDMA cost model")
+                         "same plus a per-hop RDMA cost model, multi = across "
+                         "the REPRO_* ranks (in one process: inproc)")
     ap.add_argument("--kv-layout", default="contiguous", choices=KV_LAYOUTS,
                     help="KV-cache layout: contiguous = one (B, W) ring-"
                          "buffer row per request; paged = block tables "
@@ -347,6 +440,10 @@ def main():
                     help="pin every prompt to this length (0 = random)")
     ap.add_argument("--warmup-requests", type=int, default=0)
     run(config=ServingConfig.from_args(ap.parse_args()))
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

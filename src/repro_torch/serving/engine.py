@@ -36,6 +36,20 @@ The KV cache has one of two layouts (``ServingConfig.kv_layout``):
     view through the block tables, runs the unchanged decode step on it,
     and scatters each row's one new token back into its page, so paged
     decode is token-identical to contiguous.
+
+Across ranks (a ``MultiControllerTransport`` with a serving layout,
+``setup_serving``) every rank runs this host loop, the multi-controller
+model of the JAX launcher: the same queues, slots, page tables and
+prefix tree everywhere.  The first attention rank decides each step's
+admissions and broadcasts them before any hop; every rank admits the
+same requests (a rank whose own view differs fails the step).  An
+attention rank holds the KV rows of its micro-batches (with paged KV a
+replica of the page pool, as the prefill ranks do), an expert rank none:
+it runs only its stage.  Prefill runs inline on the attention ranks, or
+on the prefill ranks' workers, each request's KV moved to its attention
+rank as a "kv" hop.  The first tokens and each step's sampled tokens are
+made where the logits are and summed into every rank's copy.
+``stats()`` merges every rank's figures, so each reads the same.
 """
 from __future__ import annotations
 
@@ -48,8 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.disagg import microbatch_owners
 from repro_torch.core.load_balance import balance_experts, evaluate_placement
-from repro_torch.core.transport import InProcessTransport
+from repro_torch.core.transport import InProcessTransport, _leaves as _tensors
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cuda_build import launch_counts
 from repro_torch.models.stubs import extra_inputs
@@ -84,6 +99,21 @@ class Request:
         return len(self.prompt) + len(self.generated)
 
 
+def _check_rank_layout(roles, sc: ServingConfig, runtime):
+    """Refuse, on every rank alike, a configuration the layout of ranks
+    cannot serve."""
+    if sc.runtime == "monolithic" or runtime is None:
+        raise ValueError("across ranks the engine serves the disaggregated "
+                         "runtimes (disagg or pingpong); monolithic runs in one "
+                         "process")
+    if roles.prefill and not roles.separate_prefill:
+        raise ValueError(f"{sc.prefill_devices} prefill ranks leave no decode "
+                         f"rank of {roles.world}")
+    if len(roles.prefill) != sc.prefill_devices:
+        raise ValueError(f"the layout {roles} has {len(roles.prefill)} prefill "
+                         f"ranks, the config {sc.prefill_devices}")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  config: Optional[ServingConfig] = None, runtime=None,
@@ -101,9 +131,19 @@ class Engine:
         base = config if config is not None else ServingConfig(max_batch=8,
                                                                max_seq=256)
         self.device = resolve_device(base.device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, "
-                             f"engine device is {self.device}")
+        self.transport = (transport if transport is not None else getattr(
+            runtime if base.runtime != "monolithic" else None, "transport", None))
+        roles = getattr(self.transport, "roles", None)
+        self.roles = roles if roles is not None and roles.world > 1 else None
+        self.rank = self.transport.process_index if self.roles else 0
+        self.role = self.roles.role(self.rank) if self.roles else "attn+expert"
+        if self.roles is not None:
+            _check_rank_layout(self.roles, base, runtime)
+        # an expert rank keeps no embedding: its runtime knows the dtype
+        dev, self.dtype = ((params["embed"].device, params["embed"].dtype)
+                           if "embed" in params else (runtime.device, runtime.dtype))
+        if dev.type != self.device.type:
+            raise ValueError(f"params live on {dev}, engine device is {self.device}")
         if (prefill_worker is not None
                 and prefill_worker.device.type != self.device.type):
             raise ValueError(f"prefill worker runs on {prefill_worker.device}, "
@@ -125,21 +165,28 @@ class Engine:
                                  "plan's capacity_mode='full' (drop-free)")
         self.serving_config = base
         self.cfg = cfg
-        self.params = params
+        # an expert rank computes only its stage, through the runtime,
+        # which drops its static experts from the card once placed
+        self.params = params if self.role != "expert" else {}
         self.mode = base.engine_mode
         self.runtime = runtime if base.runtime != "monolithic" else None
-        if transport is None:
-            transport = getattr(self.runtime, "transport", None)
-        self.transport = (transport if transport is not None
-                          else InProcessTransport())
+        if self.transport is None:
+            self.transport = InProcessTransport()
         self.max_batch, self.max_seq = base.max_batch, base.max_seq
         self.sampling = base.sampling_params()
         self.kv_layout = base.kv_layout
+        # the KV rows this rank holds: every row in one process, an
+        # attention rank's micro-batches across ranks, none elsewhere
+        self.rows = slice(0, self.max_batch)
+        if self.roles is not None:
+            mbs = mb_slot_ranges(self.max_batch, runtime.plan.n_microbatches)
+            self.rows = (runtime.attn_rows(mbs) if self.role != "prefill"
+                         else None) or slice(0, 0)
         if self.kv_layout == "paged":
             self.page_pool = PagePool(
                 cfg, n_pages=base.n_pool_pages, page_size=base.page_size,
-                max_seq=self.max_seq, dtype=params["embed"].dtype,
-                device=self.device)
+                max_seq=self.max_seq, dtype=self.dtype,
+                device=self.device, with_store=self.role != "expert")
             self.prefix = (PrefixCache(self.page_pool) if base.prefix_cache
                            else None)
             self.cache = None           # gathered from the pool per step
@@ -148,9 +195,9 @@ class Engine:
         else:
             self.page_pool = None
             self.prefix = None
-            self.cache = init_cache(cfg, self.max_batch, self.max_seq,
-                                    dtype=params["embed"].dtype,
-                                    device=self.device)
+            n_rows = self.rows.stop - self.rows.start
+            self.cache = (init_cache(cfg, n_rows, self.max_seq, dtype=self.dtype,
+                                     device=self.device) if n_rows else None)
         # the paged prefill worker shares the engine's pool and prefix tree
         if self.page_pool is not None and prefill_worker is not None \
                 and prefill_worker.page_size:
@@ -195,14 +242,6 @@ class Engine:
     # ------------------------------------------------------------- schedule
     def _next_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self._seeds))
-
-    def _start_request(self, req: Request, slot: int, last_logits):
-        req.slot = slot
-        tok = int(sample(last_logits, self._next_seed(), self.sampling)[0])
-        req.generated.append(tok)
-        self._last_token[slot] = tok
-        self.running[req.rid] = req
-        self.n_prefills += 1
 
     def _extras(self) -> dict:
         """The modality stubs of one request (``models.stubs``): patch
@@ -258,46 +297,6 @@ class Engine:
         if self.prefix is not None:
             self.prefix.insert(req.prompt, table)
 
-    def _admit_paged(self):
-        """Inline paged admission (FIFO): prefix-aware prefill straight
-        into freshly allocated pages.  A radix hit gathers the shared
-        pages and computes only the suffix."""
-        ps = self.page_pool.page_size
-        while self.waiting and self.slots.free:
-            req = self.waiting[0]
-            h, shared = (self.prefix.lookup(req.prompt)
-                         if self.prefix is not None else (0, []))
-            needed = self._pages_for_request(req) - len(shared)
-            if not self._reserve_pages(req.rid, needed):
-                for p in shared:        # drop the lookup pins
-                    self.page_pool.release(p)
-                break
-            self.waiting.pop(0)
-            slot = self.slots.alloc(req.rid)
-            t0 = time.perf_counter()
-            if h:
-                row = self.page_pool.gather_row(shared)
-                last_logits, row = suffix_prefill(self.params, self.cfg,
-                                                  req.prompt, row, h)
-            else:
-                toks = torch.tensor([req.prompt], dtype=torch.int64,
-                                    device=self.device)
-                last_logits, row = prefill(self.params, self.cfg, toks,
-                                           max_seq=self.max_seq,
-                                           **self._extras())
-            self.t_prefill += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            n_written = n_pages_for(len(req.prompt), ps)
-            fresh = [self._take_page(req.rid)
-                     for _ in range(n_written - len(shared))]
-            if fresh:
-                self.page_pool.write_row_span(fresh, row, len(shared) * ps,
-                                              len(req.prompt))
-            self.t_transfer += time.perf_counter() - t0
-            self.n_transfers += 1
-            self._install_pages(req, shared, fresh)
-            self._start_request(req, slot, last_logits)
-
     def _hop_streams(self):
         """(source, destination) streams of a KV hop: the worker's and
         the engine's current one on the card, (None, None) on the CPU."""
@@ -319,80 +318,31 @@ class Engine:
         while w.pending_count and w.ready_count < lookahead:
             w.pump(max_batches=1)
 
-    def _admit_from_transfer_queue(self):
-        """Disaggregated prefill (paper §3): admit completed prefills
-        from the worker's transfer queue into free KV rows, each
-        request's KV moved over the transport as one "kv" hop."""
-        w = self.prefill_worker
-        self._pump_worker()
-        src, dst = self._hop_streams()
-        while self.slots.free and w.ready_count:
-            res = w.pop()
-            req = res.request
-            slot = self.slots.alloc(req.rid)
-            t0 = time.perf_counter()
-            migrate_kv(self.cache, res.kv, slot, src=src, dst=dst,
-                       sync=self.transfer == "sync", transport=self.transport)
-            self.t_transfer += time.perf_counter() - t0
-            self.n_transfers += 1
-            self._start_request(req, slot, res.last_logits)
-
-    def _admit_paged_from_transfer_queue(self):
-        """Disaggregated paged admission: the worker emits per-page
-        chunks, and only the non-shared pages cross to the decode side
-        (``kvcache.migrate_pages``, one "kv" hop per page).  A result
-        whose pages cannot be reserved goes back to the head of the
-        queue (FIFO order is part of the parity contract)."""
-        w = self.prefill_worker
-        self._pump_worker()
-        src, dst = self._hop_streams()
-        while self.slots.free and w.ready_count:
-            res = w.pop()
-            req = res.request
-            shared = list(res.shared_pages)
-            needed = self._pages_for_request(req) - len(shared)
-            if not self._reserve_pages(req.rid, needed):
-                w.ready.appendleft(res)
-                break
-            slot = self.slots.alloc(req.rid)
-            fresh = [self._take_page(req.rid)
-                     for _ in range(len(res.page_chunks))]
-            t0 = time.perf_counter()
-            migrate_pages(self.page_pool, res.page_chunks, fresh, src=src,
-                          dst=dst, sync=self.transfer == "sync",
-                          transport=self.transport)
-            self.t_transfer += time.perf_counter() - t0
-            self.n_transfers += 1
-            self._install_pages(req, shared, fresh)
-            self._start_request(req, slot, res.last_logits)
-
     def _admit(self):
-        """Prefill of waiting requests into free KV rows (FIFO): inline,
-        or from the prefill worker's transfer queue."""
-        if self.kv_layout == "paged":
-            if self.prefill_worker is not None:
-                self._admit_paged_from_transfer_queue()
-            else:
-                self._admit_paged()
-            return
-        if self.prefill_worker is not None:
-            self._admit_from_transfer_queue()
-            return
-        while self.waiting and self.slots.free:
-            req = self.waiting.pop(0)
-            slot = self.slots.alloc(req.rid)
-            toks = torch.tensor([req.prompt], dtype=torch.int64,
-                                device=self.device)
-            extras = self._extras()
-            t0 = time.perf_counter()
-            last_logits, rcache = prefill(self.params, self.cfg, toks,
-                                          max_seq=self.max_seq, **extras)
-            self.t_prefill += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            insert_rows(self.cache, rcache, slot)
-            self.t_transfer += time.perf_counter() - t0
-            self.n_transfers += 1
-            self._start_request(req, slot, last_logits)
+        """Prefill of waiting requests into free KV rows (FIFO): the host
+        half (``_admission_plan``: the queues, slots and pages) and then
+        the device half (``_admit_records``: inline prefill, or the KV hop
+        of each prefill result).  Across ranks the first attention rank
+        plans first and broadcasts the requests it admits; every other
+        rank admits exactly those (its own plan, held to their count, must
+        give the same ones)."""
+        if self.roles is None:
+            recs = self._admission_plan(None)
+        else:
+            leader = self.roles.attn[0]
+            recs = self._admission_plan(None) if self.rank == leader else None
+            said = self.transport.broadcast_ints(
+                [len(recs)] + [r[0].rid for r in recs] if recs is not None else [],
+                root=leader, n=self.max_batch + 1)
+            rids = said[1:1 + said[0]]
+            if recs is None:
+                recs = self._admission_plan(said[0])
+            if [r[0].rid for r in recs] != rids:
+                raise RuntimeError(f"rank {self.rank} admits "
+                                   f"{[r[0].rid for r in recs]}, the first "
+                                   f"attention rank {rids}")
+        if recs:
+            self._admit_records(recs)
 
     def _rebalance(self):
         """Drain one interval of live routing counts, re-solve the
@@ -421,9 +371,9 @@ class Engine:
                 left = self._page_reserve.pop(rid, 0)
                 if left:
                     self.page_pool.unreserve(left)
-            else:
+            elif self.rows.start <= slot < self.rows.stop:
                 # a recycled row must never expose the previous request's KV
-                reset_row(self.cache, slot)
+                reset_row(self.cache, slot - self.rows.start)
             self.finished.append(req)
 
     def _paged_writeback(self, dense_cache: List[dict]):
@@ -432,7 +382,9 @@ class Engine:
         ``(position - 1) % W`` of the gathered view; the page holding that
         slot is taken from the request's reservation when the row grows
         into it, and forked first if it is shared (the ring's wrap is the
-        one legal write into a prefix-cache or multi-holder page)."""
+        one legal write into a prefix-cache or multi-holder page).  Across
+        ranks every rank keeps the tables so, and an attention rank writes
+        its own rows (``dense_cache`` None: a rank without KV rows)."""
         pool, ps = self.page_pool, self.page_pool.page_size
         rows, slots, pages, offs = [], [], [], []
         for req in self.running.values():
@@ -443,12 +395,14 @@ class Engine:
                 tb.append(self._take_page(req.rid))
             elif pool.is_shared(tb[lp]):
                 tb[lp] = self._fork_page(req.rid, tb[lp])
-            rows.append(req.slot)
-            slots.append(w)
-            pages.append(tb[lp])
-            offs.append(w % ps)
-        pool.write_tokens(dense_cache, np.asarray(rows), np.asarray(slots),
-                          np.asarray(pages), np.asarray(offs))
+            if self.rows.start <= req.slot < self.rows.stop:
+                rows.append(req.slot - self.rows.start)
+                slots.append(w)
+                pages.append(tb[lp])
+                offs.append(w % ps)
+        if dense_cache is not None:
+            pool.write_tokens(dense_cache, np.asarray(rows), np.asarray(slots),
+                              np.asarray(pages), np.asarray(offs))
 
     def block_table_array(self) -> np.ndarray:
         """The (max_batch, n_logical) int32 block tables of the running
@@ -462,7 +416,9 @@ class Engine:
     # ----------------------------------------------------------------- step
     def step(self) -> int:
         """One engine iteration: admit + one decode step.  Returns the
-        number of requests decoded."""
+        number of requests decoded.  Across ranks a rank runs its stage of
+        the decode step (a prefill rank none), and the tokens sampled
+        from an attention rank's rows are summed into every rank's copy."""
         self._retire()
         self._admit()
         if not self.running:
@@ -474,47 +430,274 @@ class Engine:
             pos[req.slot] = req.position - 1
             rids[req.slot] = req.rid
             active[req.slot] = 1.0
-        toks = torch.tensor(self._last_token, dtype=torch.int64,
-                            device=self.device)
-        pos_t = torch.from_numpy(pos).to(self.device)
         t0 = time.perf_counter()
-        if self.kv_layout == "paged":
-            # block-table gather: a fresh dense (B, W) view, a pure copy
-            # (unmapped pages read pos = -1, exactly a reset row), so the
-            # decode step below is the contiguous layout's, bit for bit
-            cache = self.page_pool.gather(self.block_table_array())
-        else:
+        logits = cache = None
+        if self.role != "prefill":
+            toks = torch.tensor(self._last_token, dtype=torch.int64,
+                                device=self.device)
+            pos_t = torch.from_numpy(pos).to(self.device)
             cache = self.cache
-        if self.runtime is not None:
-            # idle rows decode anyway; keep them out of the expert counts
-            self.runtime.set_active_slots(active)
-        if self.mode == "pingpong":
-            logits, cache = self.runtime.decode_microbatched(
-                toks, cache, pos_t, self.mb_slices)
-        elif self.runtime is not None:                           # disagg
-            logits, cache = self.runtime.decode_step(toks, cache, pos_t)
-        else:
-            logits, cache = decode_step(self.params, self.cfg, toks, cache,
-                                        pos_t)
+            if self.kv_layout == "paged" and self.rows.stop > self.rows.start:
+                # block-table gather: a fresh dense (B, W) view, a pure copy
+                # (unmapped pages read pos = -1, exactly a reset row), so
+                # the decode step below is the contiguous layout's, bit for
+                # bit
+                cache = self.page_pool.gather(self.block_table_array()[self.rows])
+            if self.runtime is not None:
+                # idle rows decode anyway; keep them out of the expert counts
+                self.runtime.set_active_slots(active)
+            if self.mode == "pingpong":
+                logits, cache = self.runtime.decode_microbatched(
+                    toks, cache, pos_t, self.mb_slices)
+            elif self.runtime is not None:                       # disagg
+                logits, cache = self.runtime.decode_step(toks, cache, pos_t)
+            else:
+                logits, cache = decode_step(self.params, self.cfg, toks, cache,
+                                            pos_t)
         if self.kv_layout == "paged":
             # the attention stages wrote the new tokens into the gathered
             # view on the caller's current stream (the runtime's attention
             # stream), and the write-back is issued on that stream after
             # them, so stream order alone puts it after the last write
-            self._paged_writeback(cache)
-        nxt = sample_rows(logits, self._next_seed(), rids,
-                          self.sampling).tolist()
+            self._paged_writeback(cache if logits is not None else None)
+        seed = self._next_seed()
+        if self.roles is None:
+            nxt = sample_rows(logits, seed, rids, self.sampling).tolist()
+        else:
+            nxt = torch.zeros(self.max_batch, dtype=torch.int64,
+                              device=self.transport._wire_device())
+            if logits is not None:
+                nxt[self.rows] = sample_rows(logits, seed, rids[self.rows],
+                                             self.sampling).to(nxt.device)
+            nxt = self.transport.share(nxt).tolist()
         self.t_decode += time.perf_counter() - t0
         for req in self.running.values():
             req.generated.append(nxt[req.slot])
             self._last_token[req.slot] = nxt[req.slot]
         self.n_decode_iters += 1
-        if (self.expert_rebalance_every
+        if (self.expert_rebalance_every and self.role != "prefill"
                 and self.n_decode_iters % self.expert_rebalance_every == 0):
             self._rebalance()
         n_active = len(self.running)
         self._retire()
         return n_active
+
+    # ------------------------------------------------------------- ranks
+    def _owner(self, slot: int) -> int:
+        """The attention rank that holds KV row ``slot``."""
+        mbs = mb_slot_ranges(self.max_batch, self.runtime.plan.n_microbatches)
+        for s, a in zip(mbs, microbatch_owners(self.roles.attn, len(mbs))):
+            if s.start <= slot < s.stop:
+                return a
+        raise ValueError(f"slot {slot} outside the batch")
+
+    def _admission_plan(self, quota: Optional[int]) -> list:
+        """The host half of admission (FIFO): pump the prefill worker, then
+        take requests (from the waiting queue, or the worker's transfer
+        queue) into free KV rows and, paged, reserve their worst case of
+        pages (evicting cold prefix pages if short), take the pages their
+        prompt fills and publish them to the radix tree, until ``quota``
+        (None: as many as fit).  A request whose pages cannot be reserved
+        stays at the head of its queue.  Returns
+        [(request, slot, prefill result or None, shared pages, fresh
+        pages, shared tokens)]."""
+        w, paged, recs = self.prefill_worker, self.kv_layout == "paged", []
+        if w is not None:
+            self._pump_worker()
+        while self.slots.free and (quota is None or len(recs) < quota):
+            h, shared, res = 0, [], None
+            if w is not None:
+                if not w.ready_count:
+                    break
+                res = w.ready[0]
+                req, shared = res.request, list(res.shared_pages)
+            elif self.waiting:
+                req = self.waiting[0]
+                if paged and self.prefix is not None:
+                    h, shared = self.prefix.lookup(req.prompt)
+            else:
+                break
+            if paged and not self._reserve_pages(
+                    req.rid, self._pages_for_request(req) - len(shared)):
+                if w is None:
+                    for p in shared:            # drop the lookup pins
+                        self.page_pool.release(p)
+                break
+            w.ready.popleft() if w is not None else self.waiting.pop(0)
+            slot = self.slots.alloc(req.rid)
+            fresh = []
+            if paged:
+                n = (len(res.page_chunks) if res is not None else
+                     n_pages_for(len(req.prompt), self.page_pool.page_size)
+                     - len(shared))
+                fresh = [self._take_page(req.rid) for _ in range(n)]
+                self._install_pages(req, shared, fresh)
+            recs.append((req, slot, res, shared, fresh, h))
+        if quota is not None and len(recs) != quota:
+            raise RuntimeError(f"rank {self.rank} can admit {len(recs)} requests, "
+                               f"the first attention rank admitted {quota}")
+        return recs
+
+    def _admit_records(self, recs: list):
+        """The device half of admission, in order: inline prefill (in one
+        process, or across ranks on the attention rank that owns the
+        slot; with paged KV every attention rank fills its pool
+        replica), or each prefill result's KV hop: in one process from the
+        worker's stream (``migrate_kv`` / ``migrate_pages``), across ranks
+        from its prefill rank, a row to the attention rank that owns the
+        slot, a page to every rank that keeps the pool.  Then each first
+        token is sampled where the logits are (summed into every rank's
+        copy) and the request starts."""
+        tr, paged = self.transport, self.kv_layout == "paged"
+        sync = self.transfer == "sync"
+        ranks = self.roles is not None
+        first = [0] * len(recs)
+        if ranks:
+            first = torch.zeros(len(recs), dtype=torch.int64, device=tr._wire_device())
+            keeps_pool = self.role in ("attn", "attn+expert", "prefill")
+        elif self.prefill_worker is not None:
+            src, dst = self._hop_streams()
+        waits = []
+        for i, (req, slot, res, shared, fresh, h) in enumerate(recs):
+            seed = self._next_seed()
+            own = self.rows.start <= slot < self.rows.stop
+            logits = None
+            if res is None and (own or (paged and self.role != "expert")):
+                t0 = time.perf_counter()
+                if paged and h:
+                    row = self.page_pool.gather_row(shared)
+                    logits, row = suffix_prefill(self.params, self.cfg,
+                                                 req.prompt, row, h)
+                else:
+                    toks = torch.tensor([req.prompt], dtype=torch.int64,
+                                        device=self.device)
+                    logits, row = prefill(self.params, self.cfg, toks,
+                                          max_seq=self.max_seq, **self._extras())
+                self.t_prefill += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                if paged:
+                    ps = self.page_pool.page_size
+                    self.page_pool.write_row_span(fresh, row, len(shared) * ps,
+                                                  len(req.prompt))
+                else:
+                    insert_rows(self.cache, row, slot - self.rows.start)
+                self.t_transfer += time.perf_counter() - t0
+                logits = logits if own else None
+            elif res is not None and not ranks:
+                t0 = time.perf_counter()
+                if paged:
+                    migrate_pages(self.page_pool, res.page_chunks, fresh, src=src,
+                                  dst=dst, sync=sync, transport=tr)
+                else:
+                    migrate_kv(self.cache, res.kv, slot, src=src, dst=dst,
+                               sync=sync, transport=tr)
+                self.t_transfer += time.perf_counter() - t0
+                logits = res.last_logits
+            elif res is not None:
+                t0 = time.perf_counter()
+                if paged and keeps_pool:
+                    for (_, chunk), page in zip(res.page_chunks, fresh):
+                        hop = tr.broadcast(chunk, root=res.rank,
+                                           group=tr.groups["kv"], kind="kv",
+                                           like=self._page_like(), async_op=not sync)
+                        waits.append((hop, lambda c, p=page:
+                                      self.page_pool.write_chunk(p, c)))
+                elif not paged and self.rank in (res.rank, self._owner(slot)):
+                    hop = tr.broadcast(res.kv, root=res.rank,
+                                       group=tr.pair(res.rank, self._owner(slot)),
+                                       kind="kv", like=self._row_like(),
+                                       async_op=not sync)
+                    waits.append((hop, (lambda c, r=slot - self.rows.start:
+                                        insert_rows(self.cache, c, r)) if own
+                                  else (lambda c: None)))
+                if sync:
+                    for hop, write in waits:
+                        write(hop.wait())
+                    waits = []
+                self.t_transfer += time.perf_counter() - t0
+                logits = res.last_logits if self.rank == res.rank else None
+            self.n_transfers += 1
+            if logits is not None:
+                first[i] = sample(logits, seed, self.sampling)[0]
+        t0 = time.perf_counter()
+        for hop, write in waits:
+            write(hop.wait())
+        self.t_transfer += time.perf_counter() - t0
+        if ranks:
+            first = tr.share(first)
+        for (req, slot, *_), tok in zip(recs, first):
+            tok = int(tok)
+            req.slot = slot
+            req.generated.append(tok)
+            self._last_token[slot] = tok
+            self.running[req.rid] = req
+            self.n_prefills += 1
+
+    def _row_like(self) -> List[dict]:
+        """The shapes of one request's cache row (a KV hop's receive
+        buffers)."""
+        if not hasattr(self, "_row_tmpl"):
+            self._row_tmpl = init_cache(self.cfg, 1, self.max_seq, dtype=self.dtype,
+                                        device=self.device)
+        return self._row_tmpl
+
+    def _page_like(self) -> List[dict]:
+        """The shapes of one page of every layer (a paged KV hop)."""
+        if not hasattr(self, "_page_tmpl"):
+            self._page_tmpl = [{k: t[0] for k, t in e.items()}
+                               for e in self.page_pool.store]
+        return self._page_tmpl
+
+    def _held_bytes(self) -> int:
+        """Bytes of parameters this rank keeps on its device (its
+        runtime's placed expert slots included)."""
+        ts = {id(t): t for t in _tensors(self.params)}
+        if self.runtime is not None:
+            for held in (self.runtime.layers_expert, self.runtime.layers_expert_placed):
+                ts.update({id(t): t for t in _tensors(held or [])})
+        return sum(t.numel() * t.element_size() for t in ts.values()
+                   if t.device.type == self.device.type)
+
+    def _merge_ranks(self, mine: dict) -> dict:
+        """Every rank's ``_local_stats`` merged, the same on every rank:
+        the first attention rank's counters, stages and expert report
+        (the same on every rank, or merged over the decode ranks
+        already); the prefill workers' counters summed over the prefill
+        ranks; host phase times the slowest rank's; the transport ledger
+        and kernel launches summed over the ranks.  ``ranks``: each rank's
+        role, phases, ledger (with its waits), launches, parameter bytes
+        on its device and peak device memory."""
+        mine = dict(mine, rank=self.rank, role=self.role,
+                    params_bytes=self._held_bytes(),
+                    peak_bytes=(torch.cuda.max_memory_allocated(self.device)
+                                if self.device.type == "cuda" else 0))
+        every = self.transport.gather_objects(mine)
+        out = dict(every[self.roles.attn[0]])
+        ph = dict(out["phases"])
+        for k in ("transfer_s", "decode_s"):
+            ph[k] = max(r["phases"][k] for r in every)
+        if self.prefill_worker is not None:
+            pre = [every[r]["phases"] for r in self.roles.prefill]
+            for k in ("prefill_s", "prefills", "prefill_batches", "prefill_tokens"):
+                ph[k] = sum(p[k] for p in pre)
+        out["phases"] = ph
+        tr = {"backend": self.transport.name}
+        for r in every:
+            for kind, hop in r["transport"].items():
+                if isinstance(hop, dict) and hop["hops"]:
+                    acc = tr.setdefault(kind, {"hops": 0, "bytes": 0,
+                                               "issue_s": 0.0, "sim_s": 0.0})
+                    for k in acc:
+                        acc[k] += hop[k]
+        out["transport"] = tr
+        out["kernel_launches"] = {k: sum(r["kernel_launches"][k] for r in every)
+                                  for k in mine["kernel_launches"]}
+        out["ranks"] = [{k: r[k] for k in ("rank", "role", "phases", "transport",
+                                           "kernel_launches", "params_bytes",
+                                           "peak_bytes")} for r in every]
+        for k in ("rank", "role", "params_bytes", "peak_bytes"):
+            out.pop(k)
+        return out
 
     @property
     def outstanding(self) -> bool:
@@ -532,6 +715,12 @@ class Engine:
 
     # ------------------------------------------------------------- metrics
     def stats(self) -> EngineStats:
+        """``_local_stats``; across ranks every rank's merged, the same on
+        each (every rank must call it: it gathers)."""
+        out = self._local_stats()
+        return self._merge_ranks(out) if self.roles is not None else out
+
+    def _local_stats(self) -> EngineStats:
         """The JAX engine's payload (``serving.stats``, schema v4):
         tokens, iterations, per-phase host time (decode includes the wait
         for the sampled tokens; with a prefill worker its own counters),
@@ -572,10 +761,12 @@ class Engine:
             out["kv_pages"] = self.page_pool.stats()
         if self.prefix is not None:
             out["prefix_cache"] = self.prefix.stats()
+        decode_rank = self.role != "prefill"
         if self.mode == "pingpong":
             out["n_microbatches"] = len(self.mb_slices)
-            out["stages"] = self.runtime.stage_report()
-        if self.cfg.moe is not None and self.runtime is not None:
+            if decode_rank:
+                out["stages"] = self.runtime.stage_report()
+        if self.cfg.moe is not None and self.runtime is not None and decode_rank:
             # the placement served now, priced on the latest traffic
             # window (intervals drained at rebalances plus the remainder;
             # also the never-rebalanced static case)

@@ -107,7 +107,12 @@ class PagePool:
     """
 
     def __init__(self, cfg: ModelConfig, *, n_pages: int, page_size: int,
-                 max_seq: int, dtype=torch.float32, device="cuda"):
+                 max_seq: int, dtype=torch.float32, device="cuda",
+                 with_store: bool = True):
+        """``with_store`` False keeps the host state only (free list,
+        refcounts, reservations): the pool of a rank that runs the
+        engine's schedule but holds no KV (an expert rank); its device
+        writes and copies do nothing."""
         ok, why = paged_supported(cfg, max_seq, page_size)
         if not ok:
             raise PageError(f"paged KV layout unsupported for "
@@ -127,7 +132,7 @@ class PagePool:
              "v": torch.zeros(shape, dtype=dtype, device=self.device),
              "pos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
                                device=self.device)}
-            for _ in cfg.layer_kinds]
+            for _ in cfg.layer_kinds] if with_store else []
         self.free: deque = deque(range(n_pages))
         self.refcount = np.zeros((n_pages,), np.int32)
         self.reserved = 0

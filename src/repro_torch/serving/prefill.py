@@ -30,6 +30,12 @@ of slot availability without changing any token: admission order, not
 prefill timing, decides the decode batch, and under greedy sampling the
 tokens equal the inline-prefill engine's.
 
+Across ranks (``ranks``: the prefill cluster's ranks) every rank of the
+serving layout keeps the worker's queues, so that all of them batch the
+same requests the same way, and batch k is computed by rank ``ranks[k %
+P]`` alone: elsewhere the result carries no tensors, only its ``rank``,
+the source of its KV hop.
+
 Batching caveat: the modality stubs (``models.stubs.extra_inputs``) are
 drawn per batch, so the models that need them (vision, audio) are
 prefilled one request at a time, each with the stub the inline path's
@@ -51,7 +57,7 @@ from repro_torch.models.stubs import extra_inputs
 from repro_torch.models.transformer import decode_step
 from repro_torch.models.transformer import prefill as model_prefill
 from repro_torch.serving.kvcache import extract_row
-from repro_torch.serving.pages import row_to_page_chunks
+from repro_torch.serving.pages import n_pages_for, row_to_page_chunks
 
 
 def suffix_prefill(params, cfg: ModelConfig, prompt: Sequence[int],
@@ -99,6 +105,7 @@ class PrefillResult:
     page_chunks: Optional[list] = None    # [(logical_page, chunk), ...]
     shared_pages: tuple = ()              # prefix-cache pages, pinned
     n_shared_tokens: int = 0
+    rank: int = 0                         # the prefill rank that made it
 
 
 class PrefillWorker:
@@ -108,7 +115,8 @@ class PrefillWorker:
     def __init__(self, cfg: ModelConfig, params: dict, *, max_seq: int = 256,
                  chunk_tokens: int = 512,
                  prefill_fn: Optional[Callable] = None, page_size: int = 0,
-                 page_pool=None, prefix_cache=None, device=None):
+                 page_pool=None, prefix_cache=None, device=None,
+                 ranks: Sequence[int] = (), rank: int = 0):
         """``params``: the engine's parameter tensors (shared, not
         copied).  ``chunk_tokens``: token budget of one prefill batch;
         consecutive same-length prompts are batched while batch * length
@@ -124,15 +132,23 @@ class PrefillWorker:
         links its own pool and prefix tree in when they are not given.
 
         ``device``: where the worker runs, by default the parameters'
-        device; on the card the worker takes a stream of its own there."""
+        device; on the card the worker takes a stream of its own there.
+
+        ``ranks`` / ``rank``: the prefill cluster's ranks and this one's
+        (see the module's docstring); empty in one process."""
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
         self.chunk_tokens = max(1, chunk_tokens)
         self.device = resolve_device(device if device is not None
                                      else params["embed"].device)
+        self._batch_no = 0                  # every batch of the cluster
+        self.ranks, self.rank = tuple(ranks), rank
+        # on one card the worker overlaps decode on a stream of its own;
+        # a prefill rank runs nothing else, so it prefills on the
+        # caller's stream, where its KV hops read the results in order
         self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+                       if self.device.type == "cuda" and not self.ranks else None)
         self._prefill = prefill_fn or model_prefill
         self._needs_extras = bool(extra_inputs(cfg, 1, device=self.device))
         self.page_size = page_size
@@ -191,16 +207,42 @@ class PrefillWorker:
 
     def _paged_fields(self, req, row_cache, h: int, pages) -> dict:
         """PrefillResult fields of the paged transfer queue: the
-        non-shared slots ``[h, plen)`` as per-page chunks."""
-        return {"kv": None,
-                "page_chunks": row_to_page_chunks(row_cache, h, len(req.prompt),
-                                                  self.page_size),
+        non-shared slots ``[h, plen)`` as per-page chunks (without
+        tensors where ``row_cache`` is None: another rank's result)."""
+        chunks = ([(lp, None) for lp in range(h // self.page_size,
+                                              n_pages_for(len(req.prompt),
+                                                          self.page_size))]
+                  if row_cache is None else
+                  row_to_page_chunks(row_cache, h, len(req.prompt), self.page_size))
+        return {"kv": None, "page_chunks": chunks,
                 "shared_pages": tuple(pages), "n_shared_tokens": h}
+
+    def _source(self) -> int:
+        """The rank that computes the next batch (this one in one
+        process)."""
+        src = self.ranks[self._batch_no % len(self.ranks)] if self.ranks else self.rank
+        self._batch_no += 1
+        return src
+
+    def _elsewhere(self, batch: list, src: int, h: int = 0, pages=()) -> None:
+        """Queue the results of a batch that rank ``src`` computes."""
+        for req in batch:
+            self._hits.pop(req.rid, None)
+            extra = (self._paged_fields(req, None, h, pages) if self.page_size
+                     else {"kv": None})
+            self.ready.append(PrefillResult(
+                request=req, last_logits=None, first_token=None,
+                n_prompt_tokens=len(req.prompt), t_prefill_s=0.0, rank=src,
+                **extra))
 
     def _run_suffix(self, req) -> None:
         """Radix-hit path: gather the cached prefix pages and compute
         only the suffix; the shared prefix is never run again."""
         h, pages = self._hits.pop(req.rid)
+        src = self._source()
+        if src != self.rank:
+            self._elsewhere([req], src, h, pages)
+            return
         t0 = time.perf_counter()
         row = self.page_pool.gather_row(pages)
         last_logits, row = suffix_prefill(self.params, self.cfg, req.prompt,
@@ -211,7 +253,7 @@ class PrefillWorker:
         self.ready.append(PrefillResult(
             request=req, last_logits=last_logits,
             first_token=last_logits.argmax(-1)[0],
-            n_prompt_tokens=len(req.prompt), t_prefill_s=dt,
+            n_prompt_tokens=len(req.prompt), t_prefill_s=dt, rank=src,
             **self._paged_fields(req, row, h, pages)))
         self.n_prefills += 1
         self.n_tokens += len(req.prompt) - h
@@ -220,6 +262,10 @@ class PrefillWorker:
         if (self.prefix_cache is not None and len(batch) == 1
                 and self._hits.get(batch[0].rid, (0,))[0]):
             self._run_suffix(batch[0])
+            return
+        src = self._source()
+        if src != self.rank:
+            self._elsewhere(batch, src)
             return
         t0 = time.perf_counter()
         toks = torch.tensor([r.prompt for r in batch], dtype=torch.int64,
@@ -247,7 +293,7 @@ class PrefillWorker:
             self.ready.append(PrefillResult(
                 request=req, last_logits=last_logits[i:i + 1],
                 first_token=greedy[i], n_prompt_tokens=len(req.prompt),
-                t_prefill_s=dt / len(batch), **extra))
+                t_prefill_s=dt / len(batch), rank=src, **extra))
             self.n_prefills += 1
             self.n_tokens += len(req.prompt)
 
@@ -269,7 +315,9 @@ class PrefillWorker:
 
     # -------------------------------------------------------------- metrics
     def stats(self) -> dict:
-        # one card: the worker shares the decode side's device
+        """This rank's prefills; one card's worker shares the decode
+        side's device, a cluster of ranks counts its ranks."""
         return {"prefill_s": self.t_prefill_s, "prefills": self.n_prefills,
                 "prefill_batches": self.n_batches,
-                "prefill_tokens": self.n_tokens, "prefill_devices": 1}
+                "prefill_tokens": self.n_tokens,
+                "prefill_devices": max(1, len(self.ranks))}

@@ -7,6 +7,7 @@ per rank through ``repro_torch.launch.dist_smoke.run_ranks``:
   python tests/_torch_dist_worker.py shard OUT_DIR
   python tests/_torch_dist_worker.py grid IN.pkl OUT_DIR
   python tests/_torch_dist_worker.py serve IN.pkl OUT_DIR
+  python tests/_torch_dist_worker.py disagg IN.pkl OUT_DIR
 
 Every rank brings up ``MultiControllerTransport`` on the CPU (gloo) from
 the ``REPRO_*`` variables, turns the warning ``torch.distributed`` gives
@@ -146,12 +147,51 @@ def run_dp(in_path: str, out_dir: str):
             pickle.dump(results, fh)
 
 
+def keep_step0(loop, out: dict):
+    """Wrap ``loop.adamw_update`` so that its first call leaves in ``out``
+    the step's gradients (before the update, which uses them as
+    scratch), the params after it (this rank's blocks of each leaf, in
+    ``named_leaves``' order) and the step's grad norm.  Returns the
+    original, to put back."""
+    import torch
+
+    from repro_torch.training.optimizer import leaves
+
+    update = loop.adamw_update
+    host = lambda t: t.detach().to("cpu", copy=True).float().numpy()
+
+    def keeping(cfg, params, grads, state, **kw):
+        first = not out
+        if first:
+            out["grads"] = [host(g) for g in leaves(grads)]
+        res = update(cfg, params, grads, state, **kw)
+        if first:
+            out["params"] = [host(p) for p in leaves(params)]
+            out["grad_norm"] = float(torch.as_tensor(res[2]["grad_norm"]))
+        return res
+
+    loop.adamw_update = keeping
+    return update
+
+
 def run_train(out_dir: str, args_json: str):
+    """``launch.train.run`` on this rank; saves its losses and, from step
+    0, its blocks of the gradients and of the updated params
+    (``keep_step0``)."""
     from repro_torch.launch.train import run
+    from repro_torch.training import loop
 
     tr = _bring_up()
-    losses = run(**json.loads(args_json))
-    np.save(os.path.join(out_dir, f"losses{tr.process_index}.npy"), np.array(losses))
+    step0 = {}
+    update = keep_step0(loop, step0)
+    try:
+        losses = run(**json.loads(args_json))
+    finally:
+        loop.adamw_update = update
+    rank = tr.process_index
+    np.save(os.path.join(out_dir, f"losses{rank}.npy"), np.array(losses))
+    with open(os.path.join(out_dir, f"step0_{rank}.pkl"), "wb") as fh:
+        pickle.dump(step0, fh)
 
 
 def grid_config(case):
@@ -421,10 +461,124 @@ def run_shard(out_dir: str):
     np.savez(os.path.join(out_dir, f"shard{tr.process_index}.npz"), **got)
 
 
+def run_disagg(in_path: str, out_dir: str):
+    """The disaggregated runtime on this world's ranks: for each case of
+    IN.pkl its layout (``ServingRoles`` of the case's prefill count, or
+    the pinned ``attn_ranks`` / ``expert_ranks``), brought up by
+    ``setup_serving``, and reduced mixtral from the JAX params (numpy,
+    with the zipf router bias where set), of which the rank keeps its
+    role's leaves (``arch``: another reduced config).  ``step``: a
+    prefill and one ``decode_step`` of the
+    runtime (m = 2), the logits of the rank's rows; ``engine``: the
+    serving engine of ``launch.serve.engine_for`` over ``prompts``, its
+    tokens and merged stats; ``serve``: ``launch.serve.run`` with
+    ``transport="multi"`` (its own draw from the seed), the engine's
+    tokens and stats; ``refuse``: the error the layout raises.  Saves
+    per rank."""
+    import torch
+
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.config import get_config, reduced
+    from repro_torch.core.disagg import (DisaggPlan, DisaggregatedInstance,
+                                         rank_params)
+    from repro_torch.core.pingpong import even_partition
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ServingRoles
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import Request
+
+    tr = _bring_up()
+    with open(in_path, "rb") as fh:
+        cases = pickle.load(fh)
+    rank, out = tr.process_index, {}
+    for case in cases:
+        cfg = reduced(get_config(case.get("arch", "mixtral-8x22b")))
+        P = case.get("prefill", 0)
+        roles = ServingRoles(tr.process_count, P,
+                             attn_ranks=case.get("attn_ranks"),
+                             expert_ranks=case.get("expert_ranks"))
+        tr.setup_serving(roles)
+        tr.reset_stats()
+        res = {"role": roles.role(rank)}
+        if case["kind"] == "serve":
+            engines = []
+            build = serve.build
+
+            def keep(sc):
+                c, eng = build(sc)
+                engines.append(eng)
+                return c, eng
+
+            serve.build = keep
+            try:
+                st = serve.run(**case["run"])
+            finally:
+                serve.build = build
+            res.update(tokens={r.rid: list(r.generated) for r in engines[0].finished},
+                       stats=st)
+            out[case["name"]] = res
+            continue
+        full = params_from_jax(case["params"], cfg, device="cpu")
+        if case.get("zipf"):
+            serve.inject_router_bias(full, cfg, serve.zipf_router_bias(
+                cfg.moe.n_experts, case["zipf"]))
+        try:
+            params = rank_params(cfg, full, roles, rank, use_m2n=case.get("m2n", False),
+                                 inline_prefill=not P)
+            plan = DisaggPlan(n_microbatches=case.get("m", 2),
+                              use_m2n=case.get("m2n", False))
+            if case["kind"] == "refuse":
+                DisaggregatedInstance(cfg, params, plan=plan, transport=tr)
+        except ValueError as e:
+            res["error"] = f"{type(e).__name__}: {e}"
+            out[case["name"]] = res
+            continue
+        if case["kind"] == "step":
+            inst = DisaggregatedInstance(cfg, params, plan=plan, transport=tr)
+            toks = torch.from_numpy(case["tokens"]).long()
+            B = toks.shape[0]
+            rows = inst.attn_rows(even_partition(B, plan.n_microbatches))
+            cache = nxt = None
+            if rows is not None:
+                last, whole = prefill(params, cfg, toks, max_seq=case["max_seq"])
+                nxt = last.argmax(-1)
+                cache = [{k: t[rows].clone() for k, t in e.items()} for e in whole]
+            nxt = tr.share(torch.zeros(B, dtype=torch.int64) if nxt is None else
+                           nxt * (rank == roles.attn[0]))
+            pos = torch.full((B,), toks.shape[1], dtype=torch.int32)
+            with torch.no_grad():
+                logits, _ = inst.decode_step(nxt, cache, pos)
+            res.update(rows=None if rows is None else (rows.start, rows.stop),
+                       nxt=nxt.numpy(),
+                       logits=None if logits is None else logits.numpy(),
+                       stages=inst.stage_report())
+        else:
+            sc = ServingConfig(device="cpu", runtime="pingpong",
+                               microbatches=case.get("m", 2),
+                               use_m2n=case.get("m2n", False),
+                               max_batch=case["max_batch"], max_seq=case["max_seq"],
+                               prefill_devices=P, transfer=case.get("transfer", "async"),
+                               kv_layout=case.get("layout", "contiguous"),
+                               page_size=case.get("page_size", 8),
+                               expert_rebalance_every=case.get("rebalance", 0),
+                               transport="multi", verbose=False)
+            eng = serve.engine_for(sc, cfg, params, tr)
+            for i, p in enumerate(case["prompts"]):
+                eng.submit(Request(rid=i, prompt=list(p), max_new_tokens=case["max_new"]))
+            with torch.no_grad():
+                done = eng.run_until_done()
+            res.update(tokens={r.rid: list(r.generated) for r in done},
+                       stats=eng.stats())
+        out[case["name"]] = res
+    with open(os.path.join(out_dir, f"disagg{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
 if __name__ == "__main__":
     mode, *rest = sys.argv[1:]
     {"m2n": run_m2n, "dp": run_dp, "train": run_train, "shard": run_shard,
-     "grid": run_grid, "serve": run_serve}[mode](*rest)
+     "grid": run_grid, "serve": run_serve, "disagg": run_disagg}[mode](*rest)
     import torch.distributed as dist
     dist.barrier()      # no rank tears its groups down while a peer still uses them
     dist.destroy_process_group()
