@@ -131,7 +131,7 @@ then:
      call's wall time, beside the same dispatch as 2 shards in one
      process.  (b) ``repro_torch.launch.dist_smoke --procs 2`` on the
      card.  (c) qwen2-moe-a2.7b at published width cut to one layer,
-     f32, batch 8 x seq 128 split 4 + 4 over 2 ranks, 3 data-parallel
+     f32, batch 8 x seq 128 split 4 + 4 over 2 ranks, 2 data-parallel
      steps against one process on the whole batch: tokens dropped,
      losses and aux within 1e-5 relative, step 0's averaged gradients
      within 1e-4 of max |g|, the step's params by 8(a)'s loose rule;
@@ -165,7 +165,7 @@ then:
      branch and grouped_matmul in every rank); (b) minitron-4b on (1, 3):
      8 kv heads do not divide 3, so every rank holds all of them on 64 of
      the 192 ring slots and runs decode attention's partial branch, the
-     ranks' rows merged by ``merge_partials``.  8 requests, 32 steps, at
+     ranks' rows merged by ``merge_partials``.  8 requests, 16 steps, at
      published width: f32 at 2 layers against one process (tokens exact,
      logits within 5e-4 of their range), bf16 at 4 layers fed one
      process's tokens (routing first, then logits within 5% of their
@@ -220,6 +220,29 @@ then:
      profiler counts each rank's decode attention, gating dispatch and
      grouped matmul kernels (``phase13_rank_launches`` in the kernels
      line).  ``chip_smoke.py --phase13-only`` runs this phase alone.
+
+ 14. the JAX dry run's other training layouts on a grid of processes
+     (cuda:0, gloo; a card per rank: NCCL).  (a) phase 10(b)'s
+     qwen2-moe-a2.7b layer (published width, f32, TF32 off, batch 8 x seq
+     128, 3 steps) on (2, 2) under fsdp, ep2d, and sequence parallelism,
+     m2n2d and m2n with ZeRO-1, in one start of the ranks, each rank drawing
+     its blocks leaf by leaf (fsdp and ep2d with ZeRO-1 are JAX's own
+     ``DuplicateSpecError`` on this grid, checked).  Each layout against
+     its one-process function ("dense": the plain step; "blocks": the
+     experts routing each data rank's rows apart, m2n's capacity), run
+     first here: losses and aux within 1e-5 relative, the entries
+     dropped equal where the experts route the global batch, each rank's
+     block of step 0's gradients within 1e-4 of each leaf's max |g| and
+     of step 0's params within AdamW's first-step bound (the one-process
+     step 0 recomputed one rank at a time), no kernel launched; per rank
+     ms/step, each collective kind's share and bytes, params, moments and
+     peak.  (b) phase 11(a)'s f32 run (mixtral-8x22b, 2 layers, (1, 2),
+     m2n experts) with a sequence-parallel prefill: tokens equal one
+     process's, logits within 5e-4 of their range, each kernel's device
+     launches (torch.profiler) and host launches as ``p11_predicted``
+     says; the prefill's ms and collective bytes by kind beside the same
+     prefill without the flag (``phase14_rank_launches`` in the kernels
+     line).  ``chip_smoke.py --phase14-only`` runs this phase alone.
 
 Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
@@ -2630,7 +2653,7 @@ P9_TIMEOUT = 300           # seconds for all ranks of one sub-phase
 # 9(c): one full-width qwen2-moe layer takes 19.1 GB of params, grads and
 # moments per rank; mixtral-8x22b's (46.4 GB, phase 8) does not fit twice
 # on one card, so data parallelism at its width needs a card per rank
-P9_TRAIN = dict(arch="qwen2-moe-a2.7b", n_layers=1, batch=8, seq=128, steps=3,
+P9_TRAIN = dict(arch="qwen2-moe-a2.7b", n_layers=1, batch=8, seq=128, steps=2,
                 lr=1e-3, seed=0)
 P9_STAGE_MB = 256          # the all_reduce size whose host staging is timed
 
@@ -3151,8 +3174,8 @@ def p10_one_process(torch, which, dev):
 
 
 def p10_child(torch, which, out_dir):
-    """One rank of 10(which): its blocks of the ``init_params`` draw (made
-    whole, then cut by ``sharding.local_shard``), the steps on the grid
+    """One rank of 10(which): its blocks of the ``init_params`` draw (each
+    leaf cut to them as it is drawn), the steps on the grid
     with the model-axis collectives and the data-axis gradient
     all_reduce timed on the host clock (each between two synchronizes),
     the launch counts set to 0 before and read after.  Then, one rank at
@@ -3175,11 +3198,10 @@ def p10_child(torch, which, out_dir):
     rank, n = tr.process_index, tr.process_count
     mesh = make_mesh(P10[which]["grid"], ("data", "model"), device=tr.device)
     cfg, opt, batches = p10_setup(torch, which, tr.device)
-    full = init_params(cfg, P10_RUN["seed"], torch.float32, device=tr.device)
-    specs = sharding.param_specs(cfg, full, mesh)
-    params = sharding.shard_tree(full, specs, mesh)
-    del full
-    torch.cuda.empty_cache()
+    specs = sharding.param_specs(cfg, init_params(cfg, device="meta"), mesh)
+    # each leaf cut to the rank's block as soon as it is drawn
+    params = init_params(cfg, P10_RUN["seed"], torch.float32, device=tr.device,
+                         place=sharding.Layout(cfg, mesh).place)
     torch.cuda.reset_peak_memory_stats()
     for p in leaves(params):
         p.requires_grad_(True)
@@ -3336,13 +3358,13 @@ def phase_model_axis(torch, dev):
 # (the kernel path: gating_dispatch's owner branch and grouped_matmul);
 # (b) the slot split: minitron-4b's 8 kv heads do not divide m = 3, so
 # each rank holds every kv head on 64 of the ring's 192 slots; prompts of
-# 150 tokens and 32 steps reach all three blocks.  Published widths, cut
+# 150 tokens and 16 steps reach all three blocks.  Published widths, cut
 # in depth only: bf16 at 4 layers (and f32 at 2 for the exact check)
 P11 = {"a": dict(arch="mixtral-8x22b", grid=(1, 2), prompt_len=16, max_seq=64,
                  m2n=True),
        "b": dict(arch="minitron-4b", grid=(1, 3), prompt_len=150, max_seq=192,
                  m2n=False)}
-P11_RUN = dict(batch=8, steps=32, bf16_layers=4, f32_layers=2, seed=0)
+P11_RUN = dict(batch=8, steps=16, bf16_layers=4, f32_layers=2, seed=0)
 P11_TIMEOUT = 240          # seconds for all ranks of one sub-phase
 
 
@@ -3789,7 +3811,7 @@ P12_TRAIN = {"recurrentgemma-2b": dict(n_layers=3),
              "whisper-large-v3": dict(n_layers=1, encoder_layers=1),
              "llama-3.2-vision-90b": dict(n_layers=1, block_pattern=("cross",))}
 P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
-# (b) serving, 8 requests, 16 greedy steps (each a few hundred ms on a
+# (b) serving, 8 requests, 4 greedy steps (each a few hundred ms on a
 # grid: 96-194 collectives through gloo): f32 at one period (whisper's
 # encoder cut to 1 layer there), then bf16 at ``layers`` (None: whole).
 # recurrentgemma-2b on (1, 4): the RG-LRU width and 10 query heads (2.5 a
@@ -3800,13 +3822,13 @@ P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
 # period (5 of 100 layers) on (1, 2)
 P12_SERVE = {
     "recurrentgemma-2b": dict(grid=(1, 4), layers=None, period=3, prompt_len=1600,
-                              max_seq=2048, steps=8),
+                              max_seq=2048, steps=4),
     "mamba2-1.3b": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                        max_seq=64, steps=8),
+                        max_seq=64, steps=4),
     "whisper-large-v3": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                             max_seq=64, steps=8),
+                             max_seq=64, steps=4),
     "llama-3.2-vision-90b": dict(grid=(1, 2), layers=5, period=5, prompt_len=16,
-                                 max_seq=64, steps=8),
+                                 max_seq=64, steps=4),
 }
 P12_BATCH = 8
 P12_TIMEOUT = 300          # seconds for all ranks of one sub-phase
@@ -4796,6 +4818,534 @@ def phase_disagg_ranks(torch, dev, want_a=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the JAX dry run's other training layouts, and a
+# sequence-parallel prefill, on a grid of processes
+# ---------------------------------------------------------------------------
+
+# (a) phase 10(b)'s model and grid: qwen2-moe-a2.7b at published width cut
+# to one layer, f32 with TF32 off, batch 8 x seq 128, 3 steps on (2, 2);
+# the layouts in one start of the ranks.  JAX's zero_extend names the data
+# axes twice on the experts under fsdp and under ep2d here (60 experts
+# split over m = 2, so the rules give them the data axes on another dim):
+# those two layouts run without ZeRO-1 and the refusal is checked; ZeRO-1
+# runs with sequence parallelism, m2n and m2n2d, as in the JAX dry run's
+# train records.  "ref" is the one-process function each layout computes:
+# "dense" the step on the whole batch, "blocks" the step whose experts
+# route each data rank's rows apart (m2n's capacity)
+P14A = dict(arch="qwen2-moe-a2.7b", grid=(2, 2), n_layers=1, batch=8, seq=128,
+            steps=3, lr=1e-3, seed=0, loss_rtol=1e-5, grad_tol=1e-4)
+P14_LAYOUTS = (("fsdp", dict(fsdp=True), "dense"),
+               ("ep2d", dict(expert_mode="ep2d"), "dense"),
+               ("seq-parallel+zero1", dict(seq_parallel=True, zero=True), "dense"),
+               ("m2n2d+zero1", dict(moe_impl="m2n2d", zero=True), "dense"),
+               ("m2n+zero1", dict(moe_impl="m2n", zero=True), "blocks"))
+P14_REFUSED = (("fsdp+zero1", dict(fsdp=True, zero=True)),
+               ("ep2d+zero1", dict(expert_mode="ep2d", zero=True)))
+# (b) phase 11(a)'s f32 run (mixtral on (1, 2), 2 layers, 8 requests, 32
+# greedy steps, the experts as m2n shards) with a sequence-parallel prefill
+P14B = dict(which="a", n_layers=2)
+P14_TIMEOUT = 420          # seconds for all ranks of one sub-phase
+P14_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+
+
+def p14a_setup(torch, dev):
+    from repro_torch.config import get_config
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    R = P14A
+    cfg = dataclasses.replace(get_config(R["arch"]), n_layers=R["n_layers"])
+    opt = AdamWConfig(lr=R["lr"], warmup_steps=2, total_steps=R["steps"])
+    batches = [torch.from_numpy(b).to(dev) for b in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=R["seq"] + 1, batch=R["batch"],
+        seed=R["seed"])).batches(R["steps"])]
+    return cfg, opt, batches
+
+
+def p14_blocks_moe(n_blocks, dropped):
+    """The one-process routed experts of ``n_blocks`` data ranks' rows,
+    each row block (a contiguous block of the flat tokens) routed with its
+    own capacity (``routed_experts_dense`` on the block), the outputs
+    concatenated and the load-balance losses averaged: with one block the
+    plain step's experts, with the data ranks' count m2n's (``core.m2n``'s
+    plain branch over the ranks).  Adds the entries past their expert's
+    capacity to ``dropped[-1]``."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    def impl(params, x, cfg, act, capacity_mode, with_aux=False):
+        ys, auxs = [], []
+        for xb in x.chunk(n_blocks, 0):
+            r = moe_lib.route(xb, params["router"], cfg.top_k,
+                              params.get("router_bias"))
+            C = moe_lib.expert_capacity(xb.shape[0], cfg, capacity_mode)
+            counts = moe_lib.routing_counts(r, cfg.n_experts)
+            dropped[-1] += float((counts - C).clamp(min=0).sum())
+            y, a = moe_lib.routed_experts_dense(params, xb, cfg, act, capacity_mode,
+                                                with_aux)
+            ys.append(y)
+            auxs.append(a)
+        aux = torch.stack(auxs).mean() if with_aux else None
+        return torch.cat(ys, 0), aux
+    return impl
+
+
+def p14a_one_process(torch, ref, dev, step0=False):
+    """One process on the whole batch, 3 steps: ``ref`` "dense" (the plain
+    step) or "blocks" (m2n's per-data-block routing, ``p14_blocks_moe``).
+    Returns (each step's metrics, ms per step, peak GB), and with
+    ``step0`` instead step 0's gradients and params after it, by path, on
+    ``dev``."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import init_opt_state, leaves, named_leaves
+    cfg, opt, batches = p14a_setup(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, P14A["seed"], torch.float32, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    state = init_opt_state(params)
+    step = loop.make_train_step(cfg, opt, remat="none")
+    kept, update = {}, loop.adamw_update
+    host = lambda t: t.detach().clone()
+
+    def keep(opt_cfg, ps, grads, st, **kw):
+        if not kept:
+            kept["grads"] = [host(g) for g in leaves(grads)]
+        return update(opt_cfg, ps, grads, st, **kw)
+
+    dropped = []
+    prev = moe_lib.set_routed_impl(p14_blocks_moe(
+        P14A["grid"][0] if ref == "blocks" else 1, dropped))
+    metrics, ms = [], []
+    loop.adamw_update = keep
+    try:
+        for toks in batches[:1] if step0 else batches:
+            dropped.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, toks)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(dict({k: float(v) for k, v in m.items()},
+                                dropped=dropped[-1]))
+    finally:
+        loop.adamw_update = update
+        moe_lib.set_routed_impl(prev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    names = [k for k, _ in named_leaves(params)]
+    out = ((dict(zip(names, kept["grads"])), {k: host(p) for k, p in
+                                              named_leaves(params)})
+           if step0 else (metrics, ms, peak))
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14a_child(torch, out_dir):
+    """One rank of 14(a), each layout of ``P14_LAYOUTS`` in turn: the
+    rank's blocks drawn leaf by leaf (``init_params(place=Layout.place)``),
+    the steps with every collective timed by kind on the host clock
+    (between two synchronizes), the launch counts set to 0 before and
+    read after; its state freed, then, one rank at a time (the others at
+    a barrier), step 0 of the layout's one-process function on the whole
+    batch (24 GB on the card), against which the rank holds its blocks
+    of step 0's gradients (as AdamW updates them; 1e-4 of each leaf's
+    max |g|) and of the params after step 0 (AdamW's first-step bound,
+    phase 12(a)'s rule).  The reference is recomputed for each layout:
+    kept on the host for the layouts that share it, its copies cost more
+    than the recomputation (PERF.md §6).  Prints one JSON line."""
+    import torch.distributed as dist
+
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import cosine_lr, leaves, named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tr = MultiControllerTransport(device="cuda")
+    rank, n = tr.process_index, tr.process_count
+    mesh = make_mesh(P14A["grid"], ("data", "model"), device=tr.device)
+    cfg, opt, batches = p14a_setup(torch, tr.device)
+    lr = float(cosine_lr(opt, 1))
+    res = {"rank": rank, "device": str(tr.device), "backend": tr.backend,
+           "layouts": {}}
+    orig = {k: getattr(mesh, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+    group_all_reduce = dp.group_all_reduce
+    update = loop.adamw_update
+
+    def run_layout(kw):
+        """The layout's steps: (its figures, step 0's gradient blocks and
+        gnorm, the params after step 0, the layout)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = loop.make_train_step(cfg, opt, remat="none", mesh=mesh, **kw)
+        params = init_params(cfg, P14A["seed"], torch.float32, device=tr.device,
+                             place=step.layout.place)
+        for p in leaves(params):
+            p.requires_grad_(True)
+        state = step.layout.init_opt_state(params)
+        gb = lambda tree: sum(t.numel() * t.element_size() for t in leaves(tree)) / 1e9
+        r = {"params_gb": gb(params), "moments_gb": gb(state.mu) + gb(state.nu)}
+        coll = {k: [] for k in P14_KINDS}
+        coll_bytes = {k: 0 for k in P14_KINDS}
+        kept = {}
+
+        def timed(kind, fn):
+            def call(t, *a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(t, *a, **k)
+                torch.cuda.synchronize()
+                coll[kind][-1] += (time.perf_counter() - t0) * 1e3
+                nb = max(t.numel(), out.numel()) * t.element_size()
+                coll_bytes[kind] += nb
+                return out
+            return call
+
+        def keep(opt_cfg, ps, grads, st, **k):
+            if not kept:
+                kept["grads"] = [g.detach().clone() for g in leaves(grads)]
+                kept["gnorm"] = float(k["gnorm"])
+            return update(opt_cfg, ps, grads, st, **k)
+
+        mesh.all_reduce = timed("all-reduce", orig["all_reduce"])
+        mesh.all_gather = timed("all-gather", orig["all_gather"])
+        mesh.reduce_scatter = timed("reduce-scatter", orig["reduce_scatter"])
+        dp.group_all_reduce = timed("all-reduce", group_all_reduce)
+        loop.adamw_update = keep
+        metrics, ms = [], []
+        reset_launch_counts()
+        try:
+            for s, toks in enumerate(batches):
+                for k in P14_KINDS:
+                    coll[k].append(0.0)
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, toks)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if s == 0:
+                    after0 = {k: p.detach().clone() for k, p in named_leaves(params)}
+        finally:
+            for k in orig:
+                delattr(mesh, k)
+            dp.group_all_reduce = group_all_reduce
+            loop.adamw_update = update
+        r.update(metrics=metrics, ms=ms, coll_ms=coll, coll_bytes=coll_bytes,
+                 launches={k: v for k, v in launch_counts().items() if v},
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, state
+        torch.cuda.empty_cache()
+        return r, kept, after0, step.layout
+
+    def compare(lay, kept, after0, g_ref, p_ref):
+        """(worst gradient gap of max |g|, leaf), the elements of step 0's
+        params past AdamW's first-step bound, (worst share of it, leaf),
+        against the one-process step 0 ``g_ref`` / ``p_ref``."""
+        clip = min(1.0, opt.grad_clip / (kept["gnorm"] + 1e-9))
+        g_worst, past, bound = (0.0, ""), 0, (0.0, "")
+        for lf, g in zip(lay.leaves, kept["grads"], strict=True):
+            k = lf.path
+            want = lay.place(k, g_ref[k], "moment")
+            if g.numel():
+                e = float((g - want).abs().max()) / max(float(g_ref[k].abs().max()),
+                                                        1e-30)
+                g_worst = max(g_worst, (e, k))
+            held = lay.moment_block(lf, after0[k])
+            if held is None:
+                continue
+            pw = lay.place(k, p_ref[k], "moment")
+            if not pw.numel():
+                continue
+            rng = float(pw.max() - pw.min()) or 1.0
+            allowed = (lr * torch.clamp(clip * (g - want).abs() / opt.eps, max=2.0)
+                       + 1e-5 * rng + 1e-6 * pw.abs())
+            d = (held - pw).abs()
+            past += int((d > allowed).sum())
+            bound = max(bound, (float((d / allowed).max()), k))
+        return g_worst, past, bound
+
+    for name, kw, ref in P14_LAYOUTS:
+        r, kept, after0, lay = run_layout(kw)
+        for q in range(n):      # the one-process step 0 (24 GB) of one rank
+            dist.barrier()
+            if q == rank:
+                out = compare(lay, kept, after0,
+                              *p14a_one_process(torch, ref, tr.device, step0=True))
+                torch.cuda.empty_cache()
+        r.update(zip(("grad_worst", "params_past", "params_bound"), out), ref=ref)
+        res["layouts"][name] = r
+        del kept, after0
+        dist.barrier()
+    print("phase14a " + json.dumps(res), flush=True)
+
+
+def p14b_child(torch, out_dir):
+    """One rank of 14(b): phase 11(a)'s f32 run on its grid with a
+    sequence-parallel prefill (the rank's blocks drawn leaf by leaf, the
+    experts as m2n shards over "model"), profiled whole: the tokens equal
+    one process's, the logits within 5e-4 of their range, each kernel's
+    device launches (torch.profiler) equal to ``p11_predicted``.  Then
+    the prefill alone with and without the flag, 3 times each: ms (host
+    clock) and the collectives' bytes by kind.  Prints one JSON line."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.m2n import use_m2n
+    from repro_torch.core.transport import MultiControllerTransport
+    from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ModelParallel
+    from repro_torch.models.transformer import init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    which, L = P14B["which"], P14B["n_layers"]
+    P, R = P11[which], P11_RUN
+    tr = MultiControllerTransport(device="cuda")
+    mesh = make_mesh(P["grid"], ("data", "model"), device=tr.device)
+    dev, rank = tr.device, tr.process_index
+    cfg = p11_cfg(which, L)
+    lay = sharding.Layout(cfg, mesh)
+    params = init_params(cfg, R["seed"], torch.float32, device=dev, place=lay.place)
+    prompts = p11_prompts(torch, which, cfg, dev)
+    ref = torch.load(Path(out_dir) / "p14b-float32.pt")  # phase 11(a)'s f32 run
+    res = {"rank": rank, "device": str(dev), "backend": tr.backend}
+    for attempt in range(SESSIONS):
+        if attempt:
+            time.sleep(1.0)
+        dist.barrier()
+        reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with ModelParallel(mesh, seq_parallel=True).install(), \
+                    use_m2n(mesh=mesh, expert_axis="model"):
+                logits, toks, ms, _ = p11_serve(torch, cfg, params, prompts,
+                                                P["max_seq"], steps=R["steps"])
+            torch.cuda.synchronize()
+        host = {k: v for k, v in launch_counts().items() if v}
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    require(bool(names), f"phase 14(b) rank {rank}: torch.profiler saw no device "
+            f"activity in {SESSIONS} sessions")
+    seen = {k: sum(fn in nm for nm in names) for k, fn in P13_KERNELS}
+    want = p11_predicted(which, L)
+    want_dev = {k: want[k] for k, _ in P13_KERNELS}
+    require(seen == want_dev, f"phase 14(b) rank {rank}: device launches {seen}, "
+            f"predicted {want_dev}")
+    require(host == {k: v for k, v in want.items() if v},
+            f"phase 14(b) rank {rank}: host launches {host}, predicted {want}")
+    require(torch.equal(toks, ref["tokens"]), f"phase 14(b) rank {rank}: greedy "
+            f"tokens differ from one process's")
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(logits, ref["logits"], strict=True))
+    require(worst <= 5e-4, f"phase 14(b) rank {rank}: logits off by {worst:.3e} of "
+            f"their range")
+    orig = {k: getattr(mesh, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+    kinds = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
+    timing = {}
+    for sp in (True, False):
+        nbytes = {k: 0 for k in P14_KINDS}
+
+        def counted(kind, fn):
+            def call(t, *a, **k):
+                out = fn(t, *a, **k)
+                nbytes[kind] += max(t.numel(), out.numel()) * t.element_size()
+                return out
+            return call
+
+        for k in orig:
+            setattr(mesh, k, counted(kinds[k], orig[k]))
+        reps = []
+        try:
+            for i in range(3):
+                if i == 1:
+                    for k in orig:
+                        setattr(mesh, k, orig[k])
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad(), ModelParallel(mesh, seq_parallel=sp).install(), \
+                        use_m2n(mesh=mesh, expert_axis="model"):
+                    prefill(params, cfg, prompts, max_seq=P["max_seq"])
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for k in orig:
+                if k in mesh.__dict__:
+                    delattr(mesh, k)
+        timing["seq_parallel" if sp else "plain"] = {
+            "ms": reps, "bytes": nbytes}
+    res.update(logits_rel=worst, ms=ms, device_launches=seen, launches=host,
+               prefill=timing, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    dist.barrier()
+    print("phase14b " + json.dumps(res), flush=True)
+
+
+def p14_ranks(torch, which, n, label):
+    from repro_torch.launch.dist_smoke import run_ranks
+    out_dir = ROOT / "build" / "phase14"
+    out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase14", which, str(out_dir)],
+                    n, timeout=P14_TIMEOUT)
+    failed = [(rank, rc, text) for rank, (rc, text) in enumerate(out) if rc != 0]
+    # a rank that lost a peer fails at its next collective: show the others first
+    failed.sort(key=lambda f: "closed by peer" in f[2])
+    require(not failed, f"{label}: ranks {[f[0] for f in failed]} exited "
+            f"{[f[1] for f in failed]}:\n" + "\n".join(
+                f"--- rank {r} ---\n{text[-2500:]}" for r, _, text in failed[:2]))
+    ranks = []
+    for rank, (rc, text) in enumerate(out):
+        tag = f"phase14{which} "
+        lines = [ln for ln in text.splitlines() if ln.startswith(tag)]
+        require(len(lines) == 1, f"{label}: rank {rank} printed no result:\n"
+                f"{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(tag):]))
+    return sorted(ranks, key=lambda g: g["rank"])
+
+
+def phase_layouts(torch, dev, p11_ref=None):
+    """Phase 14.  (a) qwen2-moe-a2.7b (phase 10(b)'s model and grid)
+    under the JAX dry run's other training layouts in one start of the
+    ranks: fsdp, ep2d, and sequence parallelism, m2n2d and m2n with
+    ZeRO-1 (fsdp and ep2d with ZeRO-1 are JAX's own ``DuplicateSpecError``
+    here, and the port's).  Each layout's losses and aux within 1e-5 relative of
+    its one-process function's ("dense": the plain step; "blocks": m2n's
+    experts routing each data rank's rows apart, ``p14_blocks_moe``), the
+    entries dropped equal where the experts route the global batch, step
+    0's gradient blocks within 1e-4 of each leaf's max |g|, step 0's
+    params within AdamW's first-step bound, no kernel launched; per rank
+    ms/step, each collective kind's share, params, moments and peak.
+    (b) phase 11(a)'s f32 run with a sequence-parallel prefill: tokens
+    exact, logits within 5e-4 of their range, the profiler's launches as
+    predicted; the prefill's ms and collective bytes by kind beside the
+    same prefill without the flag.  ``p11_ref``: phase 11(a)'s f32
+    one-process result of this run (its tokens and logits), else run
+    here.  Returns {kernel: [each 14(b) rank's device launches]}."""
+    import contextlib
+
+    from repro_torch.core.m2n import use_m2n
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "phase14"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    med = lambda xs: statistics.median(xs[1:]) if len(xs) > 1 else xs[0]
+    R = P14A
+    t0 = time.perf_counter()
+    print(f"phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in "
+          f"this process before the ranks start")
+    cfg, _, _ = p14a_setup(torch, dev)
+    for name, kw in P14_REFUSED:
+        try:
+            sharding.Layout(cfg, RecordingMesh(R["grid"], ("data", "model")), **kw)
+            require(False, f"phase 14(a) {name}: JAX's zero_extend refuses it, the "
+                    f"port's layout did not")
+        except sharding.DuplicateSpecError as e:
+            print(f"phase 14(a) {name}: refused as JAX refuses it: {e}")
+    refs = {ref: p14a_one_process(torch, ref, dev) for ref in ("dense", "blocks")}
+    ranks = p14_ranks(torch, "a", R["grid"][0] * R["grid"][1], "phase 14(a)")
+    tok = R["batch"] * R["seq"]
+    for name, kw, ref in P14_LAYOUTS:
+        want = refs[ref][0]
+        for g in ranks:
+            r = g["layouts"][name]
+            for s, (m, w) in enumerate(zip(r["metrics"], want, strict=True)):
+                for key in ("loss", "aux"):
+                    require(abs(m[key] - w[key]) <= R["loss_rtol"] * abs(w[key]),
+                            f"phase 14(a) {name} rank {g['rank']} step {s}: {key} "
+                            f"{m[key]} vs {w[key]} (one process, {ref})")
+                if "dropped" in m:
+                    require(m["dropped"] == w["dropped"] and m["dropped"] > 0,
+                            f"phase 14(a) {name} step {s}: dropped {m['dropped']} vs "
+                            f"{w['dropped']}")
+            require(r["grad_worst"][0] <= R["grad_tol"], f"phase 14(a) {name} rank "
+                    f"{g['rank']}: gradient {r['grad_worst'][1]} off by "
+                    f"{r['grad_worst'][0]:.2e} of its max |g|")
+            require(r["params_past"] == 0, f"phase 14(a) {name} rank {g['rank']}: "
+                    f"{r['params_past']} elements of step 0's params past AdamW's "
+                    f"first-step bound (worst {r['params_bound']})")
+            require(not r["launches"], f"phase 14(a) {name}: the training path "
+                    f"launched {r['launches']}")
+            step = med(r["ms"])
+            shares = ", ".join(f"{k} {med(r['coll_ms'][k]):.2f} ms "
+                               f"({med(r['coll_ms'][k]) / step:.3f}, "
+                               f"{r['coll_bytes'][k] / len(r['ms']) / 1e9:.3f} GB a step)"
+                               for k in P14_KINDS)
+            print(f"phase 14(a) {name} rank {g['rank']} on {g['device']} over "
+                  f"{g['backend']}: {step:.2f} ms/step (median of steps 2-"
+                  f"{R['steps']}); {shares}; params {r['params_gb']:.3f} GB, moments "
+                  f"{r['moments_gb']:.3f} GB, peak {r['peak_gb']:.2f} GB; worst "
+                  f"gradient {r['grad_worst'][0]:.2e} of max |g| "
+                  f"({r['grad_worst'][1]}), step 0's params within "
+                  f"{r['params_bound'][0]:.3f} of the bound; ms "
+                  f"{[round(x, 1) for x in r['ms']]}")
+        r0 = ranks[0]["layouts"][name]
+        print(f"phase 14(a) {name} against one process ({ref}): losses "
+              f"{[m['loss'] for m in r0['metrics']]} vs {[m['loss'] for m in want]}, "
+              f"aux {[m['aux'] for m in r0['metrics']]}, dropped "
+              f"{[m.get('dropped') for m in r0['metrics']]} vs "
+              f"{[m.get('dropped') for m in want]}")
+    for ref, (want, ms, peak) in refs.items():
+        print(f"phase 14(a) one process ({ref}): {med(ms):.2f} ms/step "
+              f"({tok / med(ms) * 1e3:.1f} tok/s), peak {peak:.2f} GB")
+    print(f"phase 14(a): {time.perf_counter() - t0:.1f} s with the one-process runs "
+          f"and the ranks' start")
+    # (b)
+    t0 = time.perf_counter()
+    which, L = P14B["which"], P14B["n_layers"]
+    P, R11 = P11[which], P11_RUN
+    cfg = p11_cfg(which, L)
+    if p11_ref is not None:
+        shutil.copy(p11_ref, out_dir / "p14b-float32.pt")
+    else:
+        params = init_params(cfg, R11["seed"], torch.float32, device=dev)
+        prompts = p11_prompts(torch, which, cfg, dev)
+        with use_m2n(1) if P["m2n"] else contextlib.nullcontext():
+            logits, toks, _, _ = p11_serve(torch, cfg, params, prompts, P["max_seq"],
+                                           steps=R11["steps"])
+        torch.save({"logits": logits, "tokens": toks}, out_dir / "p14b-float32.pt")
+        del params
+        torch.cuda.empty_cache()
+    ranks = p14_ranks(torch, "b", P["grid"][0] * P["grid"][1], "phase 14(b)")
+    for g in ranks:
+        sp, plain = g["prefill"]["seq_parallel"], g["prefill"]["plain"]
+        gbs = lambda b: ", ".join(f"{k} {b[k] / 1e6:.3f} MB" for k in P14_KINDS)
+        print(f"phase 14(b) rank {g['rank']} on {g['device']} over {g['backend']}: "
+              f"tokens equal one process's, logits within {g['logits_rel']:.3e} of "
+              f"their range, device launches {g['device_launches']}; prefill with "
+              f"the flag {med(sp['ms']):.2f} ms ({gbs(sp['bytes'])}), without "
+              f"{med(plain['ms']):.2f} ms ({gbs(plain['bytes'])}); decode "
+              f"{statistics.median(g['ms'][1:]):.2f} ms/step; peak {g['peak_gb']:.2f} GB")
+    print(f"phase 14(b): {time.perf_counter() - t0:.1f} s with the one-process run "
+          f"and the ranks' start")
+    return {k: [g["device_launches"][k] for g in ranks] for k, _ in P13_KERNELS}
+
+
+def phase14_child(argv) -> int:
+    """``chip_smoke.py --phase14 a|b OUT_DIR``: one rank of phase 14(a) or
+    (b), started by ``phase_layouts`` with the ``REPRO_*`` variables, on
+    cuda:0 over gloo (or its own card over NCCL)."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    {"a": p14a_child, "b": p14b_child}[argv[0]](torch, argv[1])
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def phase13_child(argv) -> int:
     """``chip_smoke.py --phase13 a|b OUT_DIR``: one rank of phase 13(a) or
     (b), started by ``phase_disagg_ranks`` with the ``REPRO_*`` variables,
@@ -4936,6 +5486,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         p13 = phase_disagg_ranks(torch, dev, placed_tokens)
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
+        p14 = phase_layouts(torch, dev, ROOT / "build" / "phase11" / "p11a-float32.pt")
         t_end = time.perf_counter()
         partial = rows["decode_attention[partial]"]
         partial["phase12_rank_launches"] = p12_row["rank_launches"]
@@ -4968,6 +5521,8 @@ def main() -> int:
                 kernels[-1]["phase12_rank_launches"] = r["phase12_rank_launches"]
             if name in p13:
                 kernels[-1]["phase13_rank_launches"] = p13[name]
+            if name in p14:
+                kernels[-1]["phase14_rank_launches"] = p14[name]
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
@@ -4984,7 +5539,8 @@ def main() -> int:
     print(f"chip_smoke: phases 1-7 in {t8 - t_start:.1f} s (the build included), "
           f"phase 8 in {t9 - t8:.1f} s, phase 9 in {t10 - t9:.1f} s, phase 10 in "
           f"{t11 - t10:.1f} s, phase 11 in {t12 - t11:.1f} s, phase 12 in "
-          f"{t13 - t12:.1f} s, phase 13 in {t_end - t13:.1f} s")
+          f"{t13 - t12:.1f} s, phase 13 in {t14 - t13:.1f} s, phase 14 in "
+          f"{t_end - t14:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5096,6 +5652,32 @@ def phase13_only() -> int:
     return 0
 
 
+def phase14_only() -> int:
+    """``chip_smoke.py --phase14-only``: phase 14 alone (its kernels built
+    first, one ``nvcc`` per source)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
+    from repro_torch.kernels.cuda_build import build_all
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {card_line()}, "
+          f"{torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    try:
+        build_all()
+        t1 = time.perf_counter()
+        launches = phase_layouts(torch, torch.device("cuda", 0))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: build {t1 - t0:.1f} s, phase 14 in "
+          f"{time.perf_counter() - t1:.1f} s; per-rank launches {json.dumps(launches)}")
+    return 0
+
+
 def child_exit(rc: int):
     """Leave a rank process without the interpreter's finalization, where
     the gloo groups' leftover C++ objects can abort it ("terminate called
@@ -5107,6 +5689,10 @@ def child_exit(rc: int):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase14"]:
+        child_exit(phase14_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase14-only"]:
+        sys.exit(phase14_only())
     if sys.argv[1:2] == ["--phase13"]:
         child_exit(phase13_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase13-only"]:

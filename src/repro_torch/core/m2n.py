@@ -30,14 +30,21 @@ rules:
     routing and capacity come from those rows; the counts are summed
     over the data axes (their ``psum``);
   * with ``weights_2d`` each expert's d_ff is split over the data axes:
-    the rows are gathered over them (an ``all_reduce`` of a zero-filled
-    buffer: gloo has no CUDA ``all_gather``), every data rank routes all
-    of them, runs its d_ff slice of the MLP, the f-partials are summed
-    over the data axes, the combine over the expert axis, and each rank
-    keeps its rows.  As in JAX this refuses the kernels and the
-    placement tables, so it runs the JAX package's plain branch (``moe.route``,
+    the rows are gathered over them (``ProcessMesh.all_gather``), every
+    data rank routes all of them, runs its d_ff slice of the MLP, the
+    f-partials are summed over the data axes, and each rank's rows of
+    the combine are summed over the expert axis.  As in JAX this
+    refuses the kernels and the placement tables, so it runs the JAX
+    package's plain branch (``moe.route``,
     ``dispatch_indices(valid=local)``, three einsums) and has its
     load-balance loss, averaged over the data axes.
+
+Under autograd (a train step: grad enabled and x or the weights
+requiring grad) the plain branch runs without ``weights_2d`` too (JAX's
+``use_kernels=False``; the kernels have no backward), every collective
+an autograd function of ``models.parallel``; the serving paths run
+under ``no_grad`` and keep the kernel branch and its in-place
+``all_reduce``.
 
 Install it around any forward with ``use_m2n``; every ``moe_ffn`` then
 routes through it.
@@ -52,6 +59,7 @@ import torch
 from repro_torch.config import MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel
 from repro_torch.models.common import activation
 
 
@@ -72,10 +80,17 @@ def _shard(params, w, x, cfg, act, cap, j, n_shards, e_loc, n_real, tk,
     return moe_lib.combine(out, idx, gates, T), counts
 
 
-def _shard_2d(params, w, x_all, cfg, act, cap, j, e_loc, n_real, cw, mesh,
-              dtuple):
-    """Shard j's plain branch under ``weights_2d``: (partial (T, d) f32
-    over all gathered rows, aux, counts)."""
+def _shard_plain(params, w, x_all, cfg, act, cap, j, e_loc, n_real, cw, mesh,
+                 expert_axis, f_axes=()):
+    """Shard j's plain branch (the JAX package's ``use_kernels=False``
+    ``local_fn``): (partial (T, d) f32 over the rows of ``x_all``, aux,
+    counts).  ``f_axes``: the data axes over which ``w`` holds a block of
+    d_ff (``weights_2d``), whose f-partials are summed over them.  Under
+    autograd the rows and the (T, K) gates enter the shard's region over
+    the expert axis (its experts' share of their gradient, summed over
+    the shards where the rows and picks are alike; the shards' dispatch
+    buffers hold different experts) and the f-partials' sum is
+    differentiated as every data rank's loss summed."""
     E = cfg.n_experts
     T, d = x_all.shape
     routing = moe_lib.route(x_all, params["router"], cfg.top_k,
@@ -84,27 +99,72 @@ def _shard_2d(params, w, x_all, cfg, act, cap, j, e_loc, n_real, cw, mesh,
     counts = moe_lib.routing_counts(routing, E, cw)
     local = routing.experts // e_loc == j
     local_ids = torch.where(local, routing.experts - j * e_loc, 0)
+    gates = routing.gates
+    grad = torch.is_grad_enabled() and (x_all.requires_grad or w[0].requires_grad)
+    if grad:                    # the (T, ...) rows and picks, alike on every shard
+        x_all = _enter_rows(x_all, mesh, expert_axis)
+        gates = parallel.enter_over(gates, mesh, expert_axis)
     idx_buf, gate_buf = moe_lib.dispatch_indices(
-        moe_lib.Routing(routing.gates, local_ids, routing.probs), e_loc, cap,
-        valid=local)
+        moe_lib.Routing(gates, local_ids, routing.probs), e_loc, cap, valid=local)
     if n_real == 0:             # every data rank of this shard skips alike
-        return x_all.new_zeros((T, d), dtype=torch.float32), aux, counts
+        zero = x_all.new_zeros((T, d), dtype=torch.float32)
+        if grad:                # its backward meets the other shards' sums
+            zero = zero + 0 * (x_all.float().sum() + gates.sum())
+        return zero, aux, counts
     idx, gates = idx_buf[:n_real], gate_buf[:n_real]
     xe = moe_lib.gather_tokens(x_all, idx)
     w1, w3, w2 = w
     h = activation(torch.einsum("ecd,edf->ecf", xe, w1), act)
     h = h * torch.einsum("ecd,edf->ecf", xe, w3)
-    out = mesh.all_reduce(torch.einsum("ecf,efd->ecd", h, w2), dtuple)
+    out = torch.einsum("ecf,efd->ecd", h, w2)
+    if f_axes:
+        out = parallel.sum_data(out, mesh, f_axes) if grad else \
+            mesh.all_reduce(out, f_axes)
     return moe_lib.combine(out, idx, gates, T), aux, counts
 
 
 def _rows_over(mesh, dtuple, t: torch.Tensor) -> torch.Tensor:
-    """Every data rank's rows of ``t``, in data-rank order: its rows
-    written into a zero-filled buffer, summed over the data axes."""
-    n, i = mesh.size(dtuple), mesh.index(dtuple)
-    buf = t.new_zeros((n * t.shape[0],) + tuple(t.shape[1:]))
-    buf[i * t.shape[0]:(i + 1) * t.shape[0]] = t
-    return mesh.all_reduce(buf, dtuple)
+    """Every data rank's rows of ``t``, in data-rank order (an all-gather
+    over the data axes; its backward reduce-scatters the gradient)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return parallel.gather_data(t, mesh, dtuple, 0)
+    return mesh.all_gather(t, dtuple, 0)
+
+
+def _in_seq_region(mesh, axis) -> bool:
+    """Whether the installed model axis is ``axis`` of ``mesh`` inside a
+    sequence-parallel region (the rows are then its gathered sequence)."""
+    mp = parallel.current()
+    return mp is not None and mp.sp is not None and mp.mesh is mesh and axis == "model"
+
+
+def _enter_rows(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The rows entering a shard's region over the expert axis
+    (``ModelParallel.enter_seq`` inside a sequence-parallel region)."""
+    if _in_seq_region(mesh, axis):
+        return parallel.current().enter_seq(x)
+    return parallel.enter_over(x, mesh, axis)
+
+
+def _expert_sum(y: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """The combine's sum over the expert axis: inside a sequence-parallel
+    region of the installed model axis its reduce-scatter over the
+    sequence (``ModelParallel.reduce_act``); under autograd a sum forward
+    and identity backward (the shards share one loss); else in place."""
+    if _in_seq_region(mesh, axis):
+        return parallel.current().reduce_act(y)
+    if torch.is_grad_enabled() and y.requires_grad:
+        return parallel.reduce_over(y, mesh, axis)
+    return mesh.all_reduce(y, axis)
+
+
+def _data_mean(t: torch.Tensor, mesh, dtuple) -> torch.Tensor:
+    """The mean over the data axes (JAX's ``pmean``), differentiated as
+    every data rank's loss summed under autograd."""
+    n = mesh.size(dtuple)
+    if torch.is_grad_enabled() and t.requires_grad:
+        return parallel.sum_data(t, mesh, dtuple) / n
+    return mesh.all_reduce(t, dtuple) / n
 
 
 def sharded_routed_experts(params: dict, x: torch.Tensor, cfg: MoEConfig,
@@ -142,7 +202,16 @@ def sharded_routed_experts(params: dict, x: torch.Tensor, cfg: MoEConfig,
     axes with ``weights_2d``.
 
     transport: the combine's wire bytes (``m2n_traffic_bytes``) go on it
-    as one ``collective`` hop."""
+    as one ``collective`` hop.
+
+    Under autograd, with a ``mesh``, the JAX package's plain branch runs
+    (``use_kernels=False``: ``moe.route``, ``dispatch_indices(valid=local)``,
+    three einsums, the load-balance loss averaged over the data axes): a
+    train step's (the kernels have no backward); ``weights_2d`` always
+    runs it.  Routing and capacity are then per data block (every
+    data rank's rows, or the gathered rows under ``weights_2d``), as in
+    JAX, and the step's gradients are JAX's: every collective is an
+    autograd function of ``models.parallel``."""
     E = cfg.n_experts
     T, d = x.shape
     dtuple = tuple(data_axes)
@@ -192,23 +261,34 @@ def sharded_routed_experts(params: dict, x: torch.Tensor, cfg: MoEConfig,
             raise ValueError(f"rank {j} of {expert_axis!r} holds experts "
                              f"[{lo}, {hi}): its weights must have {n_real} "
                              f"rows, got {tuple(w1.shape)}")
-        if weights_2d:
-            x_all = _rows_over(mesh, dtuple, x)
+        plain = torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad)
+        if weights_2d or plain:
+            if plain and tables is not None:
+                raise NotImplementedError("placement tables are not supported "
+                                          "on the plain branch")
+            x_all = _rows_over(mesh, dtuple, x) if weights_2d else x
             cw = count_weights if count_weights is not None else \
                 x.new_ones((T,), dtype=torch.float32)
-            cw = _rows_over(mesh, dtuple, cw.float())
+            cw = _rows_over(mesh, dtuple, cw.float()) if weights_2d else cw
             cap = moe_lib.expert_capacity(x_all.shape[0], cfg, capacity_mode)
-            part, aux, counts = _shard_2d(params, (w1, w3, w2), x_all, cfg, act,
-                                          cap, j, e_loc, n_real, cw, mesh, dtuple)
-            y = mesh.all_reduce(part, expert_axis)
-            i = mesh.index(dtuple)
-            y = y[i * T:(i + 1) * T]
-            aux = mesh.all_reduce(aux, dtuple) / n_data
+            part, aux, counts = _shard_plain(
+                params, (w1, w3, w2), x_all, cfg, act, cap, j, e_loc, n_real, cw,
+                mesh, expert_axis, dtuple if weights_2d else ())
+            if weights_2d:
+                # the rank's rows of the partial, summed over the expert axis
+                i = mesh.index(dtuple)
+                y = _expert_sum(part[i * T:(i + 1) * T], mesh, expert_axis)
+            else:
+                y = _expert_sum(part, mesh, expert_axis)
+                if dtuple:      # routing ran per data rank over its rows
+                    mesh.all_reduce(counts, dtuple)
+            if dtuple:
+                aux = _data_mean(aux, mesh, dtuple)
         else:
             cap = moe_lib.expert_capacity(T, cfg, capacity_mode)
             y, counts = _shard(params, (w1, w3, w2), x, cfg, act, cap, j,
                                n_shards, e_loc, n_real, tk, count_weights)
-            mesh.all_reduce(y, expert_axis)
+            y = _expert_sum(y, mesh, expert_axis)
             if dtuple:          # routing ran per data rank over its rows
                 mesh.all_reduce(counts, dtuple)
     if transport is not None and n_shards > 1:

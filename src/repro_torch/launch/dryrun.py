@@ -10,10 +10,18 @@ recorded and returned unchanged):
 
   * train: ``training.loop.make_train_step(mesh=...)``, forward, backward
     and the AdamW update, on the rank's blocks of the params and moments
-    under the "ep" rules;
-  * prefill: ``transformer.prefill`` on the rank's rows;
+    under the record's layout (``launch.sharding.Layout``: the "ep"
+    rules, ``--fsdp``, ``--expert-shard ep2d``, ``--moe-impl m2n|m2n2d``,
+    ``--seq-parallel``; the moments under ``zero_extend`` (ZeRO-1), as
+    in every JAX train record, but for the layout of the default flags,
+    whose records keep the full moments and all-reduced gradients they
+    had before the port ran the other layouts);
+  * prefill: ``transformer.prefill`` on the rank's rows (its block of the
+    sequence between the block periods' layers under ``--seq-parallel``);
   * decode: ``transformer.decode_step``, one new token against a seq_len
-    cache in the rank's layout (``stubs.cache_specs(mesh=...)``).
+    cache in the rank's layout (``stubs.cache_specs(mesh=...)``); JAX's
+    ``ACT_SPEC`` never reaches a decode step, so ``--seq-parallel``
+    leaves it the program without the flag.
 
 Counted per rank: FLOPs (``torch.utils.flop_counter.FlopCounterMode``),
 bytes accessed (the input and output bytes of every aten op but views),
@@ -25,23 +33,23 @@ tensor on it lives).  The record keeps the JAX record's keys; its
 ``t_lower_s`` is the time to place the rank's arguments and
 ``t_compile_s`` the time of the meta run.
 
-Each record is "ok", "skipped" (the JAX package's reasons) or
-"unsupported" with its reason: a layer kind without a model axis
-(``parallel.check_kinds``; every kind of the registry has one),
-``--seq-parallel`` (the port has no sequence parallelism), a train step
-under ``--fsdp``, ``--expert-shard ep2d`` or ``--moe-impl m2n|m2n2d``
-(the port's grid train step takes the "ep" rules' blocks and routes the
-experts the JAX baseline's way), and m2n2d where the data ranks do not
-divide an expert's d_ff.  Serving under ``--moe-impl m2n`` /
-``m2n2d`` runs ``core.m2n`` over "model" (``weights_2d`` with each
-expert's d_ff split over the data axes), each rank holding its m2n
-shard of the experts.  Serving
-under ``--fsdp`` / ``ep2d`` gathers each leaf that the rule splits over
-the data axes at the start of the pass (a zero-filled ``all_reduce``
-over them, recorded); a leaf JAX splits on its stacked block dim (the
-port's per-layer tree has none) is held whole by the data rank that
-holds that block, and sent from it.  The JAX flags ``--save-hlo`` and
-``--no-unroll`` have no meaning here and are refused.
+Each record is "ok", "skipped" (the JAX package's reasons),
+"unsupported" with its reason (a layer kind without a model axis,
+``parallel.check_kinds``; every kind of the registry has one), or, in
+``main``, "FAILED" where the JAX dry run fails too: a train record whose
+``zero_extend`` names the data axes twice (``sharding.DuplicateSpecError``,
+JAX's words), and m2n2d where the data ranks do not divide an expert's
+d_ff (JAX's ``shard_map`` refuses the weights).  Serving under
+``--moe-impl m2n`` / ``m2n2d`` runs ``core.m2n`` over "model"
+(``weights_2d`` with each expert's d_ff split over the data axes), each
+rank holding its m2n shard of the experts.  Serving under ``--fsdp`` /
+``ep2d`` makes each leaf that the rule splits over the data axes whole
+at the start of the pass (``Layout.use_all``: an all-gather, recorded);
+a leaf JAX splits on its stacked block dim (the port's per-layer tree
+has none) is held whole by the data rank that holds that block, and
+sent from it (a zero-filled ``all_reduce``).  The JAX flags
+``--save-hlo`` and ``--no-unroll`` have no meaning here and are
+refused.
 
 Usage (on the CPU; meta tensors need no card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
@@ -53,6 +61,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -73,18 +82,13 @@ from repro_torch.launch.mesh import RecordingMesh, data_axes
 from repro_torch.models import parallel, stubs
 from repro_torch.models.transformer import decode_step, init_params, prefill
 from repro_torch.training.loop import make_train_step
-from repro_torch.training.optimizer import AdamWConfig, init_opt_state, leaves
+from repro_torch.training.optimizer import AdamWConfig, leaves
 
 DTYPE = torch.bfloat16
 META = torch.device("meta")
 MESH_NAMES = {False: "16x16", True: "2x16x16"}
 zero_extend = shlib.zero_extend
 
-# leaves whose rule the JAX package passes through fsdp (``maybe_fsdp``)
-_FSDP_NAMES = {"embed", "lm_head", "wq", "wk", "wv", "c_wq", "c_wk", "c_wv",
-               "wo", "c_wo", "w1", "w3", "ws1", "ws3", "wd1", "wd3", "w2",
-               "ws2", "wd2"}
-_EXPERTS = ("we1", "we3", "we2")
 _TRANSCENDENTAL = {"exp", "exp_", "log", "log_", "tanh", "sigmoid", "rsqrt",
                    "sqrt", "sin", "cos", "erf", "silu", "gelu", "logsumexp",
                    "_softmax", "_log_softmax", "softmax", "log_softmax"}
@@ -116,19 +120,21 @@ def unsupported_reason(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, *,
         parallel.check_kinds(cfg.layer_kinds)
     except NotImplementedError as e:
         return str(e)
-    if seq_parallel:
-        return ("the port has no sequence parallelism (JAX's ACT_SPEC): every "
-                "model rank holds the batch's activations")
-    if shape_cfg.kind == "train" and (fsdp or expert_mode != "ep"
-                                      or moe_impl != "baseline"):
-        return ("the port's grid train step takes the 'ep' rules' blocks and "
-                "routes the experts the JAX baseline's way (no fsdp, ep2d or m2n "
-                "in training)")
-    if moe_impl == "m2n2d" and cfg.moe is not None and \
-            cfg.moe.d_ff_expert % mesh.size(data_axes(mesh)):
-        return (f"m2n2d splits each expert's d_ff ({cfg.moe.d_ff_expert}) over "
-                f"the {mesh.size(data_axes(mesh))} data ranks, which do not divide it")
     return None
+
+
+def check_m2n2d(cfg: ModelConfig, mesh):
+    """Raise as JAX's ``shard_map`` does where m2n2d's weights (each
+    expert's d_ff over the data axes) do not split."""
+    n = mesh.size(data_axes(mesh))
+    f = cfg.moe.d_ff_expert
+    if f % n:
+        raise ValueError(
+            "shard_map applied to the function 'local_fn' was given argument "
+            "arrays with axis sizes that are not evenly divisible by the "
+            "corresponding mesh axis sizes: in_specs[4] maps array axis 2 (of "
+            f"size {f}) to mesh axis {data_axes(mesh)} (of size {n}), but {n} "
+            f"does not evenly divide {f}")
 
 
 # ---------------------------------------------------------------------------
@@ -148,112 +154,38 @@ def _paths(tree, prefix=""):
         yield prefix, tree
 
 
-def _copy(tree):
-    """A copy of a params tree's dicts and lists (the leaves shared; a
-    leaf may be None)."""
-    if isinstance(tree, dict):
-        return {k: _copy(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_copy(v) for v in tree]
-    return tree
-
-
-def _set(tree, path, value):
-    keys = path.split("/")
-    for k in keys[:-1]:
-        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
-    last = keys[-1]
-    if isinstance(tree, list):
-        tree[int(last)] = value
-    else:
-        tree[last] = value
-
-
 def jax_block_dim(cfg: ModelConfig, path: str, mesh, expert_mode: str = "ep"):
     """The stacked block a JAX fsdp rule splits over the data axes for the
     per-layer leaf at ``path`` (the JAX package stacks a block period's
     layers on a leading dim, which fsdp takes first where the data axes'
     size divides it), as (block, blocks), or None where fsdp takes
-    another dim there."""
-    parts = path.split("/")
-    name = parts[-1]
-    n_data = mesh.size(data_axes(mesh))
-    if parts[0] == "layers":
-        layer = int(parts[1])
-        period = len(cfg.block_pattern)
-        nb = cfg.n_blocks
-        if layer >= nb * period:
-            return None             # a remainder layer: not stacked
-        block = layer // period
-    elif parts[0] == "encoder" and parts[1] == "layers":
-        nb, block = cfg.encoder.n_layers, int(parts[2])
-    else:
-        return None
-    if nb % n_data:
-        return None
-    if name in _EXPERTS:
-        E = cfg.moe.n_experts
-        f = cfg.moe.d_ff_expert
-        if E % mesh.size("model") or (expert_mode == "ep2d" and f % n_data == 0):
-            return None
-    elif name not in _FSDP_NAMES:
-        return None
-    return block, nb
+    another dim there (``sharding.Layout``'s "owner" leaves)."""
+    coords = tuple(mesh.index(a) for a in mesh.axis_names)
+    owners = _fsdp_owners(cfg, tuple(mesh.shape.values()), mesh.axis_names, coords,
+                          expert_mode)
+    return shlib.jax_stacking(cfg, path) if path in owners else None
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_owners(cfg, shape, axes, coords, expert_mode):
+    lay = shlib.Layout(cfg, RecordingMesh(shape, axes, coords),
+                       expert_mode=expert_mode, fsdp=True)
+    return frozenset(lf.path for lf in lay.leaves if lf.held == "owner")
 
 
 def place_params(cfg: ModelConfig, mesh, *, expert_mode="ep", fsdp=False,
                  moe_impl="baseline"):
-    """(held, assemble, on_block): the meta tensors this rank holds as
-    arguments (a tree of the params' structure; None for a leaf it holds
-    no block of), a function that turns them into the tree the model code
-    reads (the "ep" rules' blocks) inside the counted program, and the
-    paths of the leaves JAX fsdp splits on their block dim."""
-    full = init_params(cfg, dtype=DTYPE, device=META)
-    specs = dict(shlib.named_specs(shlib.param_specs(
-        cfg, full, mesh, expert_mode=expert_mode, fsdp=fsdp)))
-    ep = dict(shlib.named_specs(shlib.param_specs(cfg, full, mesh)))
-    dt = data_axes(mesh)
-    i_data = mesh.index(dt)
-    held = _copy(full)
-    todo, on_block = [], []
-    e_shard = None
-    if moe_impl in ("m2n", "m2n2d") and cfg.moe is not None:
-        # m2n's expert shard (core.m2n.expert_shard): its experts, and under
-        # weights_2d its data rank's block of their d_ff
-        n_data = mesh.size(dt) if moe_impl == "m2n2d" else 1
-        e_shard = m2n.expert_shard(
-            {k: v for k, v in full["layers"][0].items() if k in _EXPERTS}, cfg.moe,
-            mesh.size("model"), mesh.index("model"), n_data=n_data,
-            i=i_data if n_data > 1 else 0)
-        e_shard = {k: tuple(v.shape) for k, v in e_shard.items()}
-    for path, t in _paths(full):
-        spec, want = specs[path], ep[path]
-        name = path.split("/")[-1]
-        if e_shard is not None and name in _EXPERTS:
-            _set(held, path, torch.empty(e_shard[name], dtype=t.dtype, device=META))
-            continue
-        blk = jax_block_dim(cfg, path, mesh, expert_mode) if fsdp else None
-        if blk is not None:
-            on_block.append(path)
-            block, nb = blk
-            mine = block // (nb // mesh.size(dt)) == i_data
-            _set(held, path, shlib.local_shard(t, want, mesh) if mine else None)
-            todo.append((path, tuple(shlib.local_shard(t, want, mesh).shape), t.dtype))
-        elif spec != want:
-            _set(held, path, shlib.local_shard(t, spec, mesh))
-            todo.append((path, tuple(shlib.local_shard(t, want, mesh).shape), t.dtype))
-        else:
-            _set(held, path, shlib.local_shard(t, spec, mesh))
-
-    def assemble(held):
-        out = _copy(held) if todo else held
-        for path, shape, dtype in todo:
-            # each data rank's block in a zero-filled tensor, summed over them
-            t = torch.zeros(shape, dtype=dtype, device=META)
-            _set(out, path, mesh.all_reduce(t, dt))
-        return out
-
-    return held, assemble, on_block
+    """(held, assemble, on_block) of a serving record: the meta tensors
+    this rank holds as arguments (a tree of the params' structure, empty
+    for a leaf another data rank holds), a function that turns them into
+    the tree the model code reads (the "ep" rules' blocks, m2n's expert
+    shard) inside the counted program, and the paths of the leaves JAX
+    fsdp splits on their block dim (``sharding.Layout``)."""
+    lay = shlib.Layout(cfg, mesh, expert_mode=expert_mode, fsdp=fsdp,
+                       moe_impl=moe_impl)
+    held = lay.place_tree(init_params(cfg, dtype=DTYPE, device=META))
+    on_block = [lf.path for lf in lay.leaves if lf.held == "owner"]
+    return held, lay.use_all, on_block
 
 
 def _nbytes(t) -> int:
@@ -337,47 +269,58 @@ def _rows(t, mesh):
 def build(cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, *,
           moe_impl: str = "baseline", remat: str = "full",
           expert_mode: str = "ep", fsdp: bool = False,
-          moments: str = "float32"):
+          moments: str = "float32", seq_parallel: bool = False):
     """(program, args, on_block): ``program(*args)`` runs one rank's pass
     on meta tensors and returns its outputs; ``args`` are the rank's
-    arguments."""
+    arguments.  Raises where the JAX dry run fails."""
     B, S = shape_cfg.global_batch, shape_cfg.seq_len
-    held, assemble, on_block = place_params(cfg, mesh, expert_mode=expert_mode,
-                                            fsdp=fsdp, moe_impl=moe_impl)
+    if moe_impl == "m2n2d" and cfg.moe is not None:
+        check_m2n2d(cfg, mesh)
     extras = stubs.extra_input_specs(cfg, B, DTYPE)
     keys = tuple(extras)
     dt = data_axes(mesh)
-
-    def ctx():
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.no_grad())
-        stack.enter_context(parallel.ModelParallel(mesh, batch=B).install())
-        if moe_impl in ("m2n", "m2n2d"):
-            stack.enter_context(m2n.use_m2n(mesh=mesh, data_axes=dt,
-                                            expert_axis="model",
-                                            weights_2d=moe_impl == "m2n2d"))
-        return stack
-
     if shape_cfg.kind == "train":
-        params = held
+        # JAX's train record: its moments under zero_extend, but for the
+        # default flags' layout, whose records stay as they were
+        default = (expert_mode, fsdp, moe_impl, seq_parallel) == ("ep", False,
+                                                                  "baseline", False)
+        step = make_train_step(cfg, AdamWConfig(moment_dtype=moments), remat=remat,
+                               extras_keys=keys, mesh=mesh, expert_mode=expert_mode,
+                               fsdp=fsdp, zero=not default, moe_impl=moe_impl,
+                               seq_parallel=seq_parallel)
+        lay = step.layout
+        params = lay.place_tree(init_params(cfg, dtype=DTYPE, device=META))
         for p in leaves(params):
             p.requires_grad_(True)
-        opt = init_opt_state(params, getattr(torch, moments))
+        opt = lay.init_opt_state(params, getattr(torch, moments))
         tokens = torch.empty((B, S + 1), dtype=torch.int32, device=META)
-        step = make_train_step(cfg, AdamWConfig(moment_dtype=moments), remat=remat,
-                               extras_keys=keys, mesh=mesh)
+        on_block = [lf.path for lf in lay.leaves if lf.held == "owner"]
 
         def program(params, opt, tokens, *ex):
             return step(params, opt, tokens, *ex)
 
         return program, (params, opt, tokens, *(extras[k] for k in keys)), on_block
 
+    held, assemble, on_block = place_params(cfg, mesh, expert_mode=expert_mode,
+                                            fsdp=fsdp, moe_impl=moe_impl)
+
+    def ctx(sp=False):
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(parallel.ModelParallel(mesh, batch=B,
+                                                   seq_parallel=sp).install())
+        if moe_impl in ("m2n", "m2n2d"):
+            stack.enter_context(m2n.use_m2n(mesh=mesh, data_axes=dt,
+                                            expert_axis="model",
+                                            weights_2d=moe_impl == "m2n2d"))
+        return stack
+
     local_extras = {k: _rows(v, mesh) for k, v in extras.items()}
     if shape_cfg.kind == "prefill":
         tokens = _rows(torch.empty((B, S), dtype=torch.int32, device=META), mesh)
 
         def program(held, tokens, *ex):
-            with ctx():
+            with ctx(seq_parallel):
                 return prefill(assemble(held), cfg, tokens, max_seq=S,
                                **dict(zip(keys, ex)))
 
@@ -455,7 +398,7 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, moe_impl="baseline",
         else:
             rec = _run(cfg, shape_cfg, mesh, base, n_chips, moe_impl=moe_impl,
                        remat=remat, expert_mode=expert_mode, fsdp=fsdp,
-                       moments=moments, verbose=verbose)
+                       moments=moments, seq_parallel=seq_parallel, verbose=verbose)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         tag = _tag(arch, shape, multi_pod, moe_impl, remat, expert_mode, fsdp,
@@ -466,11 +409,12 @@ def run_one(arch: str, shape: str, multi_pod: bool, *, moe_impl="baseline",
 
 
 def _run(cfg, shape_cfg, mesh, base, n_chips, *, moe_impl, remat, expert_mode,
-         fsdp, moments, verbose):
+         fsdp, moments, seq_parallel, verbose):
     t0 = time.perf_counter()
     program, args, on_block = build(cfg, shape_cfg, mesh, moe_impl=moe_impl,
                                     remat=remat, expert_mode=expert_mode,
-                                    fsdp=fsdp, moments=moments)
+                                    fsdp=fsdp, moments=moments,
+                                    seq_parallel=seq_parallel)
     t_lower = time.perf_counter() - t0
     t0 = time.perf_counter()
     cost, mem, coll, by_axes = measure(program, args, mesh)

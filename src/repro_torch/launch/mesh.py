@@ -73,11 +73,60 @@ class ProcessMesh:
     def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over ``axes``' group by ``op`` ("sum" or
         "max"; nothing to do when the group is this rank alone); returns
-        ``t``.  Every collective of the model code goes through here."""
+        ``t``.  Every collective of the model code goes through here or
+        through ``all_gather`` / ``reduce_scatter``."""
         g = self.group(axes)
         if g is not None:
             dist.all_reduce(t, op=REDUCE_OPS[op], group=g)
         return t
+
+    def all_gather(self, t: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` of ``axes``' group concatenated along ``dim``
+        in the order of ``index(axes)`` (a new tensor; ``t`` itself where
+        the group is this rank alone).  Over NCCL it is
+        ``all_gather_into_tensor``; over gloo, whose CUDA collectives are
+        ``all_reduce`` / ``broadcast`` only, each rank's block in a
+        zero-filled tensor, summed.  The backend picks the branch: a
+        failed collective is not retried the other way."""
+        g = self.group(axes)
+        if g is None:
+            return t
+        n, i = self.size(axes), self.index(axes)
+        dim = dim % t.ndim
+        if dist.get_backend(g) == "nccl":
+            src = t.movedim(dim, 0).contiguous()
+            out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+            dist.all_gather_into_tensor(out, src, group=g)
+            return out.movedim(0, dim).contiguous()
+        shape = list(t.shape)
+        b, shape[dim] = shape[dim], n * shape[dim]
+        out = t.new_zeros(shape)
+        out.narrow(dim, i * b, b).copy_(t)
+        dist.all_reduce(out, group=g)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """The sum over ``axes``' group of every rank's ``t``, this rank's
+        block of it along ``dim`` (``t.shape[dim]`` split into ``size(axes)``
+        equal blocks, in the order of ``index(axes)``): a new tensor.  Over
+        NCCL ``reduce_scatter_tensor``; over gloo an ``all_reduce`` of a
+        copy, then the rank's block."""
+        g = self.group(axes)
+        if g is None:
+            return t.clone(memory_format=torch.contiguous_format)
+        n, i = self.size(axes), self.index(axes)
+        dim = dim % t.ndim
+        if t.shape[dim] % n:
+            raise ValueError(f"a dim of {t.shape[dim]} does not split over {n} ranks")
+        b = t.shape[dim] // n
+        if dist.get_backend(g) == "nccl":
+            src = t.movedim(dim, 0).contiguous()
+            out = src.new_empty((b,) + tuple(src.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, group=g)
+            return out.movedim(0, dim).contiguous()
+        full = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(full, group=g)
+        return full.narrow(dim, i * b, b).contiguous()
 
 
 REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -88,11 +137,13 @@ class RecordingMesh(ProcessMesh):
     rank and no process group: "16x16" is (16, 16) over ("data", "model")
     and "2x16x16" (2, 16, 16) over ("pod", "data", "model"), the JAX
     package's axis names.  ``coords`` is the rank's coordinate on each
-    axis (0 by default).  Its ``all_reduce`` returns its input unchanged
-    and records the bytes of the tensor it was given, by collective kind
-    ("all-reduce" for a sum, "all-reduce-max") and by the axes it ran
-    over: what one rank's program sends, which the dry run reads where
-    the JAX package parses its compiled HLO.  ``group`` returns a
+    axis (0 by default).  Its ``all_reduce`` returns its input unchanged,
+    ``all_gather`` / ``reduce_scatter`` a tensor of their result's shape,
+    and each records its bytes (the larger of operand and result, the
+    JAX roofline's rule) by collective kind ("all-reduce" for a sum,
+    "all-reduce-max", "all-gather", "reduce-scatter") and by the axes it
+    ran over: what one rank's program sends, which the dry run reads
+    where the JAX package parses its compiled HLO.  ``group`` returns a
     ``RecordedGroup`` of the axes, for the code that takes a group."""
 
     SHAPES = {"16x16": ((16, 16), ("data", "model")),
@@ -128,15 +179,45 @@ class RecordingMesh(ProcessMesh):
         axes = self._axes(axes)
         return None if self.size(axes) == 1 else RecordedGroup(self, axes)
 
+    def _record(self, kind: str, axes, nbytes: int):
+        key = (kind, "+".join(axes))
+        self.bytes[key] = self.bytes.get(key, 0) + nbytes
+        self.calls[key] = self.calls.get(key, 0) + 1
+
     def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum") -> torch.Tensor:
         axes = self._axes(axes)
         if op not in REDUCE_OPS:
             raise ValueError(f"no reduction {op!r}")
         if self.size(axes) > 1:
-            key = ("all-reduce" if op == "sum" else f"all-reduce-{op}", "+".join(axes))
-            self.bytes[key] = self.bytes.get(key, 0) + t.numel() * t.element_size()
-            self.calls[key] = self.calls.get(key, 0) + 1
+            self._record("all-reduce" if op == "sum" else f"all-reduce-{op}", axes,
+                         t.numel() * t.element_size())
         return t
+
+    def all_gather(self, t: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """A tensor of the gathered shape (this rank's ``t`` repeated),
+        recorded as "all-gather" at the larger of operand and result, the
+        result (the JAX roofline's rule)."""
+        axes, n = self._axes(axes), self.size(axes)
+        if n == 1:
+            return t
+        out = torch.cat([t] * n, dim=dim)
+        self._record("all-gather", axes, out.numel() * out.element_size())
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim``, recorded as
+        "reduce-scatter" at the larger of operand and result, the
+        operand."""
+        axes, n = self._axes(axes), self.size(axes)
+        dim = dim % t.ndim
+        if n == 1:
+            return t.clone(memory_format=torch.contiguous_format)
+        if t.shape[dim] % n:
+            raise ValueError(f"a dim of {t.shape[dim]} does not split over {n} ranks")
+        b = t.shape[dim] // n
+        self._record("reduce-scatter", axes, t.numel() * t.element_size())
+        return t.narrow(dim, self.index(axes) * b, b).clone(
+            memory_format=torch.contiguous_format)
 
     def bytes_by_kind(self) -> dict:
         out = {}

@@ -10,7 +10,8 @@ takes its rows of it, the MoE layers dispatch over the global batch
 and the gradients are averaged before the update.  A model axis above
 1 makes the layers tensor- and expert-parallel over it: each rank keeps
 its blocks of the params under ``launch.sharding``'s "ep" rules
-(``training.loop.make_train_step``'s ``mesh``).  As in the JAX
+(``training.loop.make_train_step``'s ``mesh``), each leaf cut to them as
+soon as it is drawn (``init_params``' ``place``).  As in the JAX
 launcher, no flag sets the grid: callers pass ``mesh_shape`` to
 ``run``.  The ranks check that they made the same params and batches
 (the same blocks over the data axes, the same replicated leaves and
@@ -85,11 +86,14 @@ def run(arch: str, *, use_reduced: bool, steps: int, batch: int, seq: int,
         cfg, AdamWConfig(lr=lr, warmup_steps=max(2, steps // 10),
                          total_steps=steps),
         remat=remat, extras_keys=extras_keys, mesh=mesh)
-    params = init_params(cfg, seed, getattr(torch, dtype), device=dev)
     specs = None
     if mesh is not None:
-        specs = sharding.param_specs(cfg, params, mesh)
-        params = sharding.shard_tree(params, specs, mesh)
+        # each leaf cut to the rank's block as soon as it is drawn
+        specs = sharding.param_specs(cfg, init_params(cfg, device="meta"), mesh)
+        params = init_params(cfg, seed, getattr(torch, dtype), device=dev,
+                             place=step_fn.layout.place)
+    else:
+        params = init_params(cfg, seed, getattr(torch, dtype), device=dev)
     for p in leaves(params):
         p.requires_grad_(True)
     opt_state = init_opt_state(params)

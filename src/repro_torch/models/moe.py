@@ -232,19 +232,22 @@ def experts_combine(params: dict, x: torch.Tensor, idx_buf: torch.Tensor,
     expert's block of d_ff (where E does not divide), the rank runs its
     experts' buffers or its d_ff block; x and the gates enter the rank's
     region (the gates' gradient is then the whole one on every rank) and
-    the f32 partial combines are summed over the axis."""
+    the f32 partial combines are summed over the axis.  Inside a
+    sequence-parallel region the output is the rank's block of the
+    sequence (``ModelParallel.reduce_act``, ``parallel.seq_block``)."""
     mp = parallel.current() if cfg is not None else None
     if mp is not None:
         ex = mp.block(cfg.n_experts, params["we1"].shape[0])
         ff = mp.block(cfg.d_ff_expert, params["we1"].shape[2])
         if ex is not None or ff is not None:
             # the whole (replicated) gates enter, then the rank takes its rows
-            xm, gate_buf = mp.enter(x), mp.enter(gate_buf)
+            xm, gate_buf = mp.enter_seq(x), mp.enter(gate_buf)
             if ex is not None:
                 idx_buf, gate_buf = idx_buf[ex], gate_buf[ex]
             y = _expert_mlp_combine(params, xm, idx_buf, gate_buf, act)
-            return mp.reduce(y).to(x.dtype)
-    return _expert_mlp_combine(params, x, idx_buf, gate_buf, act).to(x.dtype)
+            return mp.reduce_act(y).to(x.dtype)
+    y = _expert_mlp_combine(params, x, idx_buf, gate_buf, act)
+    return parallel.seq_block(y).to(x.dtype)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
@@ -272,7 +275,7 @@ def add_dense_extras(params: dict, h: torch.Tensor, y: torch.Tensor,
         shared = gated_ffn(h, params["ws1"], params["ws3"], params["ws2"], act,
                            cfg.d_ff_shared if cfg is not None else None)
         g = torch.sigmoid(h.float() @ params["shared_gate"].float())
-        y = y + (g[:, None] * shared.float()).to(h.dtype)
+        y = y + (parallel.seq_block(g)[:, None] * shared.float()).to(h.dtype)
     if "wd1" in params:
         y = y + gated_ffn(h, params["wd1"], params["wd3"], params["wd2"], act,
                           cfg.d_ff_dense_residual if cfg is not None else None)

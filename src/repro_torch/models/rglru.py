@@ -118,7 +118,7 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: RGLRUConfig, act_gelu,
     the state holds the rank's channels."""
     mp = _model_axis(params, cfg)
     if mp is not None:
-        x = mp.enter(x)
+        x = mp.enter_seq(x)
     u = x @ params["w_in_x"]                 # (B, T, W) recurrent branch
     g = x @ params["w_in_gate"]              # (B, T, W) gate branch
     cache = state["conv"] if state is not None else None
@@ -127,8 +127,7 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: RGLRUConfig, act_gelu,
     u_all = mp.enter_gather(u, -1) if mp is not None else None
     h, h_last = rglru_scan(u, params, cfg, h0, u_all)
     y = (act_gelu(g) * h) @ params["w_out"]
-    if mp is not None:
-        y = mp.reduce(y)
+    y = parallel.seq_block(y) if mp is None else mp.reduce_act(y)
     return y, {"h": h_last, "conv": new_conv}
 
 

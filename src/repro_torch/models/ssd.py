@@ -166,7 +166,7 @@ def _project(params: dict, x: torch.Tensor, sh: _Shards) -> torch.Tensor:
     block gathered where the rule splits the columns)."""
     if sh.proj is None:
         return sh.mp.enter(x @ params["in_proj"])
-    return sh.mp.enter_gather(sh.mp.enter(x) @ params["in_proj"], -1)
+    return sh.mp.enter_gather(sh.mp.enter_seq(x) @ params["in_proj"], -1)
 
 
 def _conv_weight(params: dict, sh: _Shards) -> torch.Tensor:
@@ -204,7 +204,7 @@ def _gated_norm(params: dict, y: torch.Tensor, zg: torch.Tensor,
 
 def _out(params: dict, y: torch.Tensor, sh: Optional[_Shards]) -> torch.Tensor:
     y = y @ params["out_proj"]
-    return y if sh is None else sh.mp.reduce(y)
+    return parallel.seq_block(y) if sh is None else sh.mp.reduce_act(y)
 
 
 def ssd_block(params: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,

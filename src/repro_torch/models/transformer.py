@@ -41,6 +41,7 @@ only read by decode.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Optional
 
@@ -65,124 +66,152 @@ from repro_torch.models.ssd import ssd_block, ssd_block_step
 # ---------------------------------------------------------------------------
 
 
-def _init_ffn(gen, cfg: ModelConfig, dtype, device) -> dict:
+def _maker(gen, dtype, device, keep):
+    """(init, zeros): a named leaf drawn (``dense_init``) or made zero,
+    handed to ``keep(name, tensor)`` as soon as it exists."""
+    init = lambda name, shape, dt=dtype, **kw: keep(
+        name, dense_init(gen, shape, dt, device, **kw))
+    zeros = lambda name, n, dt=dtype: keep(
+        name, torch.zeros(n, dtype=dt, device=device))
+    return init, zeros
+
+
+def _init_ffn(gen, cfg: ModelConfig, dtype, device, keep) -> dict:
     d = cfg.d_model
-    init = lambda shape, dt=dtype, **kw: dense_init(gen, shape, dt, device, **kw)
+    init, _ = _maker(gen, dtype, device, keep)
     if cfg.moe is not None:
         m = cfg.moe
         p = {
-            "router": init((d, m.n_experts), torch.float32),   # router stays f32
-            "we1": init((m.n_experts, d, m.d_ff_expert)),
-            "we3": init((m.n_experts, d, m.d_ff_expert)),
-            "we2": init((m.n_experts, m.d_ff_expert, d)),
+            "router": init("router", (d, m.n_experts), torch.float32),  # stays f32
+            "we1": init("we1", (m.n_experts, d, m.d_ff_expert)),
+            "we3": init("we3", (m.n_experts, d, m.d_ff_expert)),
+            "we2": init("we2", (m.n_experts, m.d_ff_expert, d)),
         }
         if m.n_shared_experts:
-            p.update({"ws1": init((d, m.d_ff_shared)),
-                      "ws3": init((d, m.d_ff_shared)),
-                      "ws2": init((m.d_ff_shared, d)),
-                      "shared_gate": init((d,), torch.float32, scale=0.02)})
+            p.update({"ws1": init("ws1", (d, m.d_ff_shared)),
+                      "ws3": init("ws3", (d, m.d_ff_shared)),
+                      "ws2": init("ws2", (m.d_ff_shared, d)),
+                      "shared_gate": init("shared_gate", (d,), torch.float32,
+                                          scale=0.02)})
         if m.d_ff_dense_residual:
-            p.update({"wd1": init((d, m.d_ff_dense_residual)),
-                      "wd3": init((d, m.d_ff_dense_residual)),
-                      "wd2": init((m.d_ff_dense_residual, d))})
+            p.update({"wd1": init("wd1", (d, m.d_ff_dense_residual)),
+                      "wd3": init("wd3", (d, m.d_ff_dense_residual)),
+                      "wd2": init("wd2", (m.d_ff_dense_residual, d))})
         return p
-    return {"w1": init((d, cfg.d_ff)), "w3": init((d, cfg.d_ff)),
-            "w2": init((cfg.d_ff, d))}
+    return {"w1": init("w1", (d, cfg.d_ff)), "w3": init("w3", (d, cfg.d_ff)),
+            "w2": init("w2", (cfg.d_ff, d))}
 
 
-def _init_attn_proj(gen, cfg: ModelConfig, dtype, device, prefix="") -> dict:
+def _init_attn_proj(gen, cfg: ModelConfig, dtype, device, keep, prefix="") -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    init = lambda shape: dense_init(gen, shape, dtype, device)
-    return {prefix + "wq": init((d, cfg.n_heads * hd)),
-            prefix + "wk": init((d, cfg.n_kv_heads * hd)),
-            prefix + "wv": init((d, cfg.n_kv_heads * hd)),
-            prefix + "wo": init((cfg.n_heads * hd, d))}
+    init, _ = _maker(gen, dtype, device, keep)
+    names = ("wq", "wk", "wv", "wo")
+    shapes = ((d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+              (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d))
+    return {prefix + n: init(prefix + n, shape) for n, shape in zip(names, shapes)}
 
 
-def init_layer_params(gen, kind: str, cfg: ModelConfig, dtype, device) -> dict:
+def init_layer_params(gen, kind: str, cfg: ModelConfig, dtype, device,
+                      keep=None) -> dict:
     """One layer of ``kind``: the JAX package's leaves, shapes and dtypes
     (norms zero, gates zero, the RG-LRU gate matrices and the SSD head
-    parameters in f32), drawn from ``gen``."""
+    parameters in f32), drawn from ``gen``.  ``keep(name, tensor)``: what
+    the layer keeps of each leaf as soon as it is made (``init_params``'
+    ``place``)."""
+    keep = keep or (lambda name, t: t)
     d = cfg.d_model
-    init = lambda shape, dt=dtype, **kw: dense_init(gen, shape, dt, device, **kw)
-    zeros = lambda n, dt=dtype: torch.zeros(n, dtype=dt, device=device)
-    p = {"ln1": zeros(d), "ln2": zeros(d)}
-    if cfg.use_post_norm:
-        p["ln1_post"] = zeros(d)
-        p["ln2_post"] = zeros(d)
+    init, zeros = _maker(gen, dtype, device, keep)
+    if kind == "ssd":
+        p = {"ln1": zeros("ln1", d)}
+    else:
+        p = {"ln1": zeros("ln1", d), "ln2": zeros("ln2", d)}
+        if cfg.use_post_norm:
+            p["ln1_post"] = zeros("ln1_post", d)
+            p["ln2_post"] = zeros("ln2_post", d)
     if kind in ("attn", "local"):
-        p.update(_init_attn_proj(gen, cfg, dtype, device))
-        p.update(_init_ffn(gen, cfg, dtype, device))
+        p.update(_init_attn_proj(gen, cfg, dtype, device, keep))
+        p.update(_init_ffn(gen, cfg, dtype, device, keep))
     elif kind == "cross":          # llama-3.2-vision gated cross-attention
-        p.update(_init_attn_proj(gen, cfg, dtype, device))
-        p.update(_init_ffn(gen, cfg, dtype, device))
-        p["ln_kv"] = zeros(d)
-        p["gate_attn"] = zeros((), torch.float32)
-        p["gate_ffn"] = zeros((), torch.float32)
+        p.update(_init_attn_proj(gen, cfg, dtype, device, keep))
+        p.update(_init_ffn(gen, cfg, dtype, device, keep))
+        p["ln_kv"] = zeros("ln_kv", d)
+        p["gate_attn"] = zeros("gate_attn", (), torch.float32)
+        p["gate_ffn"] = zeros("gate_ffn", (), torch.float32)
     elif kind == "selfcross":      # whisper decoder layer
-        p.update(_init_attn_proj(gen, cfg, dtype, device))
-        p.update(_init_attn_proj(gen, cfg, dtype, device, prefix="c_"))
-        p.update(_init_ffn(gen, cfg, dtype, device))
-        p["ln_cross"] = zeros(d)
+        p.update(_init_attn_proj(gen, cfg, dtype, device, keep))
+        p.update(_init_attn_proj(gen, cfg, dtype, device, keep, prefix="c_"))
+        p.update(_init_ffn(gen, cfg, dtype, device, keep))
+        p["ln_cross"] = zeros("ln_cross", d)
     elif kind == "rglru":
         r = cfg.rglru
         w = r.lru_width
         p.update({
-            "w_in_x": init((d, w)),
-            "w_in_gate": init((d, w)),
-            "conv_w": init((r.conv_width, w), scale=0.5),
-            "w_a": init((w, w), torch.float32),
-            "b_a": zeros(w, torch.float32),
-            "w_x": init((w, w), torch.float32),
-            "b_x": zeros(w, torch.float32),
-            "lam": torch.full((w,), 0.5, dtype=torch.float32, device=device),
-            "w_out": init((w, d)),
+            "w_in_x": init("w_in_x", (d, w)),
+            "w_in_gate": init("w_in_gate", (d, w)),
+            "conv_w": init("conv_w", (r.conv_width, w), scale=0.5),
+            "w_a": init("w_a", (w, w), torch.float32),
+            "b_a": zeros("b_a", w, torch.float32),
+            "w_x": init("w_x", (w, w), torch.float32),
+            "b_x": zeros("b_x", w, torch.float32),
+            "lam": keep("lam", torch.full((w,), 0.5, dtype=torch.float32,
+                                          device=device)),
+            "w_out": init("w_out", (w, d)),
         })
-        p.update(_init_ffn(gen, cfg, dtype, device))
+        p.update(_init_ffn(gen, cfg, dtype, device, keep))
     elif kind == "ssd":
         s = cfg.ssm
         di, h, n = s.d_inner(d), s.n_heads(d), s.d_state
         lin = lambda a, b: torch.linspace(a, b, h, dtype=torch.float32,
                                           device=device)
-        p = {"ln1": zeros(d),
-             "in_proj": init((d, 2 * di + 2 * n + h)),
-             "conv_w": init((s.conv_width, di + 2 * n), scale=0.5),
-             "dt_bias": torch.log(torch.expm1(lin(1e-3, 0.1))),
-             "A_log": torch.log(lin(1.0, 16.0)),
-             "D": torch.ones(h, dtype=torch.float32, device=device),
-             "norm": zeros(di),
-             "out_proj": init((di, d))}
+        p = {"ln1": p["ln1"],
+             "in_proj": init("in_proj", (d, 2 * di + 2 * n + h)),
+             "conv_w": init("conv_w", (s.conv_width, di + 2 * n), scale=0.5),
+             "dt_bias": keep("dt_bias", torch.log(torch.expm1(lin(1e-3, 0.1)))),
+             "A_log": keep("A_log", torch.log(lin(1.0, 16.0))),
+             "D": keep("D", torch.ones(h, dtype=torch.float32, device=device)),
+             "norm": zeros("norm", di),
+             "out_proj": init("out_proj", (di, d))}
     else:
         raise ValueError(kind)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device="cuda") -> dict:
+                device="cuda", place=None) -> dict:
     """Random weights from ``seed`` (truncated-normal fan-in init; norms
     zero, since RMSNorm scales by 1 + scale).  Draws with a
     ``torch.Generator`` on ``device``, so the weights never cross the
     host link.  ``device="meta"`` gives the tree's shapes and dtypes
-    only, allocating and drawing nothing."""
+    only, allocating and drawing nothing.
+
+    ``place(path, tensor)``: what the tree keeps of each leaf (a rank's
+    block: ``launch.sharding.Layout.place``), called as soon as the leaf
+    is drawn, so only one whole leaf lives at a time; the values are the
+    seed's whatever ``place`` keeps."""
     if torch.device(device).type == "meta":
         dev, gen = torch.device("meta"), None
     else:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+    keeper = lambda prefix: ((lambda name, t: place(prefix + name, t)) if place
+                             else (lambda name, t: t))
+    init, zeros = _maker(gen, dtype, dev, keeper(""))
     d = cfg.d_model
-    params = {"embed": dense_init(gen, (cfg.vocab, d), dtype, dev, scale=0.02),
-              "final_norm": torch.zeros(d, dtype=dtype, device=dev)}
+    params = {"embed": init("embed", (cfg.vocab, d), scale=0.02),
+              "final_norm": zeros("final_norm", d)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (d, cfg.vocab), dtype, dev)
-    params["layers"] = [init_layer_params(gen, kind, cfg, dtype, dev)
-                        for kind in cfg.layer_kinds]
+        params["lm_head"] = init("lm_head", (d, cfg.vocab))
+    params["layers"] = [init_layer_params(gen, kind, cfg, dtype, dev,
+                                          keeper(f"layers/{i}/"))
+                        for i, kind in enumerate(cfg.layer_kinds)]
     if cfg.encoder is not None:
+        e_init, e_zeros = _maker(gen, dtype, dev, keeper("encoder/"))
         params["encoder"] = {
-            "layers": [init_layer_params(gen, "attn", cfg, dtype, dev)
-                       for _ in range(cfg.encoder.n_layers)],
-            "pos_embed": dense_init(gen, (cfg.encoder.source_len, d), dtype, dev,
-                                    scale=0.02),
-            "final_norm": torch.zeros(d, dtype=dtype, device=dev)}
+            "layers": [init_layer_params(gen, "attn", cfg, dtype, dev,
+                                         keeper(f"encoder/layers/{i}/"))
+                       for i in range(cfg.encoder.n_layers)],
+            "pos_embed": e_init("pos_embed", (cfg.encoder.source_len, d), scale=0.02),
+            "final_norm": e_zeros("final_norm", d)}
     return params
 
 
@@ -250,20 +279,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def _maybe_post(p, name, y, cfg):
-    return rms_norm(y, p[name]) if cfg.use_post_norm else y
+    return rms_norm(y, parallel.seq_weight(p[name])) if cfg.use_post_norm else y
+
+
+def _normed(x, scale):
+    """The sublayer input: ``rms_norm(x, scale)`` of this rank's block of
+    the sequence gathered whole inside a sequence-parallel region
+    (``parallel.seq_full``), else of x."""
+    return parallel.seq_full(rms_norm(x, parallel.seq_weight(scale)))
 
 
 def _ffn_sublayer(p, x, cfg: ModelConfig, capacity_mode: str,
                   with_aux: bool = False):
     """x: (B, T, d) -> (delta, aux).  aux: the MoE load-balance loss
     with ``with_aux``, else (and for a dense FFN) None."""
-    B, T, d = x.shape
-    h = rms_norm(x, p["ln2"])
+    h = _normed(x, p["ln2"])
+    B, T, d = h.shape
     aux = None
     if cfg.moe is not None:
         y, aux = moe_ffn(p, h.reshape(B * T, d), cfg.moe, cfg.act,
                          capacity_mode, with_aux=with_aux)
-        y = y.reshape(B, T, d)
+        y = y.reshape(B, -1, d)
     else:
         y = gated_ffn(h, p["w1"], p["w3"], p["w2"], cfg.act, cfg.d_ff)
     return _maybe_post(p, "ln2_post", y, cfg), aux
@@ -299,7 +335,7 @@ def _qkv(p, h, cfg: ModelConfig, source=None, prefix: str = ""):
         return ((h @ wq).reshape(B, T, H, hd),
                 (src @ wk).reshape(B, S, Hkv, hd),
                 (src @ wv).reshape(B, S, Hkv, hd))
-    x = mp.enter(h)
+    x = mp.enter_seq(h)
     xs = x if source is None else mp.enter(source)
     if H % mp.size:
         wq = mp.enter_gather(wq, 1)
@@ -324,10 +360,10 @@ def _out_proj(p, out, cfg: ModelConfig, name: str = "wo"):
     mp = parallel.current()
     rows = mp.block(H * hd, wo.shape[0]) if mp is not None else None
     if rows is None:
-        return out @ wo
+        return parallel.seq_block(out @ wo)
     if out.shape[-1] != wo.shape[0]:
         out = out[..., rows]
-    return mp.reduce(out @ wo)
+    return mp.reduce_act(out @ wo)
 
 
 def _every_head(p, h, cfg: ModelConfig, names, prefix: str = ""):
@@ -412,9 +448,11 @@ def _self_attn_sublayer(p, x, cfg: ModelConfig, positions, *, causal: bool = Tru
     """Returns (delta, cache entry of ring width ``cache_len`` or None).
     ``causal=False`` (the whisper encoder): no RoPE (the encoder adds a
     learned position embedding) and every key attended.  Under a model
-    axis the entry is this rank's block of the ring (``_ring_layout``)."""
-    B, T, _ = x.shape
-    q, k, v = _qkv(p, rms_norm(x, p["ln1"]), cfg)
+    axis the entry is this rank's block of the ring (``_ring_layout``).
+    Inside a sequence-parallel region x is this rank's block of the
+    sequence, and so is the delta."""
+    B, T = positions.shape
+    q, k, v = _qkv(p, _normed(x, p["ln1"]), cfg)
     if causal:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -453,9 +491,9 @@ def _cross_sublayer(p, x, cfg: ModelConfig, source, ln: str, prefix: str,
     None): under a model axis the rank's heads (``_qkv``) and its block of
     the source's K / V (``_kv_layout``: its kv heads, its slots or the
     whole source)."""
-    B, T, _ = x.shape
     src = rms_norm(source, p["ln_kv"]) if "ln_kv" in p else source
-    q, k, v = _qkv(p, rms_norm(x, p[ln]), cfg, source=src, prefix=prefix)
+    q, k, v = _qkv(p, _normed(x, p[ln]), cfg, source=src, prefix=prefix)
+    B, T = q.shape[:2]
     n_q = q.shape[2]
     out = attn_lib.cross_attention(q, _rank_kv(k, cfg, n_q), _rank_kv(v, cfg, n_q))
     delta = _out_proj(p, out.reshape(B, T, -1), cfg, prefix + "wo")
@@ -498,9 +536,9 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         x = x + dff
     elif kind == "cross":
         delta, cache = _cross_sublayer(p, x, cfg, source, "ln1", "", build_cache)
-        x = x + _gated(p["gate_attn"], delta, x.dtype)
+        x = x + _gated(parallel.seq_weight(p["gate_attn"]), delta, x.dtype)
         dff, aux = ffn(p, x)
-        x = x + _gated(p["gate_ffn"], dff, x.dtype)
+        x = x + _gated(parallel.seq_weight(p["gate_ffn"]), dff, x.dtype)
     elif kind == "selfcross":
         delta, cache = _self_attn_sublayer(
             p, x, cfg, positions, build_cache=build_cache, cache_len=max_seq)
@@ -513,13 +551,13 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         if build_cache:
             cache = dict(cache, **src_cache)
     elif kind == "rglru":
-        y, state = rglru_block(p, rms_norm(x, p["ln1"]), cfg.rglru, _gelu, None)
+        y, state = rglru_block(p, _normed(x, p["ln1"]), cfg.rglru, _gelu, None)
         x = x + y
         dff, aux = ffn(p, x)
         x = x + dff
         cache = state if build_cache else None
     elif kind == "ssd":
-        y, state = ssd_block(p, rms_norm(x, p["ln1"]), cfg.ssm, cfg.d_model, None)
+        y, state = ssd_block(p, _normed(x, p["ln1"]), cfg.ssm, cfg.d_model, None)
         x = x + y
         cache = state if build_cache else None
     else:
@@ -575,11 +613,12 @@ def _encode(params: dict, cfg: ModelConfig, frames) -> torch.Tensor:
     learned position embedding, non-causal ``attn`` layers, a final
     norm.  Under a model axis its layers are tensor-parallel as the
     decoder's (the whole ``pos_embed`` on every rank)."""
-    enc = params["encoder"]
+    enc = parallel.use_params(params["encoder"], "encoder")
     x = frames.to(enc["pos_embed"].dtype) + enc["pos_embed"][None]
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for lp in enc["layers"]:
+    for i, lp in enumerate(enc["layers"]):
+        lp = parallel.use_params(lp, f"encoder/layers/{i}")
         x, _, _ = apply_layer_seq("attn", lp, cfg, x, positions,
                                   capacity_mode="full", max_seq=S, causal=False,
                                   build_cache=False)
@@ -636,27 +675,47 @@ def _seq_pass(params, cfg: ModelConfig, x, positions, source, capacity_mode,
     summed in the JAX package's order (block periods, then the
     remainder) with ``with_aux``, else None; cache None without
     ``build_cache``.  Each block period runs under ``_remat``; the
-    remainder layers outside it, as in JAX."""
-    kinds, layers = cfg.layer_kinds, params["layers"]
+    remainder layers outside it, as in JAX.
 
-    def run(lo, hi, x, aux):
+    Under a sequence-parallel model axis (``parallel.ModelParallel(...,
+    seq_parallel=True)``) the block periods hold this rank's block of
+    the sequence between their layers, where JAX's ``ACT_SPEC``
+    constrains them; x is whole before and after them.  Each layer's
+    params pass ``parallel.use_params`` inside its period's remat, so a
+    leaf made whole at its use is made whole again in the recompute."""
+    kinds, layers = cfg.layer_kinds, params["layers"]
+    mp = parallel.current()
+    rows, T = positions.shape
+    sp = mp is not None and mp.seq_parallel
+
+    def run(lo, hi, x, aux, periodic=False):
         caches = []
-        for kind, lp in zip(kinds[lo:hi], layers[lo:hi]):
-            x, c, a = apply_layer_seq(kind, lp, cfg, x, positions, source=source,
-                                      capacity_mode=capacity_mode, max_seq=max_seq,
-                                      build_cache=build_cache, with_aux=with_aux)
-            if a is not None:
-                aux = aux + a
-            caches.append(c)
+        with (mp.seq_region(rows, T) if sp and periodic else contextlib.nullcontext()):
+            for i in range(lo, hi):
+                lp = parallel.use_params(layers[i], f"layers/{i}")
+                x, c, a = apply_layer_seq(kinds[i], lp, cfg, x, positions,
+                                          source=source, capacity_mode=capacity_mode,
+                                          max_seq=max_seq, build_cache=build_cache,
+                                          with_aux=with_aux)
+                if a is not None:
+                    aux = aux + a
+                caches.append(c)
         return x, aux, caches
 
     aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
     period = len(cfg.block_pattern)
     n_periodic = cfg.n_blocks * period
     cache = []
+    sp = sp and n_periodic > 0
+    if sp:
+        with mp.seq_region(rows, T):
+            x = mp.seq_block(x)
     for lo in range(0, n_periodic, period):
-        x, aux, c = _remat(remat, run, lo, lo + period, x, aux)
+        x, aux, c = _remat(remat, run, lo, lo + period, x, aux, True)
         cache += c
+    if sp:
+        with mp.seq_region(rows, T):
+            x = mp.seq_full(x)
     x, aux, c = run(n_periodic, len(kinds), x, aux)
     cache += c
     return x, aux, (cache if build_cache else None)

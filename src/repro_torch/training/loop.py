@@ -11,7 +11,9 @@ rank holds (chunk, V / m) of them.
 On a (data, model) grid (``make_train_step(mesh=...)``) the step is the
 JAX step under ``launch/sharding.py``'s "ep" rules: the rows split over
 the data axes, each rank's shards of the weights computing under
-``models.parallel`` (tensor- and expert-parallel over "model").
+``models.parallel`` (tensor- and expert-parallel over "model"); or a
+train record of the JAX dry run under fsdp, ep2d, ZeRO-1, m2n or
+sequence parallelism (``launch.sharding.Layout``).
 
 Parameters are plain tensors that require grad.  A train step runs the
 loss forward, ``backward()``, and ``adamw_update`` over the ``.grad``
@@ -32,12 +34,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.core import m2n
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import parallel
 from repro_torch.models.common import rms_norm, softcap
-from repro_torch.models.transformer import (forward_hidden, head_weight,
-                                            init_params, vocab_block)
+from repro_torch.models.transformer import forward_hidden, head_weight, vocab_block
 from repro_torch.training import data_parallel as dp
 from repro_torch.training.optimizer import (AdamWConfig, OptState, adamw_update,
                                             decay_mask, init_opt_state, leaves)
@@ -91,30 +93,82 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, extras: dict,
             remat: str = "full", aux_coef: float = 0.01, xent_chunk: int = 1024):
     """(total, (loss, aux)): next-token loss of ``tokens`` (B, T + 1)
     plus ``aux_coef`` times the MoE load-balance loss."""
+    params = parallel.use_params(params, "")
     hidden, aux = forward_hidden(params, cfg, tokens[:, :-1], remat=remat,
                                  **extras)
     loss = chunked_xent(params, cfg, hidden, tokens[:, 1:], chunk=xent_chunk)
     return loss + aux_coef * aux, (loss, aux)
 
 
-def _grid_norm(grads, split, mesh) -> torch.Tensor:
-    """The global norm of a rank's gradients where ``split`` marks the
-    leaves of which it holds a block over "model": their squares summed
-    over the axis, each replicated leaf's counted once."""
-    sharded = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    whole = torch.zeros_like(sharded)
-    for g, s in zip(grads, split, strict=True):
+def _layout_norm(pieces, axes, mesh) -> torch.Tensor:
+    """The global norm of the gradient blocks a rank holds, ``pieces[k]``
+    a block over ``axes[k]`` (the axes its leaf is split over; empty
+    where the rank holds it whole, or another rank holds it): each group
+    of leaves split over the same axes summed over them, so every
+    element counts once."""
+    zero = torch.zeros((), dtype=torch.float32, device=pieces[0].device)
+    sums = {(): torch.zeros_like(zero)}
+    for g, ax in zip(pieces, axes, strict=True):
         gf = g.reshape(-1).float()
-        if s:
-            sharded = sharded + gf @ gf
+        sums[ax] = sums.get(ax, zero) + gf @ gf
+    total = sums.pop(())
+    for ax, v in sums.items():
+        total = mesh.all_reduce(v, ax) + total
+    return torch.sqrt(total)
+
+
+def _sync_layout(layout, params, grads, n_data):
+    """Each gradient of a rank's held ``params`` brought to its moment's
+    block, the data axes' mean: (param blocks, gradient blocks, the axes
+    each block splits over).  A leaf the rank holds whole is summed over
+    the data axes (reduce-scattered to a ZeRO-1 block); one held split
+    over them, or by one of them, was summed by its gather's backward."""
+    mesh, dt = layout.mesh, layout.dt
+    ps, gs, axes = [], [], []
+    for lf, p, g in zip(layout.leaves, params, grads, strict=True):
+        ax = lf.use.axes()
+        if lf.held == "whole":
+            if lf.moment == "split":
+                g = mesh.reduce_scatter(g, dt, lf.mdim)
+            else:
+                mesh.all_reduce(g, dt)
+            p = layout.moment_block(lf, p)
+            if p is None:           # another data rank updates this leaf
+                p, g = g.new_empty((0,)), g.new_empty((0,))
+            if lf.moment != "held":
+                ax = ax + dt
         else:
-            whole = whole + gf @ gf
-    return torch.sqrt(mesh.all_reduce(sharded, "model") + whole)
+            ax = ax + tuple(a for a in dt if a not in ax)
+        g.div_(n_data)
+        ps.append(p)
+        gs.append(g)
+        axes.append(tuple(a for a in mesh.axis_names if a in ax))
+    return ps, gs, axes
+
+
+@torch.no_grad()
+def _regather(layout, params):
+    """After the update: each leaf held whole whose moments are a block of
+    it (ZeRO-1) all-gathered back over the data axes, or sent from the
+    data rank that updated it."""
+    mesh, dt, i = layout.mesh, layout.dt, layout.i_data
+    for lf, p in zip(layout.leaves, params, strict=True):
+        if lf.held != "whole" or lf.moment == "held":
+            continue
+        if lf.moment == "split":
+            p.copy_(mesh.all_gather(layout.moment_block(lf, p).contiguous(), dt,
+                                    lf.mdim))
+        else:
+            t = p.clone() if lf.mowner == i else torch.zeros_like(p)
+            p.copy_(mesh.all_reduce(t, dt))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     remat: str = "full", xent_chunk: int = 1024,
-                    extras_keys: tuple = (), group=None, mesh=None):
+                    extras_keys: tuple = (), group=None, mesh=None,
+                    expert_mode: str = "ep", fsdp: bool = False,
+                    zero: bool = False, moe_impl: str = "baseline",
+                    seq_parallel: bool = False):
     """Returns train_step(params, opt_state, tokens, *extras) ->
     (params, opt_state, metrics): metrics {"loss", "aux", "total", "lr",
     "grad_norm"}, 0-d tensors.  ``params`` are updated in place, weight
@@ -143,40 +197,75 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     replicated leaf's gradient is the same on every model rank, every
     gradient is averaged over the data axes, the clip's global norm
     counts each sharded element once, and AdamW updates each rank's
-    blocks.  The metrics hold "dropped"."""
-    n_data, mp, split = dp.group_size(group), None, None
+    blocks.  The metrics hold "dropped".
+
+    The JAX dry run's other layouts of a train record, on ``mesh``
+    (``launch.sharding.Layout``; the rank's params and moments are the
+    layout's blocks: ``Layout.place``, ``train_step.layout.init_opt_state``):
+
+      * ``fsdp``: each large dense leaf split over the data axes on its
+        first free dim they divide, made whole at its use (an all-gather,
+        reduce-scattered backward, inside the remat recompute too); a
+        leaf JAX splits on its stacked block dim is held whole by the
+        data rank that holds that block and sent from it;
+      * ``expert_mode="ep2d"``: each expert's d_ff split over the data
+        axes, gathered at its use as an fsdp leaf;
+      * ``zero``: ZeRO-1, each moment under ``sharding.zero_extend``: the
+        gradient reduce-scattered over the data axes to the moment's
+        block, AdamW on that block, the param all-gathered back;
+      * ``moe_impl`` "m2n" / "m2n2d": the routed experts through
+        ``core.m2n``'s plain branch (JAX's ``use_kernels=False``, which
+        it takes under autograd), routing and
+        capacity per data block, each rank holding its m2n expert shard
+        (d_ff split over the data axes under "m2n2d"); no "dropped";
+      * ``seq_parallel``: JAX's ``ACT_SPEC``: the block periods hold each
+        rank's block of the sequence (``models.parallel``).
+
+    A layout JAX refuses (``zero_extend`` naming the data axes twice)
+    raises ``sharding.DuplicateSpecError`` here."""
+    n_data, mp, layout = dp.group_size(group), None, None
     if mesh is not None:
         group, n_data = mesh.group(data_axes(mesh)), mesh.size(data_axes(mesh))
         if mesh.size("model") > 1:
             parallel.check_kinds(cfg.layer_kinds)
-            mp = parallel.ModelParallel(mesh)
-        full = init_params(cfg, device="meta")
-        specs = [s for _, s in sharding.named_specs(
-            sharding.param_specs(cfg, full, mesh))]
-        split = ["model" in s.axes() for s in specs]
-        local = [sharding.local_shard(t, s, mesh).shape
-                 for t, s in zip(leaves(full), specs, strict=True)]
+            mp = parallel.ModelParallel(mesh, seq_parallel=seq_parallel)
+        layout = sharding.Layout(cfg, mesh, expert_mode=expert_mode, fsdp=fsdp,
+                                 zero=zero, moe_impl=moe_impl)
+        local = [layout.held_shape(lf) for lf in layout.leaves]
+    elif (fsdp or zero or expert_mode != "ep" or moe_impl != "baseline"
+          or seq_parallel):
+        raise ValueError("fsdp, ep2d, ZeRO-1, m2n and sequence parallelism "
+                         "need a mesh")
+    m2n_impl = moe_impl in ("m2n", "m2n2d") and cfg.moe is not None
 
     def train_step(params, opt_state: OptState, tokens, *extra_vals):
-        if mesh is not None and [p.shape for p in leaves(params)] != local:
-            raise ValueError("the params are not this rank's shards under the "
-                             "mesh's 'ep' rules (sharding.local_shard)")
+        if mesh is not None and [tuple(p.shape) for p in leaves(params)] != local:
+            raise ValueError("the params are not this rank's blocks of the "
+                             "mesh's layout (sharding.Layout.place)")
         extras = dict(zip(extras_keys, extra_vals))
         moe = None
         rows = n_data > 1 and tokens.shape[0] % n_data == 0
         if rows:
             tokens = dp.local_rows(tokens, group)
             extras = {k: dp.local_rows(v, group) for k, v in extras.items()}
-        if rows or mesh is not None:
+        if (rows or mesh is not None) and not m2n_impl:
             moe = dp.DataParallelMoE(group if rows else None)
-        # the dispatch and the model axis stay installed through backward,
-        # whose recompute of a checkpointed block period (remat) must run
-        # as the forward did, collectives included
+        # the dispatch, the model axis and the layout's gathers stay
+        # installed through backward, whose recompute of a checkpointed
+        # block period (remat) must run as the forward did, collectives
+        # included
         with contextlib.ExitStack() as stack:
             if moe is not None:
                 stack.enter_context(moe.install())
+            if m2n_impl:
+                dt = data_axes(mesh) if rows else ()
+                stack.enter_context(m2n.use_m2n(
+                    mesh=mesh, data_axes=dt, expert_axis="model",
+                    weights_2d=moe_impl == "m2n2d"))
             if mp is not None:
                 stack.enter_context(mp.install())
+            if layout is not None:
+                stack.enter_context(parallel.gathering(layout))
             total, (loss, aux) = lm_loss(params, cfg, tokens, extras, remat,
                                          xent_chunk=xent_chunk)
             if moe is not None:
@@ -186,19 +275,27 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in ps]
         metrics = torch.stack([loss, aux, total]).detach()
-        if n_data > 1:
-            dp.average_grads(grads + [metrics], group)
-        gnorm = _grid_norm(grads, split, mesh) if mp is not None else None
-        params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state,
-                                             decay=decay_mask(params, cfg),
-                                             gnorm=gnorm)
-        for p in ps:
+        decay = decay_mask(params, cfg)
+        if layout is not None:
+            ps, grads, axes = _sync_layout(layout, ps, grads, n_data)
+            dp.average_grads([metrics], group)
+            gnorm = _layout_norm(grads, axes, mesh)
+            _, opt_state, om = adamw_update(opt_cfg, ps, grads, opt_state,
+                                            decay=decay, gnorm=gnorm)
+            _regather(layout, leaves(params))
+        else:
+            if n_data > 1:
+                dp.average_grads(grads + [metrics], group)
+            params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state,
+                                                 decay=decay)
+        for p in leaves(params):
             p.grad = None
         om.update(loss=metrics[0], aux=metrics[1], total=metrics[2])
         if moe is not None:
             om["dropped"] = moe.dropped
         return params, opt_state, om
 
+    train_step.layout = layout
     return train_step
 
 

@@ -6,6 +6,8 @@ per rank through ``repro_torch.launch.dist_smoke.run_ranks``:
   python tests/_torch_dist_worker.py train OUT_DIR ARGS_JSON
   python tests/_torch_dist_worker.py shard OUT_DIR
   python tests/_torch_dist_worker.py grid IN.pkl OUT_DIR
+  python tests/_torch_dist_worker.py layouts IN.pkl OUT_DIR
+  python tests/_torch_dist_worker.py collectives OUT_DIR
   python tests/_torch_dist_worker.py serve IN.pkl OUT_DIR
   python tests/_torch_dist_worker.py disagg IN.pkl OUT_DIR
 
@@ -196,13 +198,13 @@ def run_train(out_dir: str, args_json: str):
 
 def grid_config(case):
     """The port's config of a ``grid`` case: the reduced ``arch`` (with
-    ``n_heads`` query heads where the case sets it) with the case's MoE
-    overrides (``moe``)."""
+    ``n_heads`` query heads and ``n_layers`` layers where the case sets
+    them) with the case's MoE overrides (``moe``)."""
     import dataclasses
 
     from repro_torch.config import get_config, reduced
-    cfg = reduced(get_config(case["arch"]),
-                  **({"n_heads": case["n_heads"]} if case.get("n_heads") else {}))
+    over = {k: case[k] for k in ("n_heads", "n_layers") if case.get(k)}
+    cfg = reduced(get_config(case["arch"]), **over)
     if case.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                                **case["moe"]))
@@ -308,6 +310,140 @@ def run_grid(in_path: str, out_dir: str):
                 params={k: p.detach().numpy() for k, p in full_p.items()})
     with open(os.path.join(out_dir, f"grid{rank}.pkl"), "wb") as fh:
         pickle.dump(results, fh)
+
+
+def run_layouts(in_path: str, out_dir: str):
+    """The JAX dry run's training layouts (``make_train_step(mesh=...,
+    expert_mode=, fsdp=, zero=, moe_impl=, seq_parallel=)``): for each
+    case of IN.pkl, this rank's blocks of the JAX params under the
+    layout (``Layout.place_tree``), ``len(tokens)`` steps; saves the
+    metrics, step 0's gradient blocks as AdamW sees them, the params
+    after step 0 and at the end (the rank's held blocks, by path), or
+    the layout's refusal.  A case with ``prefill`` also runs a
+    sequence-parallel prefill of the first batch's rows on the initial
+    params (the "ep" blocks) and the same prefill without the flag:
+    the logits of both and the gathered caches' largest gap."""
+    import torch
+
+    from repro_torch.bridge import params_from_jax, shards_from_jax
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ModelParallel
+    from repro_torch.models.transformer import prefill
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import AdamWConfig, leaves, named_leaves
+
+    tr = _bring_up()
+    with open(in_path, "rb") as fh:
+        cases = pickle.load(fh)
+    mesh = make_mesh(cases[0]["grid"], ("data", "model"), device="cpu")
+    rank, results = tr.process_index, {}
+    update = loop.adamw_update
+    host = lambda t: t.detach().to("cpu", copy=True).numpy()
+    for case in cases:
+        cfg = grid_config(case)
+        opt = AdamWConfig(**case["opt"])
+        toks = torch.from_numpy(case["tokens"])
+        res = results[case["name"]] = {}
+        if case.get("prefill"):
+            ep = shards_from_jax(case["params"], cfg, mesh, device="cpu")
+            rows = dp.local_rows(toks[0, :, :-1], mesh.group(("data",)))
+            out = []
+            for spf in (True, False):
+                with torch.no_grad(), ModelParallel(mesh, seq_parallel=spf).install():
+                    logits, cache = prefill(ep, cfg, rows, max_seq=rows.shape[1])
+                out.append((logits, cache))
+            res["prefill"] = [host(o[0]) for o in out]
+            res["prefill_cache_gap"] = max(
+                float((a - b).abs().max()) for a, b in zip(leaves(out[0][1]),
+                                                           leaves(out[1][1])))
+        try:
+            step = loop.make_train_step(cfg, opt, remat=case["remat"], mesh=mesh,
+                                        **case["layout"])
+        except sh.DuplicateSpecError as e:
+            res["refused"] = f"{type(e).__name__}: {e}"
+            continue
+        lay = step.layout
+        params = lay.place_tree(params_from_jax(case["params"], cfg, device="cpu"))
+        for p in leaves(params):
+            p.requires_grad_(True)
+        state = lay.init_opt_state(params)
+        kept = {}
+
+        def keep(opt_cfg, ps, g, st, **kw):
+            if not kept:
+                kept["grads"] = [host(t) for t in g]
+                kept["gnorm"] = float(kw["gnorm"]) if kw.get("gnorm") is not None \
+                    else None
+            return update(opt_cfg, ps, g, st, **kw)
+
+        loop.adamw_update = keep
+        metrics = []
+        try:
+            for s in range(toks.shape[0]):
+                params, state, m = step(params, state, toks[s])
+                metrics.append({k: float(v) for k, v in m.items()})
+                if s == 0:
+                    res["after0"] = {k: host(v) for k, v in named_leaves(params)}
+        finally:
+            loop.adamw_update = update
+        names = [k for k, _ in named_leaves(params)]
+        res.update(metrics=metrics, grads=dict(zip(names, kept["grads"])),
+                   final={k: host(v) for k, v in named_leaves(params)})
+    with open(os.path.join(out_dir, f"layouts{rank}.pkl"), "wb") as fh:
+        pickle.dump(results, fh)
+
+
+def run_collectives(out_dir: str):
+    """``ProcessMesh.all_gather`` / ``reduce_scatter`` and the autograd
+    collectives of ``models.parallel`` on a (2, 2) grid, with the inputs
+    ``tests/test_torch_grid_layouts.py`` recomputes in numpy (each rank's
+    from its own seeds); saves each output and gradient."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import parallel
+
+    tr = _bring_up()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    rank = tr.process_index
+    i = mesh.index("data")
+    arr = lambda seed, shape: torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32))
+    x = arr(100 + rank, (2, 3, 4))
+    axes = {"data": "data", "model": "model", "both": ("data", "model")}
+    out = {}
+    for name, ax in axes.items():
+        n = mesh.size(ax)
+        for dim in range(3):
+            out[f"all_gather/{name}/{dim}"] = mesh.all_gather(x, ax, dim).numpy()
+            out[f"reduce_scatter/{name}/{dim}"] = mesh.reduce_scatter(
+                torch.cat([x] * n, dim), ax, dim).numpy()
+    T, rows = 5, 2
+    b = -(-T // 2)
+    j = mesh.index("model")
+    lo, hi = min(T, j * b), min(T, (j + 1) * b)
+    seq = arr(300 + rank, (rows, T, 4))
+    mp = parallel.ModelParallel(mesh, seq_parallel=True)
+    pairs = {
+        "gather_data": (x, lambda t: parallel.gather_data(t, mesh, ("data",), 1)),
+        "from_owner": (x if i == 1 else x.new_empty((0,)),
+                       lambda t: parallel.from_owner(t, mesh, ("data",), 1, (2, 3, 4))),
+        "sum_data": (x, lambda t: parallel.sum_data(t, mesh, ("data",))),
+        "seq_full": (seq[:, lo:hi], mp.seq_full),
+        "enter_seq": (seq[:, lo:hi], lambda t: mp.enter_seq(mp.seq_full(t))),
+        "seq_block": (seq, mp.seq_block),
+        "reduce_act": (seq, mp.reduce_act),
+    }
+    for name, (t, fn) in pairs.items():
+        t = t.clone().requires_grad_(True)
+        with mp.seq_region(rows, T):
+            y = fn(t)
+        (y * arr(200 + rank, tuple(y.shape))).sum().backward()
+        out[f"{name}/out"] = y.detach().numpy()
+        out[f"{name}/grad"] = t.grad.numpy()
+    np.savez(os.path.join(out_dir, f"coll{rank}.npz"), **out)
 
 
 def _steps(cfg, opt, params, toks, extras, mesh=None):
@@ -578,7 +714,8 @@ def run_disagg(in_path: str, out_dir: str):
 if __name__ == "__main__":
     mode, *rest = sys.argv[1:]
     {"m2n": run_m2n, "dp": run_dp, "train": run_train, "shard": run_shard,
-     "grid": run_grid, "serve": run_serve, "disagg": run_disagg}[mode](*rest)
+     "grid": run_grid, "serve": run_serve, "disagg": run_disagg,
+     "layouts": run_layouts, "collectives": run_collectives}[mode](*rest)
     import torch.distributed as dist
     dist.barrier()      # no rank tears its groups down while a peer still uses them
     dist.destroy_process_group()

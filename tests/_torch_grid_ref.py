@@ -15,6 +15,15 @@ writes per reference each step's loss and aux, step 0's gradients, the
 final params, and the entries dropped past their expert's capacity in
 each step (a forward pass over each step's params that counts them
 with a ``jax.debug.callback`` in the routed experts).
+
+A reference with a ``layout`` (``tests/test_torch_grid_layouts.py``) runs
+the JAX dry run's build of a train record on its grid: params placed by
+``param_specs(expert_mode=, fsdp=)``, the moments by the dry run's
+``zero_extend`` with ``zero``, ``transformer.ACT_SPEC`` set with
+``seq_parallel``, the step traced under ``m2n.use_m2n`` with ``moe_impl``
+"m2n" / "m2n2d".  It also writes the params after step 0, the prefill
+logits of the first batch with ``prefill``, and, where JAX refuses the
+layout, only the error (``refused``).
 """
 import os
 import pickle
@@ -28,8 +37,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh, NamedSharding  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro import config as jconfig  # noqa: E402
+from repro.core import m2n as jm2n  # noqa: E402
 from repro.launch import sharding as shlib  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -38,8 +49,8 @@ from repro.training import optimizer as jopt  # noqa: E402
 
 
 def config(ref):
-    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]),
-                          **({"n_heads": ref["n_heads"]} if ref.get("n_heads") else {}))
+    over = {k: ref[k] for k in ("n_heads", "n_layers") if ref.get(k)}
+    cfg = jconfig.reduced(jconfig.get_config(ref["arch"]), **over)
     if ref.get("moe"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **ref["moe"]))
     return cfg
@@ -69,7 +80,83 @@ def drops(cfg, params, tokens):
     return sum(seen)
 
 
+def zero_extend(spec, shape, mesh):
+    """The JAX dry run's ZeRO-1 rule (``repro.launch.dryrun``, whose import
+    would set its own device count)."""
+    dt = ("data",)
+    n = mesh.shape["data"]
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (ax, dim) in enumerate(zip(parts, shape)):
+        if ax is None and dim % n == 0:
+            parts[i] = dt
+            return P(*parts)
+    return P(*parts)
+
+
+def run_layout(ref):
+    """A train record's build of the JAX dry run on the reference's grid."""
+    import contextlib
+    cfg = config(ref)
+    lay = ref["layout"]
+    opt = jopt.AdamWConfig(**ref["opt"])
+    n = ref["grid"][0] * ref["grid"][1]
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(ref["grid"]), ("data", "model"))
+    params = jax.tree.map(jnp.asarray, ref["params"])
+    pspecs = shlib.param_specs(cfg, params, mesh, expert_mode=lay.get("expert_mode", "ep"),
+                               fsdp=lay.get("fsdp", False))
+    state = jopt.init_opt_state(params)
+    try:
+        params = jax.device_put(params, shlib.to_shardings(mesh, pspecs))
+        if lay.get("zero"):
+            ospecs = jax.tree.map(lambda sp, st: zero_extend(sp, st.shape, mesh), pspecs,
+                                  params, is_leaf=lambda x: isinstance(x, P))
+            osh = shlib.to_shardings(mesh, ospecs)
+            state = type(state)(state.step, jax.device_put(state.mu, osh),
+                                jax.device_put(state.nu, osh))
+    except Exception as e:  # noqa: BLE001 - JAX's refusal is the result
+        return {"refused": f"{type(e).__name__}: {e}"}
+    jtf.ACT_SPEC = P(("data",), "model", None) if lay.get("seq_parallel") else None
+    impl = lay.get("moe_impl", "baseline")
+    ctx = (jm2n.use_m2n(mesh, ("data",), "model", weights_2d=impl == "m2n2d")
+           if impl != "baseline" else contextlib.nullcontext())
+
+    def step(params, state, tokens):
+        (_, (loss, aux)), grads = jax.value_and_grad(jloop.lm_loss, has_aux=True)(
+            params, cfg, tokens, {}, "none")
+        params, state, _ = jopt.adamw_update(opt, params, grads, state)
+        return params, state, grads, loss, aux
+
+    tok_sh = NamedSharding(mesh, shlib.input_spec(ref["tokens"].shape[1:], mesh))
+    out = {"loss": [], "aux": []}
+    try:
+        with ctx, mesh:
+            if ref.get("prefill"):      # the initial params' prefill
+                x = jnp.asarray(ref["tokens"][0][:, :-1])
+                logits, _ = jax.jit(lambda p, t: jtf.prefill(
+                    p, cfg, t, max_seq=t.shape[1]))(params, jax.device_put(x, tok_sh))
+                out["prefill"] = np.asarray(logits)
+            fn = jax.jit(step)
+            before = []
+            for s, toks in enumerate(ref["tokens"]):
+                before.append(jax.tree.map(np.asarray, params))
+                params, state, grads, loss, aux = fn(
+                    params, state, jax.device_put(jnp.asarray(toks), tok_sh))
+                out["loss"].append(float(loss))
+                out["aux"].append(float(aux))
+                if s == 0:
+                    out["grads"] = jax.tree.map(np.asarray, grads)
+                    out["after0"] = jax.tree.map(np.asarray, params)
+    finally:
+        jtf.ACT_SPEC = None
+    out["params"] = jax.tree.map(np.asarray, params)
+    if cfg.moe is not None and impl == "baseline":
+        out["drops"] = [drops(cfg, p, t) for p, t in zip(before, ref["tokens"])]
+    return out
+
+
 def run(ref):
+    if ref.get("layout") is not None:
+        return run_layout(ref)
     cfg = config(ref)
     opt = jopt.AdamWConfig(**ref["opt"])
 

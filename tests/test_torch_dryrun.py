@@ -17,11 +17,17 @@ by hand, on the CPU (meta tensors: nothing is allocated).
   * the report renders its tables from a directory of records;
   * mamba2, recurrentgemma, whisper and llama-vision (once
     "unsupported") come out "ok" on both production meshes;
-    ``--seq-parallel`` is unsupported with the reason; the JAX-only
+    ``--seq-parallel`` (once "unsupported") leaves a decode record the
+    record without the flag and splits a train or prefill record's
+    model-axis sums into all-gathers and reduce-scatters; the JAX-only
     flags are refused;
   * under fsdp the leaves JAX splits on their stacked block dim are
     ``test_torch_sharding.FSDP_BLOCK_DIM``'s, and a rank holds the bytes
-    per rank of JAX's rule.
+    per rank of JAX's rule;
+  * the train records JAX fails (``zero_extend`` names the data axes
+    twice: ``DuplicateSpecError``) are the port's "FAILED" ones, config
+    for config, computed here from the JAX rules on ``eval_shape``
+    params; m2n and m2n2d train steps are "ok".
 """
 import ast
 import dataclasses
@@ -54,11 +60,15 @@ OTHER_KINDS = ["mamba2-1.3b", "recurrentgemma-2b", "whisper-large-v3",
 def _jax_dryrun_functions(*names):
     """Functions of the JAX dry run's source, compiled without importing
     the module (its first lines force 512 host devices)."""
+    from jax.sharding import PartitionSpec
+
     from repro.config import ModelConfig
+    from repro.launch.mesh import data_axes
     with open(JAX_DRYRUN) as fh:
         tree = ast.parse(fh.read())
     fns = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names]
-    ns = {"dataclasses": dataclasses, "ModelConfig": ModelConfig}
+    ns = {"dataclasses": dataclasses, "ModelConfig": ModelConfig,
+          "data_axes": data_axes, "P": PartitionSpec}
     exec(compile(ast.Module(fns, []), JAX_DRYRUN, "exec"), ns)
     return [ns[n] for n in names]
 
@@ -97,6 +107,7 @@ def test_shape_eligible_and_effective_config_are_the_jax_ones(arch):
 GRID = (2, 4)          # (data, model)
 DECODE = ShapeConfig("decode_t", "decode", 32, 8)
 PREFILL = ShapeConfig("prefill_t", "prefill", 16, 4)
+TRAIN = ShapeConfig("train_t", "train", 16, 4)
 
 
 def _record(arch, shape_cfg):
@@ -283,7 +294,7 @@ def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
     assert set(ok["roofline"]) == jax_fields
     assert set(ok["memory_analysis"]) >= {"argument_size", "output_size", "temp_size"}
     assert set(ok["cost_analysis"]) == {"flops", "bytes accessed", "transcendentals"}
-    assert [r["status"] for r in recs] == ["ok", "ok", "skipped", "unsupported", "ok"]
+    assert [r["status"] for r in recs] == ["ok", "ok", "skipped", "ok", "ok"]
     for r in recs[:2]:
         json.dumps(r)
         assert r["roofline"]["n_chips"] == MESHES[r["mesh"]]
@@ -299,7 +310,8 @@ def test_a_record_has_the_jax_keys_and_the_report_renders(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "## §Roofline" in text and "## §Dry-run" in text
     assert "| granite-3-8b | decode_32k |" in text
-    assert "| granite-3-8b | decode_32k | 16x16 | unsupported |" in text
+    assert "| granite-3-8b | decode_32k | 16x16 | ok |" in text
+    assert "unsupported" not in text
     assert "| mamba2-1.3b | decode_32k | 16x16 | ok |" in text
     assert "| granite-3-8b | long_500k | 16x16 | skipped |" in text
 
@@ -319,10 +331,28 @@ def test_the_other_kinds_are_unsupported_with_the_reason(arch, tmp_path):
 
 
 def test_seq_parallel_is_unsupported_and_jax_only_flags_are_refused(tmp_path):
+    """Once "unsupported": a decode record under ``--seq-parallel`` is the
+    record without it (JAX's ``ACT_SPEC`` never reaches a decode step);
+    a train and a prefill record split the model-axis sums of the block
+    periods into reduce-scatters and all-gathers over the sequence, with
+    the FLOPs of the record without the flag."""
+    keep = ("cost_analysis", "memory_analysis", "collectives_by_axes", "roofline")
     rec = tdr.run_one("granite-3-8b", "decode_32k", False, seq_parallel=True,
-                      out_dir=str(tmp_path))
-    assert rec["status"] == "unsupported" and "sequence parallelism" in rec["note"]
+                      out_dir=str(tmp_path), verbose=False)
+    base = tdr.run_one("granite-3-8b", "decode_32k", False, out_dir=str(tmp_path),
+                       verbose=False)
+    assert rec["status"] == "ok"
+    assert {k: rec[k] for k in keep} == {k: base[k] for k in keep}
     assert os.path.exists(tmp_path / "granite-3-8b_decode_32k_single_baseline_full_seqpar.json")
+    cfg = reduced(get_config("minitron-4b"))
+    for shape in (TRAIN, PREFILL):
+        (cost, _, coll, _), (cost0, _, coll0, _) = (
+            tdr.measure(*tdr.build(cfg, shape, mesh, seq_parallel=sp)[:2], mesh)
+            for sp in (True, False)
+            for mesh in [RecordingMesh(GRID, ("data", "model"), (1, 2))])
+        assert coll.get("all-gather", 0) > 0 and coll.get("reduce-scatter", 0) > 0, coll
+        assert "all-gather" not in coll0 and "reduce-scatter" not in coll0
+        assert cost["flops"] == cost0["flops"]
     for flag in ("--save-hlo", "--no-unroll"):
         with pytest.raises(SystemExit):
             tdr.main(["--arch", "granite-3-8b", "--shape", "decode_32k", flag,
@@ -387,7 +417,11 @@ def test_fsdp_decode_gathers_the_data_blocks(tmp_path):
 def test_m2n_serving_runs_on_the_recording_mesh(moe_impl, tmp_path):
     """``core.m2n`` over "model" runs in a rank's decode (each rank its
     expert shard; under m2n2d its data rank's d_ff block too, the rows
-    gathered over the data axes); its train step is unsupported."""
+    gathered over the data axes); its train step (once "unsupported")
+    runs too, the experts' sums over "model" and the gradients' over the
+    data axes: with ZeRO-1, as in JAX's train record, each gradient
+    reduce-scattered to its moment's block and the params all-gathered
+    back."""
     base = tdr.run_one("mixtral-8x22b", "decode_32k", False, out_dir=str(tmp_path),
                        verbose=False)
     rec = tdr.run_one("mixtral-8x22b", "decode_32k", False, moe_impl=moe_impl,
@@ -401,6 +435,87 @@ def test_m2n_serving_runs_on_the_recording_mesh(moe_impl, tmp_path):
     assert args == args0 + 56 * 3 * 6144 * 16384 * 2 * (1 - 8 / 16) \
         if moe_impl == "m2n" else args < args0
     assert set(rec["collectives_by_axes"]) == {"model", "data"}
-    train = tdr.run_one("mixtral-8x22b", "train_4k", False, moe_impl=moe_impl,
-                        out_dir=str(tmp_path), verbose=False)
-    assert train["status"] == "unsupported" and "m2n" in train["note"]
+    mesh = RecordingMesh(GRID, ("data", "model"), (1, 2))
+    cost, _, kinds, by_axes = tdr.measure(*tdr.build(
+        reduced(get_config("mixtral-8x22b")), TRAIN, mesh, moe_impl=moe_impl)[:2], mesh)
+    assert cost["flops"] > 0
+    assert set(by_axes) >= {"model", "data"}
+    assert {"reduce-scatter", "all-gather"} <= set(kinds), kinds
+
+
+# the JAX dry run's train records that raise DuplicateSpecError (checked
+# below from the JAX rules): (flags, the configs)
+JAX_REFUSED = {
+    "fsdp": {"minitron-4b", "minitron-8b", "whisper-large-v3", "arctic-480b", "dbrx",
+             "scaled-moe"},
+    "ep2d": {"arctic-480b", "dbrx", "scaled-moe"},
+}
+
+
+@pytest.mark.parametrize("axes", AXES, ids=["16x16", "2x16x16"])
+def test_train_records_jax_refuses_are_failed_with_its_words(axes, tmp_path, capsys):
+    """For every config under ``--fsdp``, ``--expert-shard ep2d`` and both:
+    JAX's duplicate-axes leaves (``param_specs`` of its ``eval_shape``
+    params, the dry run's own ``zero_extend``, a spec naming an axis
+    twice) are counted here; the port's train layout raises
+    ``DuplicateSpecError`` with JAX's words exactly where that count is
+    not 0 (the configs of ``JAX_REFUSED``), and ``main`` writes such a
+    record "FAILED" and exits 1, as the JAX dry run does."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro import config as jconfig
+    from repro.launch import sharding as jsh
+    from repro.models import transformer as jtf
+    from test_torch_sharding import FakeMesh
+    (zero_extend,) = _jax_dryrun_functions("zero_extend")
+    name = "16x16" if len(axes) == 2 else "2x16x16"
+    jmesh = FakeMesh(axes)
+    mesh = RecordingMesh.named(name)
+    for flags, kw in (("fsdp", dict(fsdp=True)), ("ep2d", dict(expert_mode="ep2d")),
+                      ("both", dict(fsdp=True, expert_mode="ep2d"))):
+        refused = set()
+        for arch in ARCHS:
+            jcfg = jconfig.get_config(arch)
+            structs = jax.eval_shape(lambda: jtf.init_params(
+                jcfg, jax.random.PRNGKey(0), jnp.bfloat16))
+            specs = jsh.param_specs(jcfg, structs, jmesh, **kw)
+            bad = []
+            for st, sp in zip(jax.tree.leaves(structs), jax.tree.leaves(
+                    specs, is_leaf=lambda x: isinstance(x, PartitionSpec))):
+                z = zero_extend(sp, st.shape, jmesh)
+                names = [a for ax in z if ax is not None
+                         for a in (ax if isinstance(ax, tuple) else (ax,))]
+                if len(names) != len(set(names)):
+                    bad.append(z)
+            try:
+                tsh.Layout(get_config(arch), mesh, zero=True, **kw)
+                got = None
+            except tsh.DuplicateSpecError as e:
+                got = str(e)
+            assert (got is not None) == bool(bad), (flags, arch, len(bad), got)
+            if bad:
+                refused.add(arch)
+                # JAX's own words for one of its offending specs
+                devs = jax.numpy.zeros(1).devices()
+                try:
+                    NamedSharding(jax.sharding.Mesh(
+                        __import__("numpy").array(list(devs)).reshape(
+                            (1,) * len(axes)), axes), bad[0])
+                except Exception as e:  # noqa: BLE001
+                    words = str(e)
+                assert got.split(" but ")[0] == words.split(" but ")[0], (got, words)
+                assert got.endswith("has duplicate entries for `" + axes[-2]
+                                    + "`") or "duplicate entries for `pod`" in got, got
+        want = (JAX_REFUSED["fsdp"] | JAX_REFUSED["ep2d"] if flags == "both"
+                else JAX_REFUSED[flags])
+        assert refused == want, (flags, name, sorted(refused))
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ex:
+        tdr.main(["--arch", "minitron-4b,granite-3-8b", "--shape", "train_4k", "--fsdp",
+                  "--out", str(tmp_path)])
+    assert ex.value.code == 1
+    out = capsys.readouterr().out
+    assert "[minitron-4b x train_4k] FAILED: A single NamedSharding spec" in out
+    assert "1 ok, 0 skipped, 0 unsupported, 1 failed" in out
