@@ -20,7 +20,13 @@ then:
      ``scaled_dot_product_attention``), gating dispatch at T = 4 and 8
      tokens, and counts with ``torch.profiler`` the device kernels of
      one gating-dispatch call there and in the f32 case at T = 128,
-     which must be one, one and two (``dispatch_launches``), the
+     which must be one, one and two (``dispatch_launches``), gating
+     top-k on every gating-dispatch shape's inputs and in f32 at T =
+     128 at mixtral's router (experts and counts identical to plain,
+     two launches bit-identical, its gates and (token, expert) pairs
+     bit-identical to the gating-dispatch call's: one front end; every
+     device op of one call counted, ``topk_launches``: one up to 16
+     tokens, no memset), gating dispatch's time beside it, the
      grouped matmul at the up and the down projection with each of
      its two compute bodies (beside ``torch.bmm``).  The three serving
      kernels are also held at the row counts of m = 3 micro-batches of
@@ -131,7 +137,7 @@ then:
      call's wall time, beside the same dispatch as 2 shards in one
      process.  (b) ``repro_torch.launch.dist_smoke --procs 2`` on the
      card.  (c) qwen2-moe-a2.7b at published width cut to one layer,
-     f32, batch 8 x seq 128 split 4 + 4 over 2 ranks, 2 data-parallel
+     f32, batch 8 x seq 128 split 4 + 4 over 2 ranks, 3 data-parallel
      steps against one process on the whole batch: tokens dropped,
      losses and aux within 1e-5 relative, step 0's averaged gradients
      within 1e-4 of max |g|, the step's params by 8(a)'s loose rule;
@@ -165,7 +171,7 @@ then:
      branch and grouped_matmul in every rank); (b) minitron-4b on (1, 3):
      8 kv heads do not divide 3, so every rank holds all of them on 64 of
      the 192 ring slots and runs decode attention's partial branch, the
-     ranks' rows merged by ``merge_partials``.  8 requests, 16 steps, at
+     ranks' rows merged by ``merge_partials``.  8 requests, 32 steps, at
      published width: f32 at 2 layers against one process (tokens exact,
      logits within 5e-4 of their range), bf16 at 4 layers fed one
      process's tokens (routing first, then logits within 5% of their
@@ -205,12 +211,12 @@ then:
 
  13. the disaggregated runtime on disjoint ranks of the card (gloo; a
      card per rank: NCCL), mixtral-8x22b at published width cut in depth,
-     every rank drawing the weights in turn and keeping what its role
-     reads.  (a) f32, 2 layers, 1 attention + 4 expert ranks, phase 2's
-     placement workload (zipf(1.2), rebalanced every 2 iterations), the
-     dispatch path and then M2N on one runtime: tokens equal to phase 2's
-     one process, rebalances, a replicated expert, the "weights" hop
-     bytes.  (b) bf16, 4 layers, 1 prefill + 1 attention + 2 expert
+     every rank drawing only what its role keeps, leaf by leaf
+     (``launch.serve.draw_for_rank``).  (a) f32, 2 layers, 1 attention +
+     4 expert ranks, phase 2's placement workload (zipf(1.2), rebalanced
+     every 2 iterations), the dispatch path and then M2N on one runtime:
+     tokens equal to phase 2's one process, rebalances, a replicated
+     expert, the "weights" hop bytes.  (b) bf16, 4 layers, 1 prefill + 1 attention + 2 expert
      ranks: one decode step against one process's monolithic step by
      phase 3's rule, then 8 requests of 32-token prompts (24 shared)
      contiguous with async KV, paged with the prefix cache on a cold tree
@@ -248,9 +254,10 @@ Phase 1 also holds the three serving kernels at phase 7's shapes: decode
 attention at head_dim 256 with 10 heads on 1 over a wrapped 2048-slot
 ring (recurrentgemma-2b), at head_dim 128 with softcap 50 (gemma2-27b)
 and head_dim 64 with 20 heads on 20 (whisper-large-v3), the paged kernel
-at head_dim 256; gating dispatch at 60 experts top-4 (d 2048) and 128
-experts top-2 (d 7168) for T = 4 and 8; the grouped matmul's up and down
-projections of both at M = 4.  After phase 3 it prints the planner's
+at head_dim 256; gating dispatch and gating top-k at 60 experts top-4
+(d 2048) and 128 experts top-2 (d 7168) for T = 4 and 8; the grouped
+matmul's up and down projections of both at M = 4.  After phase 3 it
+prints the planner's
 ``attn_time`` / ``expert_time`` at phase 3's shape under its H800 row
 beside the measured t_a / t_e.
 
@@ -265,12 +272,22 @@ equal the contiguous monolithic ones, with one "kv" hop per request
 Phase 1 ends by requiring every CUDA wrapper to refuse, before any
 launch, an input that requires grad.
 
+The ranks of phases 9-14 are forked, a group at a time, from one process
+(``chip_smoke.py --rank-forker``) that imported torch and the port's
+modules and ran a meta-device draw when the smoke started, so no rank
+imports them anew; each runs the entry point its phase names
+(``chip_smoke.py --phaseN ...``), which also runs as a process of its
+own.  Every rank draws only its blocks of the params (phases 10-14),
+leaf by leaf, and phase 13's ranks only what their role keeps.
+
 After the build it prints each kernel's registers, shared memory and
 spills from ``nvcc -Xptxas -v``.  Each decode profile (phases 3 and 4)
 requires one device kernel per ``gating_dispatch`` call.  Before the
 last line it prints the card's name and power limit and a
-``{"kernels": [...]}`` line (decode attention, gating dispatch and the
-grouped matmul carry a ``shapes`` list, one entry per timed shape;
+``{"kernels": [...]}`` line (decode attention, gating top-k, gating
+dispatch and the grouped matmul carry a ``shapes`` list, one entry per
+timed shape, gating top-k's with gating dispatch's time as
+``dispatch_ms``;
 ``gating_dispatch[tables]`` and ``gating_dispatch[owner]`` are the
 kernel's two branches, their launches counted on phase 5's rebalanced
 and m2n + rebalanced runs; ``gating_dispatch[owner]`` and
@@ -406,10 +423,9 @@ def time_ms(torch, fn, reps=20, flush=None):
     return statistics.median(times)
 
 
-def require_dispatch_kernels(torch, gd_mod, fn, T, label):
-    """The device kernels of one gating_dispatch call ``fn`` at T tokens,
-    counted by torch.profiler, must be the wrapper's
-    ``dispatch_launches(T)``; returns the count."""
+def device_ops(torch, fn, label):
+    """The names of the device ops (kernels, memsets, copies) of one call
+    ``fn``, recorded by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     # a session that records no device activity at all has not seen the
     # call (CUPTI can miss whole sessions of a process, in runs where the
@@ -425,14 +441,48 @@ def require_dispatch_kernels(torch, gd_mod, fn, T, label):
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
-            break
-    require(bool(names), f"{label}: torch.profiler recorded no device activity "
-            f"in {SESSIONS} sessions")
+            return names
+    raise SmokeFailure(f"{label}: torch.profiler recorded no device activity "
+                       f"in {SESSIONS} sessions")
+
+
+def require_dispatch_kernels(torch, gd_mod, fn, T, label):
+    """The device kernels of one gating_dispatch call ``fn`` at T tokens,
+    counted by torch.profiler, must be the wrapper's
+    ``dispatch_launches(T)``; returns the count."""
+    names = device_ops(torch, fn, label)
     n = sum("gating_dispatch" in name for name in names)
     require(n == gd_mod.dispatch_launches(T),
             f"{label}: one call ran {n} gating_dispatch device kernels, "
             f"expected {gd_mod.dispatch_launches(T)} (device events {names})")
     return n
+
+
+def require_topk_ops(torch, gt_mod, fn, T, label):
+    """Every device op of one gating_topk call ``fn`` at T tokens, counted
+    by torch.profiler, must be one of its kernels, ``topk_launches(T)`` in
+    all (no memset); returns the count."""
+    names = device_ops(torch, fn, label)
+    require(len(names) == gt_mod.topk_launches(T)
+            and all("gating_topk" in name for name in names),
+            f"{label}: one call ran the device ops {names}, expected "
+            f"{gt_mod.topk_launches(T)} gating_topk kernel(s)")
+    return len(names)
+
+
+def require_same_front_end(torch, label, topk, disp, E):
+    """gating_topk's (token, expert) pairs and gates against a
+    gating_dispatch call on the same x and router with E buckets, capacity
+    T, no bias (no drops): the same pairs, the gates bit for bit."""
+    gates, experts, _ = (t.cpu() for t in topk)
+    idx, gbuf = disp[0].cpu(), disp[1].cpu()
+    T = gates.shape[0]
+    want = sorted((int(e), t, float(g)) for t in range(T)
+                  for e, g in zip(experts[t].tolist(), gates[t].tolist()))
+    got = sorted((e, int(idx[e, c]), float(gbuf[e, c])) for e in range(E)
+                 for c in range(idx.shape[1]) if int(idx[e, c]) < T)
+    require(got == want, f"{label}: gating_dispatch's buffers do not hold "
+            f"gating_topk's pairs and gates bit for bit")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -612,6 +662,7 @@ def dispatch_branches(torch, dev, gen, flush, randn):
 # ----------------------------------------------------------------- phase 1
 def phase_kernels(torch, dev):
     from repro_torch.kernels import gating_dispatch as gd_mod
+    from repro_torch.kernels import gating_topk as gt_mod
     from repro_torch.kernels import grouped_matmul as gm_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.gating_dispatch import gating_dispatch_plain
@@ -782,7 +833,48 @@ def phase_kernels(torch, dev):
     T, d, E, K = B, 6144, 8, 2
     wr = randn(d, E, dtype=torch.float32, scale=d ** -0.5)
 
-    def dispatch_shape(T, wr=wr, K=K):
+    topk_shapes = []
+
+    def topk_shape(x, wr, K, disp, model=None):
+        """gating_topk on a gating_dispatch shape's inputs: experts and
+        counts identical to plain, gates within 1e-5 (f32 sums), two
+        launches bit-identical and bit-identical in gates and (token,
+        expert) pairs to the dispatch call ``disp`` (E buckets, C = T), its
+        device ops counted by the profiler; timed behind the L2 flush.
+        Appends its row to ``topk_shapes``."""
+        T, d = x.shape
+        E = wr.shape[1]
+        got, again = kops.gating_topk(x, wr, K), kops.gating_topk(x, wr, K)
+        want = gating_topk_plain(x, wr, K)
+        torch.cuda.synchronize()
+        label = f"gating_topk x ({T},{d}) {str(x.dtype).split('.')[-1]}, {E} experts"
+        check_topk(torch, label, got, want)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{label}: two launches on the same inputs differ")
+        require_same_front_end(torch, label, got, disp, E)
+        n = require_topk_ops(torch, gt_mod, lambda: kops.gating_topk(x, wr, K), T, label)
+        r = dict(shape=f"x ({T},{d}) {str(x.dtype).split('.')[-1]}, {E} experts, "
+                       f"top-{K} ({n} device op{'s' if n > 1 else ''} per call, "
+                       f"profiled)",
+                 err=max_err(torch, got[0], want[0]),
+                 ms=time_ms(torch, lambda: kops.gating_topk(x, wr, K), flush=flush),
+                 plain_ms=time_ms(torch, lambda: gating_topk_plain(x, wr, K),
+                                  flush=flush),
+                 library_ms=None,
+                 dispatch_ms=time_ms(torch, lambda: kops.gating_dispatch(x, wr, K, E, T),
+                                     flush=flush),
+                 bound=bound_ms(x.numel() * x.element_size() + wr.numel() * 4
+                                + T * K * 8 + E * 4, 2 * T * d * E, "float32"))
+        if model is not None:
+            r["model"] = model
+        print(f"gating_topk {r['shape']}: {r['ms']:.4f} ms (gating_dispatch "
+              f"{r['dispatch_ms']:.4f} ms on the same inputs), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms; experts and "
+              f"counts identical, gates max |err| {r['err']:.3e}, two launches "
+              f"bit-identical, pairs and gates bit-identical to gating_dispatch's")
+        topk_shapes.append(r)
+
+    def dispatch_shape(T, wr=wr, K=K, model=None):
         d, E = wr.shape
         x = randn(T, d)
         gk = dict(count_weights=torch.ones(T, device=dev))
@@ -812,10 +904,13 @@ def phase_kernels(torch, dev):
                      x, wr, K, E, T, **gk), flush=flush),
                  library_ms=None,
                  bound=bound_ms(nbytes, 2 * T * d * E, "float32"))
+        if model is not None:
+            r["model"] = model
         print(f"gating_dispatch {r['shape']}: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms; idx_buf and "
               f"counts identical, gates max |err| {r['err']:.3e}, two launches "
               f"bit-identical; smallest top-{K} probability margin {margin:.3e}")
+        topk_shape(x, wr, K, got, model)
         return r, x
 
     (r4, x), (r8, _) = dispatch_shape(T), dispatch_shape(2 * T)
@@ -854,15 +949,16 @@ def phase_kernels(torch, dev):
           f"idx_buf and counts identical, two launches bit-identical")
     rows.update(dispatch_branches(torch, dev, gen, flush, randn))
 
-    # -- gating_topk on the same router inputs: experts and counts exact,
-    # gates f32 sums -> 1e-5
-    got, want = kops.gating_topk(x, wr, K), gating_topk_plain(x, wr, K)
-    torch.cuda.synchronize()
-    check_topk(torch, "gating_topk bf16", got, want)
-    g3 = kops.gating_topk(xs, ws, 3)
-    check_topk(torch, "gating_topk f32", g3, gating_topk_plain(xs, ws, 3))
-    print(f"gating_topk x {tuple(x.shape)} top-{K}: experts and counts identical, "
-          f"gates max |err| {max_err(torch, got[0], want[0]):.3e}")
+    # -- gating_topk: held and timed above on each gating_dispatch shape;
+    # here the two-launch path (T = 128, 8 clusters and the counts
+    # launch) in f32 at mixtral's router and at the small f32 shape with
+    # top-3
+    xf = randn(128, d, dtype=torch.float32)
+    topk_shape(xf, wr, K, kops.gating_dispatch(xf, wr, K, E, 128))
+    check_topk(torch, "gating_topk f32 top-3", kops.gating_topk(xs, ws, 3),
+               gating_topk_plain(xs, ws, 3))
+    rows["gating_topk"] = dict(topk_shapes[0], shapes=topk_shapes,
+                               replaces="src/repro/kernels/gating_topk.py:89")
 
     # -- grouped_matmul: the expert phase's GEMMs for one micro-batch (8
     # experts, M = C = 4 rows) in bf16: the up projections w1 / w3
@@ -1001,8 +1097,9 @@ def registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
     with rep 10 over a wrapped 2048-slot ring (recurrentgemma-2b's local
     layers), head_dim 128 with rep 2 and softcap 50 (gemma2-27b) and
     head_dim 64 with rep 1 (whisper-large-v3), the paged kernel at head
-    dim 256; gating dispatch at 60 experts top-4, d 2048 (qwen2-moe) and
-    128 experts top-2, d 7168 (arctic) for T = 4 and 8; the grouped
+    dim 256; gating dispatch (and gating top-k on its inputs) at 60
+    experts top-4, d 2048 (qwen2-moe) and 128 experts top-2, d 7168
+    (arctic) for T = 4 and 8; the grouped
     matmul's up and down projections of both at one micro-batch of the
     8-row batch (M = C = 4)."""
     from repro_torch.kernels import ops as kops
@@ -1073,8 +1170,7 @@ def registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
     for model, d, E, K in (("qwen2-moe-a2.7b", 2048, 60, 4), ("arctic-480b", 7168, 128, 2)):
         wr = randn(d, E, dtype=torch.float32, scale=d ** -0.5)
         for T in (4, 8):
-            r, _ = dispatch_shape(T, wr=wr, K=K)
-            r["model"] = model
+            r, _ = dispatch_shape(T, wr=wr, K=K, model=model)
             rows["gating_dispatch"]["shapes"].append(r)
 
     # grouped matmul: the expert GEMMs of one micro-batch (M = C = 4)
@@ -1922,12 +2018,24 @@ def cut(cfg, n_layers):
     return dataclasses.replace(cfg, n_layers=n_layers, remainder_pattern=())
 
 
-def registry_params(torch, cfg, dtype, dev):
-    """Random weights from seed 0; the llama-3.2-vision cross layers'
-    tanh gates (0 at init, which makes each cross layer the identity)
-    opened to 0.5 so the cross path does work."""
+def rank_block_place(cfg, mesh):
+    """``init_params``' ``place`` that keeps this rank's block of each leaf
+    under ``sharding.param_specs`` (the JAX "ep" rules) as soon as the leaf
+    is drawn: ``sharding.shard_tree`` of the whole draw, leaf by leaf, so
+    a rank never holds the whole tree (the values are the seed's)."""
+    from repro_torch.launch import sharding
     from repro_torch.models.transformer import init_params
-    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    specs = dict(sharding.named_specs(sharding.param_specs(
+        cfg, init_params(cfg, device="meta"), mesh)))
+    return lambda path, t: sharding.local_shard(t, specs[path], mesh)
+
+
+def registry_params(torch, cfg, dtype, dev, place=None):
+    """Random weights from seed 0 (``place``: ``init_params``'); the
+    llama-3.2-vision cross layers' tanh gates (0 at init, which makes each
+    cross layer the identity) opened to 0.5 so the cross path does work."""
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev, place=place)
     for lp in params["layers"]:
         for g in ("gate_attn", "gate_ffn"):
             if g in lp:
@@ -2653,7 +2761,7 @@ P9_TIMEOUT = 300           # seconds for all ranks of one sub-phase
 # 9(c): one full-width qwen2-moe layer takes 19.1 GB of params, grads and
 # moments per rank; mixtral-8x22b's (46.4 GB, phase 8) does not fit twice
 # on one card, so data parallelism at its width needs a card per rank
-P9_TRAIN = dict(arch="qwen2-moe-a2.7b", n_layers=1, batch=8, seq=128, steps=2,
+P9_TRAIN = dict(arch="qwen2-moe-a2.7b", n_layers=1, batch=8, seq=128, steps=3,
                 lr=1e-3, seed=0)
 P9_STAGE_MB = 256          # the all_reduce size whose host staging is timed
 
@@ -2962,7 +3070,6 @@ def phase_processes(torch, dev):
     Returns each rank's launches of phase 9(a):
     {"gating_dispatch[owner]": [...], "grouped_matmul": [...]}."""
     from repro_torch.core.m2n import sharded_routed_experts
-    from repro_torch.launch.dist_smoke import run_ranks
     from repro_torch.models import moe as moe_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3288,7 +3395,6 @@ def phase_model_axis(torch, dev):
     one-process gradient (a: 1e-5, b: 1e-4 of each leaf's max |g|), no
     kernel launched; ms/step, the model-axis collectives' and the
     data-axis gradient all_reduce's shares of it, peak memory per rank."""
-    from repro_torch.launch.dist_smoke import run_ranks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = ROOT / "build" / "phase10"
@@ -3358,13 +3464,13 @@ def phase_model_axis(torch, dev):
 # (the kernel path: gating_dispatch's owner branch and grouped_matmul);
 # (b) the slot split: minitron-4b's 8 kv heads do not divide m = 3, so
 # each rank holds every kv head on 64 of the ring's 192 slots; prompts of
-# 150 tokens and 16 steps reach all three blocks.  Published widths, cut
+# 150 tokens and 32 steps reach all three blocks.  Published widths, cut
 # in depth only: bf16 at 4 layers (and f32 at 2 for the exact check)
 P11 = {"a": dict(arch="mixtral-8x22b", grid=(1, 2), prompt_len=16, max_seq=64,
                  m2n=True),
        "b": dict(arch="minitron-4b", grid=(1, 3), prompt_len=150, max_seq=192,
                  m2n=False)}
-P11_RUN = dict(batch=8, steps=16, bf16_layers=4, f32_layers=2, seed=0)
+P11_RUN = dict(batch=8, steps=32, bf16_layers=4, f32_layers=2, seed=0)
 P11_TIMEOUT = 240          # seconds for all ranks of one sub-phase
 
 
@@ -3542,18 +3648,19 @@ def p11_one_process(torch, which, dev, out_dir):
 
 
 def p11_child(torch, which, out_dir):
-    """One rank of 11(which): its blocks of the ``init_params`` draw (whole,
-    then cut by ``sharding.local_shard``) under ``ModelParallel`` (and
-    ``use_m2n`` over "model" for (a)).  f32: prefill + greedy decode, the
-    tokens equal to one process's and the logits within 5e-4 of their
-    range.  bf16: the same steps fed one process's tokens, the prefill's
-    logits held routing-first (``p11_check_bf16``) and one decode step
-    from one process's prefilled cache (the rank's blocks of it) by
-    phase 3's rule (``check_bf16_logits``); then greedy steps timed
-    alone, and the collectives of one decode step (recorded in the
-    checked run) replayed alone on the host clock.  Every run's launch
-    counts set to 0 just before and read just after, held to
-    ``p11_predicted``.  Prints one JSON line."""
+    """One rank of 11(which): its blocks of the ``init_params`` draw (each
+    leaf cut to them as it is drawn: ``rank_block_place``) under
+    ``ModelParallel`` (and ``use_m2n`` over "model" for (a)).  f32:
+    prefill + greedy decode, the tokens equal to one process's and the
+    logits within 5e-4 of their range.  bf16: the same steps fed one
+    process's tokens, the prefill's logits held routing-first
+    (``p11_check_bf16``) and one decode step from one process's prefilled
+    cache (the rank's blocks of it) by phase 3's rule
+    (``check_bf16_logits``); then greedy steps timed alone, and the
+    collectives of one decode step (recorded in the checked run) replayed
+    alone on the host clock.  Every run's launch counts set to 0 just
+    before and read just after, held to ``p11_predicted``.  Prints one
+    JSON line."""
     import contextlib
 
     import torch.distributed as dist
@@ -3592,10 +3699,8 @@ def p11_child(torch, which, out_dir):
     for dt, L in ((torch.float32, R["f32_layers"]), (torch.bfloat16, R["bf16_layers"])):
         name = str(dt).split(".")[-1]
         cfg = p11_cfg(which, L)
-        full = init_params(cfg, R["seed"], dt, device=dev)
-        params = sharding.shard_tree(full, sharding.param_specs(cfg, full, mesh), mesh)
-        del full
-        torch.cuda.empty_cache()
+        params = init_params(cfg, R["seed"], dt, device=dev,
+                             place=rank_block_place(cfg, mesh))
         torch.cuda.reset_peak_memory_stats()
         ref = torch.load(Path(out_dir) / f"p11{which}-{name}.pt")
         prompts = p11_prompts(torch, which, cfg, dev)
@@ -3743,7 +3848,6 @@ def phase_serving_grid(torch, dev):
     model-axis collectives' share, params and peak per rank.  Returns the
     partial branch's kernels row, its launches those of 11(b)'s bf16
     run."""
-    from repro_torch.launch.dist_smoke import run_ranks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     row = partial_attention_row(torch, dev)
@@ -3811,7 +3915,7 @@ P12_TRAIN = {"recurrentgemma-2b": dict(n_layers=3),
              "whisper-large-v3": dict(n_layers=1, encoder_layers=1),
              "llama-3.2-vision-90b": dict(n_layers=1, block_pattern=("cross",))}
 P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
-# (b) serving, 8 requests, 4 greedy steps (each a few hundred ms on a
+# (b) serving, 8 requests, 8 greedy steps (each a few hundred ms on a
 # grid: 96-194 collectives through gloo): f32 at one period (whisper's
 # encoder cut to 1 layer there), then bf16 at ``layers`` (None: whole).
 # recurrentgemma-2b on (1, 4): the RG-LRU width and 10 query heads (2.5 a
@@ -3822,13 +3926,13 @@ P12_TRAIN_RUN = dict(grid=(1, 2), batch=4, seq=128, steps=3, lr=1e-3, seed=0)
 # period (5 of 100 layers) on (1, 2)
 P12_SERVE = {
     "recurrentgemma-2b": dict(grid=(1, 4), layers=None, period=3, prompt_len=1600,
-                              max_seq=2048, steps=4),
+                              max_seq=2048, steps=8),
     "mamba2-1.3b": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                        max_seq=64, steps=4),
+                        max_seq=64, steps=8),
     "whisper-large-v3": dict(grid=(1, 2), layers=None, period=1, prompt_len=16,
-                             max_seq=64, steps=4),
+                             max_seq=64, steps=8),
     "llama-3.2-vision-90b": dict(grid=(1, 2), layers=5, period=5, prompt_len=16,
-                                 max_seq=64, steps=4),
+                                 max_seq=64, steps=8),
 }
 P12_BATCH = 8
 P12_TIMEOUT = 300          # seconds for all ranks of one sub-phase
@@ -3918,15 +4022,16 @@ def p12_train_one(torch, name, dev):
 
 def p12_train_child(torch, out_dir):
     """One rank of 12(a): for each model, its blocks of the
-    ``registry_params`` draw (whole, then cut), 3 steps on the (1, 2) grid
-    with every model-axis collective timed (host clock), the launches
-    counted; its initial blocks, step 0's gradients and the params after
-    step 0 kept on the host.  Then, one rank at a time (the other at a
-    barrier), one process's step 0 on the whole params, keeping the
-    rank's blocks of its gradients: against the rank's (1e-5 of each
-    leaf's max |g|); the update of those blocks from the rank's initial
-    blocks (leaf by leaf, its decay mask, one process's norm) against the
-    rank's blocks of one process's params after the step (1e-5 of each
+    ``registry_params`` draw (each leaf cut as it is drawn), 3 steps on
+    the (1, 2) grid with every model-axis collective timed (host clock),
+    the launches counted; step 0's gradients and the params after step 0
+    kept on the host.  Then, one rank at a time (the other at a barrier),
+    one process's step 0 on the whole params, keeping the rank's blocks
+    of its gradients: against the rank's (1e-5 of each leaf's max |g|);
+    the update of those blocks from the rank's initial blocks (drawn
+    again from the seed; leaf by leaf, its decay mask, one process's
+    norm) against the rank's blocks of one process's params after the
+    step (1e-5 of each
     leaf's range: 8(a)'s rule for the update of the same gradients); the
     rank's own params after step 0 against them, each element within what
     its gradient's gap allows through AdamW's first step (below), with
@@ -3949,6 +4054,7 @@ def p12_train_child(torch, out_dir):
     from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
     from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
     from repro_torch.training.optimizer import (OptState, adamw_update, cosine_lr,
                                                 decay_mask, leaves,
                                                 named_leaves)
@@ -3961,17 +4067,15 @@ def p12_train_child(torch, out_dir):
     host = lambda t: t.detach().to("cpu", copy=True)
     res = {"rank": rank, "device": str(tr.device), "backend": tr.backend}
     for name in P12_TRAIN:
+        t_model = time.perf_counter()
         cfg, opt, batches, extras = p12_train_setup(torch, name, tr.device)
-        full = registry_params(torch, cfg, torch.float32, tr.device)
-        specs = sharding.param_specs(cfg, full, mesh)
-        flat = [sp for _, sp in sharding.named_specs(specs)]
-        params = sharding.shard_tree(full, specs, mesh)
-        del full
-        torch.cuda.empty_cache()
+        params = registry_params(torch, cfg, torch.float32, tr.device,
+                                 place=rank_block_place(cfg, mesh))
+        flat = [sp for _, sp in sharding.named_specs(sharding.param_specs(
+            cfg, init_params(cfg, device="meta"), mesh))]
         torch.cuda.reset_peak_memory_stats()
         names = [k for k, _ in named_leaves(params)]
         mask = decay_mask(params, cfg)
-        start = [host(p) for p in leaves(params)]
         state_gb = 4 * sum(p.numel() * p.element_size() for p in leaves(params)) / 1e9
         coll_ms, grads, after0 = [], [], []
 
@@ -4012,6 +4116,10 @@ def p12_train_child(torch, out_dir):
             m1, _ = p12_train_steps(
                 torch, cfg, opt, batches[:1], extras, one, keep=blocks,
                 keep_leaf=lambda i, g: sharding.local_shard(g, flat[i], mesh).clone())
+            # the rank's initial blocks, drawn again from the seed (the same
+            # values, no copy kept through the steps)
+            start = leaves(registry_params(torch, cfg, torch.float32, tr.device,
+                                           place=rank_block_place(cfg, mesh)))
             gnorm = torch.tensor(m1[0]["grad_norm"], device=tr.device)
             clip = min(1.0, opt.grad_clip / (m1[0]["grad_norm"] + 1e-9))
             g_worst = g0_worst = u_worst = s_worst = b_worst = (0.0, "")
@@ -4026,7 +4134,7 @@ def p12_train_child(torch, out_dir):
                     g0_worst = max(g0_worst, (e, k))
                 want = sharding.local_shard(p1.detach(), sp, mesh)
                 rng = float(want.max() - want.min()) or 1.0
-                up = start[i].to(tr.device)
+                up = start[i]
                 adamw_update(opt, [up], [b], OptState(
                     torch.zeros((), dtype=torch.int32), [torch.zeros_like(up)],
                     [torch.zeros_like(up)]), decay=[mask[i]], gnorm=gnorm)
@@ -4044,12 +4152,13 @@ def p12_train_child(torch, out_dir):
                        params_bound=b_worst,
                        params_all=n_all, params_gap_lr=s_worst,
                        one_gnorm=m1[0]["grad_norm"])
-            del one, blocks
+            del one, blocks, start
             torch.cuda.empty_cache()
         dist.barrier()
         res[name] = dict(out, metrics=metrics, ms=ms, coll=coll_ms, peak_gb=peak,
-                         state_gb=state_gb, launches=launches)
-        del start, grads, after0
+                         state_gb=state_gb, launches=launches,
+                         wall_s=time.perf_counter() - t_model)
+        del grads, after0
     print("phase12a " + json.dumps(res), flush=True)
 
 
@@ -4064,9 +4173,10 @@ def p12_predicted(cfg, steps, grid=None):
     return {"decode_attention": n, "decode_attention[partial]": n if slots else 0}
 
 
-def p12_serve_setup(torch, name, dtype, dev):
+def p12_serve_setup(torch, name, dtype, dev, mesh=None):
     """(config, params, prompts, stub inputs) of 12(b)'s ``name`` in
-    ``dtype``: f32 at one period, bf16 at the serving depth."""
+    ``dtype``: f32 at one period, bf16 at the serving depth; with
+    ``mesh``, the rank's blocks of the params (``rank_block_place``)."""
     from repro_torch.models.stubs import extra_inputs
     P = P12_SERVE[name]
     if dtype == torch.float32:
@@ -4077,7 +4187,8 @@ def p12_serve_setup(torch, name, dtype, dev):
     gen = torch.Generator(device="cpu").manual_seed(12)
     prompts = torch.randint(2, cfg.vocab, (P12_BATCH, P["prompt_len"]),
                             generator=gen).to(dev)
-    return (cfg, registry_params(torch, cfg, dtype, dev), prompts,
+    place = rank_block_place(cfg, mesh) if mesh is not None else None
+    return (cfg, registry_params(torch, cfg, dtype, dev, place=place), prompts,
             extra_inputs(cfg, P12_BATCH, dtype=dtype, device=dev))
 
 
@@ -4088,6 +4199,7 @@ def p12_serve_one(torch, name, dev, out_dir):
     {dtype: (ms per step, peak GB, launches)}."""
     from repro_torch.kernels.cuda_build import launch_counts, reset_launch_counts
     P, out = P12_SERVE[name], {}
+    t0 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4109,24 +4221,26 @@ def p12_serve_one(torch, name, dev, out_dir):
                    out_dir / f"p12-{name}-{str(dt).split('.')[-1]}.pt")
         del params, kept
         torch.cuda.empty_cache()
+    print(f"phase 12(b) {name} one process (f32 and bf16, each served twice): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
 def p12_serve_child(torch, grid_key, out_dir):
     """One rank of 12(b) for the models served on ``grid_key`` ("1x4" or
-    "1x2"): its blocks of the ``registry_params`` draw under
-    ``ModelParallel``.  f32 (one period): prefill + greedy decode, the
-    tokens equal to one process's and the logits within 5e-4 of their
-    range.  bf16: the steps fed one process's tokens (each timed), one
-    decode step from one process's prefilled cache (the rank's blocks of
-    it) held by phase 11's rule (``check_bf16_logits``: 5% of the range;
-    no routing in these models), the prefill's logits beside one
-    process's printed (16 tokens through mamba2's 48 bf16 layers part by
-    ~5% of the range: each model-axis sum adds a bf16 rounding the one
+    "1x2"): its blocks of the ``registry_params`` draw (each leaf cut as
+    it is drawn) under ``ModelParallel``.  f32 (one period): prefill +
+    greedy decode, the tokens equal to one process's and the logits within
+    5e-4 of their range.  bf16: the steps fed one process's tokens (each
+    timed), one decode step from one process's prefilled cache (the rank's
+    blocks of it) held by phase 11's rule (``check_bf16_logits``: 5% of
+    the range; no routing in these models), the prefill's logits beside
+    one process's printed (16 tokens through mamba2's 48 bf16 layers part
+    by ~5% of the range: each model-axis sum adds a bf16 rounding the one
     process does not have), and the collectives of one decode step
-    replayed alone on the host clock.
-    Every run's launches set to 0 just before and read just after, held
-    to ``p12_predicted``.  Prints one JSON line."""
+    replayed alone on the host clock.  Every run's launches set to 0 just
+    before and read just after, held to ``p12_predicted``.  Prints one
+    JSON line."""
     import torch.distributed as dist
 
     from repro_torch.core.transport import MultiControllerTransport
@@ -4162,14 +4276,8 @@ def p12_serve_child(torch, grid_key, out_dir):
 
         for dt in (torch.float32, torch.bfloat16):
             label = str(dt).split(".")[-1]
-            for r in range(mesh.size("model")):     # one whole draw at a time
-                dist.barrier()
-                if r == rank:
-                    cfg, full, prompts, extras = p12_serve_setup(torch, name, dt, dev)
-                    params = sharding.shard_tree(
-                        full, sharding.param_specs(cfg, full, mesh), mesh)
-                    del full
-                    torch.cuda.empty_cache()
+            t_model = time.perf_counter()
+            cfg, params, prompts, extras = p12_serve_setup(torch, name, dt, dev, mesh)
             torch.cuda.reset_peak_memory_stats()
             ref = torch.load(Path(out_dir) / f"p12-{name}-{label}.pt")
             r = {"params_gb": sum(p.numel() * p.element_size()
@@ -4234,6 +4342,7 @@ def p12_serve_child(torch, grid_key, out_dir):
                          coll_ms=statistics.median(reps), n_coll=len(step_calls),
                          coll_bytes=sum(b.numel() * b.element_size() for b in bufs))
             r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["wall_s"] = time.perf_counter() - t_model
             res[f"{name}/{label}"] = r
             del params
             torch.cuda.empty_cache()
@@ -4308,7 +4417,6 @@ def partial_attention_row_hd256(torch, dev):
 def p12_ranks(torch, flag, arg, n, prefix):
     """Run ``chip_smoke.py flag arg DIR`` as ``n`` ranks; each rank's JSON
     line (``prefix``), in rank order."""
-    from repro_torch.launch.dist_smoke import run_ranks
     out_dir = ROOT / "build" / "phase12"
     out = run_ranks([str(ROOT / "chip_smoke.py"), flag, arg, str(out_dir)], n,
                     timeout=P12_TIMEOUT)
@@ -4336,6 +4444,7 @@ def phase_every_kind(torch, dev):
     R = P12_TRAIN_RUN
     t0 = time.perf_counter()
     one = {name: p12_train_one(torch, name, dev) for name in P12_TRAIN}
+    print(f"phase 12(a) one process: {time.perf_counter() - t0:.1f} s", flush=True)
     ranks = p12_ranks(torch, "--phase12", "a", R["grid"][0] * R["grid"][1],
                       "phase12a")
     for name, (ref, ref_ms, ref_peak) in one.items():
@@ -4360,7 +4469,8 @@ def phase_every_kind(torch, dev):
                   f"their gradients allow (at most {r['params_bound'][0]:.3f} of it, "
                   f"{r['params_bound'][1]}), {r['params_off']} of {r['params_all']} "
                   f"past 1e-5 of the range (8(a)'s count), widest gap "
-                  f"{r['params_gap_lr'][0]:.2f} lr ({r['params_gap_lr'][1]})")
+                  f"{r['params_gap_lr'][0]:.2f} lr ({r['params_gap_lr'][1]}); "
+                  f"{r['wall_s']:.1f} s on the rank")
             for s, (m, w) in enumerate(zip(r["metrics"], ref, strict=True)):
                 require(abs(m["loss"] - w["loss"]) <= 1e-5 * abs(w["loss"]),
                         f"phase 12(a) {name} rank {g['rank']} step {s}: loss "
@@ -4420,7 +4530,8 @@ def phase_every_kind(torch, dev):
                       f"{b['agree']:.3f}; f32 tokens exact, logits within "
                       f"{f['logits_rel']:.2e} of their range, {med(f['ms']):.2f} "
                       f"ms/step vs {one[name]['torch.float32'][0]:.2f}; bf16: "
-                      f"{b['check']}")
+                      f"{b['check']}; on the rank f32 {f['wall_s']:.1f} s, bf16 "
+                      f"{b['wall_s']:.1f} s")
             if name == "recurrentgemma-2b":
                 row["rank_launches"] = [
                     g[f"{name}/bfloat16"]["launches"]["decode_attention[partial]"]
@@ -4703,7 +4814,6 @@ def phase_disagg_ranks(torch, dev, want_a=None):
     ranks = {}
     for sub, n in (("a", 1 + len(P13_A["expert_ranks"])), ("b", 4)):
         ta = time.perf_counter()
-        from repro_torch.launch.dist_smoke import run_ranks
         out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase13", sub, str(out_dir)],
                         n, timeout=P13_TIMEOUT)
         got = []
@@ -5193,7 +5303,6 @@ def p14b_child(torch, out_dir):
 
 
 def p14_ranks(torch, which, n, label):
-    from repro_torch.launch.dist_smoke import run_ranks
     out_dir = ROOT / "build" / "phase14"
     out = run_ranks([str(ROOT / "chip_smoke.py"), "--phase14", which, str(out_dir)],
                     n, timeout=P14_TIMEOUT)
@@ -5424,6 +5533,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    rank_forker()       # imports torch while the kernels build
     from repro_torch.config import get_config
     from repro_torch.kernels import ops as _  # noqa: F401  registers kernels
     from repro_torch.kernels.cuda_build import REGISTRY, build_all
@@ -5457,7 +5567,11 @@ def main() -> int:
         for name in launches.keys() & rows.keys():
             rows[name]["launches"] = launches[name]
         planner_line(torch, cfg, stages)
-        rows.update(phase_paged_serving(torch, dev, cfg, params))
+        live = phase_paged_serving(torch, dev, cfg, params)
+        rows["paged_decode_attention"] = live["paged_decode_attention"]
+        # the live launch's row, with phase 1's shapes
+        rows["gating_topk"] = dict(live["gating_topk"],
+                                   shapes=rows["gating_topk"]["shapes"])
         torch.cuda.empty_cache()
         for name, n in phase_placement_serving(torch, dev, cfg, params).items():
             rows[name]["launches"] = n
@@ -5528,8 +5642,8 @@ def main() -> int:
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
                      "plain_ms": sh["plain_ms"], "bound_ms": sh["bound"][0],
                      "bound_by": sh["bound"][1], "library_ms": sh["library_ms"],
-                     **{k: sh[k] for k in ("fma_ms", "mma_ms", "model", "path_launches")
-                        if k in sh}}
+                     **{k: sh[k] for k in ("fma_ms", "mma_ms", "dispatch_ms", "model",
+                                           "path_launches") if k in sh}}
                     for sh in r["shapes"]]
         require({Path(k["source"]).name for k in kernels} == set(REGISTRY),
                 "a registered kernel has no row")
@@ -5678,6 +5792,155 @@ def phase14_only() -> int:
     return 0
 
 
+# ------------------------------------------------------ rank processes
+# Every rank of phases 9-14 is forked from one process that imported
+# torch and the port and ran a meta-device draw (touching no card) when
+# the smoke started, so a group of ranks starts without each rank doing
+# that anew on the host's shared cores (scripts/time_rank_start.py times
+# both ways).
+_FORKER = None
+
+
+def rank_forker():
+    """The running forker process (started here on first use)."""
+    global _FORKER
+    if _FORKER is None or _FORKER.poll() is not None:
+        _FORKER = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                    "--rank-forker"], stdin=subprocess.PIPE,
+                                   stdout=subprocess.PIPE, text=True)
+    return _FORKER
+
+
+def stop_rank_forker():
+    """End the forker (its stdin closed; killed if it does not leave)."""
+    global _FORKER
+    if _FORKER is None:
+        return
+    try:
+        _FORKER.stdin.close()
+        _FORKER.wait(timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        _FORKER.kill()
+        _FORKER.wait()
+    _FORKER = None
+
+
+def run_ranks(argv, procs: int, *, timeout: float):
+    """Run ``chip_smoke.py`` with ``argv[1:]`` (a rank entry point of
+    ``RANK_CHILDREN``) as ``procs`` ranks forked by the forker, with the
+    ``REPRO_*`` variables of ``repro_torch.launch.dist_smoke.run_ranks``,
+    under one deadline (every rank still running then is killed).
+    Returns [(exit code, output)] per rank, -9 for a killed one."""
+    fk = rank_forker()
+    t0 = time.perf_counter()
+    fk.stdin.write(json.dumps({"argv": [str(a) for a in argv[1:]], "procs": procs,
+                               "timeout": timeout}) + "\n")
+    fk.stdin.flush()
+    line = fk.stdout.readline()
+    require(bool(line), f"the rank forker exited ({fk.poll()}) on {argv[1:]}")
+    print(f"ranks {' '.join(map(str, argv[1:3]))}: {procs} forked, done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return [tuple(r) for r in json.loads(line)]
+
+
+def fork_ranks(argv, procs: int, timeout: float):
+    """In the forker: fork ``procs`` ranks of the entry point ``argv``,
+    each writing its output to a file of its own, and wait for them."""
+    import signal
+    import socket
+    import tempfile
+    import traceback
+
+    from repro_torch.launch.dist_smoke import ENV_COORD, ENV_NPROC, ENV_PID
+    # a fork copies only the calling thread: safe while it is the only one
+    # (importing torch and a meta draw start none)
+    if len(os.listdir("/proc/self/task")) != 1:
+        raise RuntimeError("the rank forker has threads; a fork could deadlock")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    outs, pids = [], []
+    for rank in range(procs):
+        out = tempfile.TemporaryFile()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        pid = os.fork()
+        if pid == 0:                        # the rank
+            rc = 1
+            try:
+                null = os.open(os.devnull, os.O_RDONLY)
+                os.dup2(null, 0)
+                os.dup2(out.fileno(), 1)
+                os.dup2(out.fileno(), 2)
+                os.environ.update({ENV_COORD: coord, ENV_NPROC: str(procs),
+                                   ENV_PID: str(rank)})
+                rc = RANK_CHILDREN[argv[0]](argv[1:])
+            except BaseException:
+                traceback.print_exc()
+            child_exit(rc)
+        outs.append(out)
+        pids.append(pid)
+    deadline = time.monotonic() + timeout
+    rcs = {}
+    while len(rcs) < procs and time.monotonic() < deadline:
+        for pid in pids:
+            if pid not in rcs:
+                done, status = os.waitpid(pid, os.WNOHANG)
+                if done:
+                    rcs[pid] = os.waitstatus_to_exitcode(status)
+        time.sleep(0.05)
+    for pid in pids:
+        if pid not in rcs:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+            rcs[pid] = -9
+    res = []
+    for pid, out in zip(pids, outs):
+        out.seek(0)
+        text = out.read().decode(errors="replace")
+        out.close()
+        res.append((rcs[pid], text + ("\n[parent] TIMEOUT" if rcs[pid] == -9 else "")))
+    return res
+
+
+def forker_imports():
+    """What every rank would otherwise do first, done once in the forker:
+    import torch, the port's modules the ranks import, and a meta-device
+    draw of each layer kind (a process's first meta op imports torch's
+    Python meta kernels, which takes seconds).  Starts no thread and
+    touches no card."""
+    import torch  # noqa: F401
+    import torch.distributed  # noqa: F401
+
+    import repro_torch.core.disagg  # noqa: F401
+    import repro_torch.launch.serve  # noqa: F401
+    import repro_torch.launch.sharding  # noqa: F401
+    import repro_torch.training.data_parallel  # noqa: F401
+    import repro_torch.training.loop  # noqa: F401
+    from repro_torch.config import get_config, reduced
+    from repro_torch.models.transformer import init_params
+    for name in ("mixtral-8x22b", "recurrentgemma-2b", "mamba2-1.3b",
+                 "whisper-large-v3", "llama-3.2-vision-90b"):
+        init_params(reduced(get_config(name)), device="meta")
+
+
+def rank_forker_main() -> int:
+    """``chip_smoke.py --rank-forker``: import torch once (one OpenMP
+    thread, as every rank), then fork the groups of ranks asked for on
+    stdin, one JSON request a line, answering each on stdout."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    sys.path.insert(0, str(SRC))
+    forker_imports()
+    for line in sys.stdin:
+        req = json.loads(line)
+        res = fork_ranks(req["argv"], req["procs"], req["timeout"])
+        sys.stdout.write(json.dumps(res) + "\n")
+        sys.stdout.flush()
+    return 0
+
+
 def child_exit(rc: int):
     """Leave a rank process without the interpreter's finalization, where
     the gloo groups' leftover C++ objects can abort it ("terminate called
@@ -5688,27 +5951,21 @@ def child_exit(rc: int):
     os._exit(rc)
 
 
+# the rank entry points, by flag: ``chip_smoke.py FLAG ARGS...``
+RANK_CHILDREN = {"--phase9": phase9_child, "--phase10": phase10_child,
+                 "--phase11": phase11_child, "--phase12": phase12_child,
+                 "--phase13": phase13_child, "--phase14": phase14_child}
+ONLY = {"--phase10-only": phase10_only, "--phase11-only": phase11_only,
+        "--phase12-only": phase12_only, "--phase13-only": phase13_only,
+        "--phase14-only": phase14_only}
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--phase14"]:
-        child_exit(phase14_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase14-only"]:
-        sys.exit(phase14_only())
-    if sys.argv[1:2] == ["--phase13"]:
-        child_exit(phase13_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase13-only"]:
-        sys.exit(phase13_only())
-    if sys.argv[1:2] == ["--phase12"]:
-        child_exit(phase12_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase12-only"]:
-        sys.exit(phase12_only())
-    if sys.argv[1:2] == ["--phase11"]:
-        child_exit(phase11_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase11-only"]:
-        sys.exit(phase11_only())
-    if sys.argv[1:2] == ["--phase9"]:
-        child_exit(phase9_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase10"]:
-        child_exit(phase10_child(sys.argv[2:]))
-    if sys.argv[1:2] == ["--phase10-only"]:
-        sys.exit(phase10_only())
-    sys.exit(main())
+    flag = sys.argv[1] if len(sys.argv) > 1 else None
+    if flag in RANK_CHILDREN:
+        child_exit(RANK_CHILDREN[flag](sys.argv[2:]))
+    if flag == "--rank-forker":
+        sys.exit(rank_forker_main())
+    try:
+        sys.exit(ONLY.get(flag, main)())
+    finally:
+        stop_rank_forker()

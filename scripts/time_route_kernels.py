@@ -12,18 +12,20 @@ a commit unpacked under ``build/``, or this checkout, ``.``).  Trees run
 in the order given, each in a process of its own that imports the
 tree's ``src/repro_torch`` and builds its kernels into the tree's
 ``build/repro_torch_kernels``.  ``--make-one-group DIR`` writes a copy
-of this checkout's ``src`` to ``DIR`` in which ``gating_dispatch``'s
-cluster kernel gives each thread one logit over all the rows of its
-block (G = 1), instead of splitting the rows among G thread groups
-when there are fewer logits than threads.
+of this checkout's ``src`` to ``DIR`` in which the router kernels'
+cluster front end (``csrc/route.cuh``) gives each thread one logit over
+all the rows of its block (G = 1), instead of splitting the rows among
+G thread groups when there are fewer logits than threads.
 
 Each tree's run checks each kernel against its plain version and times
 it with ``chip_smoke.time_ms`` (median of 50 calls, a spin kernel
 before each), once with an L2 flush before every call (as
 ``chip_smoke.py`` times it) and once without (inputs warm in L2), at
 mixtral-8x22b's router for one decode micro-batch: x (T, 6144) bf16,
-router (6144, 8) f32, top-2, ``gating_topk`` at T = 4 and
-``gating_dispatch`` at T = 4 and 8 with capacity C = T; then
+router (6144, 8) f32, top-2, ``gating_topk`` and ``gating_dispatch``
+(capacity C = T) at T = 4 and 8, and both at T = 4 at qwen2-moe-a2.7b's
+router (d 2048, 60 experts, top-4) and arctic-480b's (d 7168, 128
+experts, top-2); then
 ``gating_dispatch``'s two branches at T = 4: the placement tables of
 4 nodes x 4 slots (the rebalanced path's call) and the owner filter of
 shard 0 of 4 (the m2n path's), null for a tree without them.  It prints
@@ -44,12 +46,12 @@ ROW_GROUPS = "  const int G = nout >= NT ? 1 : NT / nout;\n"
 
 
 def make_one_group(dst: Path):
-    """Copy this checkout's src to dst/src with G = 1 in the cluster kernel."""
+    """Copy this checkout's src to dst/src with G = 1 in the cluster front end."""
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = dst / "src" / "repro_torch" / "csrc" / "gating_dispatch.cu"
+    cu = dst / "src" / "repro_torch" / "csrc" / "route.cuh"
     text = cu.read_text()
     if text.count(ROW_GROUPS) != 1:
         raise SystemExit(f"{cu}: the row-group line was not found once")
@@ -80,21 +82,26 @@ def worker(tree: Path) -> dict:
                 "warm_ms": chip_smoke.time_ms(torch, fn, reps=50)}
 
     out = {"tree": str(tree)}
-    x = torch.randn(4, d, device=dev, generator=gen).bfloat16()
-    got, want = kops.gating_topk(x, wr, K), gating_topk_plain(x, wr, K)
-    chip_smoke.check_topk(torch, "gating_topk", got, want)
-    out["gating_topk T=4"] = times(lambda: kops.gating_topk(x, wr, K))
-    for T in (4, 8):
-        x = torch.randn(T, d, device=dev, generator=gen).bfloat16()
-        cw = torch.ones(T, device=dev)
-        got = kops.gating_dispatch(x, wr, K, E, T, count_weights=cw)
-        want = gating_dispatch_plain(x, wr, K, E, T, count_weights=cw)
-        chip_smoke.require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
-                           f"gating_dispatch T={T}: idx_buf or counts differ")
-        chip_smoke.check_close(torch, f"gating_dispatch T={T}", got[1], want[1],
-                               1e-5, 1e-5)
-        out[f"gating_dispatch T={T}"] = times(
-            lambda: kops.gating_dispatch(x, wr, K, E, T, count_weights=cw))
+    routers = (("", d, E, K), (" qwen2-moe-a2.7b", 2048, 60, 4),
+               (" arctic-480b", 7168, 128, 2))
+    for model, dm, Em, Km in routers:
+        wm = wr if not model else (torch.randn(dm, Em, device=dev, generator=gen)
+                                   * dm ** -0.5).float()
+        for T in ((4, 8) if not model else (4,)):
+            x = torch.randn(T, dm, device=dev, generator=gen).bfloat16()
+            got, want = kops.gating_topk(x, wm, Km), gating_topk_plain(x, wm, Km)
+            chip_smoke.check_topk(torch, f"gating_topk{model} T={T}", got, want)
+            out[f"gating_topk{model} T={T}"] = times(lambda: kops.gating_topk(x, wm, Km))
+            cw = torch.ones(T, device=dev)
+            got = kops.gating_dispatch(x, wm, Km, Em, T, count_weights=cw)
+            want = gating_dispatch_plain(x, wm, Km, Em, T, count_weights=cw)
+            chip_smoke.require(torch.equal(got[0], want[0])
+                               and torch.equal(got[2], want[2]),
+                               f"gating_dispatch{model} T={T}: idx_buf or counts differ")
+            chip_smoke.check_close(torch, f"gating_dispatch{model} T={T}", got[1],
+                                   want[1], 1e-5, 1e-5)
+            out[f"gating_dispatch{model} T={T}"] = times(
+                lambda: kops.gating_dispatch(x, wm, Km, Em, T, count_weights=cw))
     # the kernel's placement-table and owner-filter branches at T = 4, after
     # the rows above so they leave them as they were; null where the
     # tree's kernel or package has no such branch

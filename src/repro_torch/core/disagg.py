@@ -152,39 +152,72 @@ def rank_params(cfg: ModelConfig, params: dict, roles, rank: int, *,
     whole experts, copied so the rest can be freed (with M2N also the
     router, which JAX replicates on the expert mesh), or a dense FFN's
     column block of w1 / w3 and row block of w2.  Leaves already cut to
-    the rank's block are kept as they are."""
+    the rank's block (``rank_place``) are kept as they are."""
+    place = rank_place(cfg, roles, rank, use_m2n=use_m2n,
+                       inline_prefill=inline_prefill)
+    return params if place is None else _placed(params, place)
+
+
+def rank_place(cfg: ModelConfig, roles, rank: int, *, use_m2n: bool = False,
+               inline_prefill: bool = False):
+    """What rank ``rank`` keeps of each leaf, as ``init_params``' ``place``
+    (``place(path, leaf)``: the leaf, its block, or an empty tensor where
+    the rank keeps nothing of it), so the rank can draw its part of the
+    model leaf by leaf, never holding it whole; None where the rank keeps
+    every leaf."""
     role = roles.role(rank)
     if role in ("prefill", "attn+expert") or (role == "attn" and inline_prefill):
-        return params
+        return None
     split = EXPERT_KEYS if cfg.moe is not None else DENSE_KEYS
     if role == "attn":
-        return dict({k: params[k] for k in ("embed", "final_norm", "lm_head")
-                     if k in params},
-                    layers=[{k: v for k, v in lp.items() if k not in split}
-                            for lp in params["layers"]])
+        def place(path, t):
+            parts = path.split("/")
+            keep = (parts[0] in ("embed", "final_norm", "lm_head")
+                    or (parts[0] == "layers" and parts[-1] not in split))
+            return t if keep else t.new_empty((0,))
+        return place
     if role != "expert":
         raise ValueError(f"rank {rank} has no stage in {roles}")
     n, j = len(roles.expert), roles.expert.index(rank)
     check_expert_group(cfg, n)
-    layers = []
-    for lp in params["layers"]:
-        if cfg.moe is not None:
-            E = cfg.moe.n_experts
-            b = E // n
-            keep = {k: (lp[k][j * b:(j + 1) * b].clone()
-                        if lp[k].shape[0] == E else lp[k]) for k in EXPERT_KEYS}
-            if use_m2n:
-                keep.update({k: lp[k] for k in ("router", "router_bias")
-                             if k in lp})
-        else:
-            f = cfg.d_ff // n
-            cols = lambda t: (t[:, j * f:(j + 1) * f].clone()
-                              if t.shape[1] == cfg.d_ff else t)
-            keep = {"w1": cols(lp["w1"]), "w3": cols(lp["w3"]),
-                    "w2": (lp["w2"][j * f:(j + 1) * f].clone()
-                           if lp["w2"].shape[0] == cfg.d_ff else lp["w2"])}
-        layers.append(keep)
-    return {"layers": layers}
+    kept = split + (("router", "router_bias") if use_m2n and cfg.moe is not None
+                    else ())
+
+    def place(path, t):
+        parts = path.split("/")
+        if parts[0] != "layers" or parts[-1] not in kept:
+            return t.new_empty((0,))
+        return _expert_block(cfg, parts[-1], t, n, j)
+    return place
+
+
+def _placed(tree, place, prefix: str = ""):
+    """``place`` of every leaf of ``tree``, without the leaves it empties
+    and the dict entries left with no leaf (list entries keep their
+    places: a layer stays a layer)."""
+    if isinstance(tree, torch.Tensor):
+        return place(prefix, tree)
+    if isinstance(tree, dict):
+        out = {k: _placed(v, place, f"{prefix}/{k}" if prefix else k)
+               for k, v in tree.items()}
+        return {k: v for k, v in out.items() if any(t.numel() for t in _tensors(v))}
+    return type(tree)(_placed(v, place, f"{prefix}/{i}") for i, v in enumerate(tree))
+
+
+def _expert_block(cfg: ModelConfig, name: str, t: torch.Tensor, n: int, j: int):
+    """Expert rank j of n's block of the leaf ``name`` (a copy): E / n whole
+    experts, or a dense FFN's column block of w1 / w3 and row block of w2;
+    a leaf already cut to it as it is."""
+    if cfg.moe is not None:
+        b = cfg.moe.n_experts // n
+        return (t[j * b:(j + 1) * b].clone()
+                if name in EXPERT_KEYS and t.shape[0] == cfg.moe.n_experts else t)
+    f = cfg.d_ff // n
+    if name in ("w1", "w3") and t.shape[1] == cfg.d_ff:
+        return t[:, j * f:(j + 1) * f].clone()
+    if name == "w2" and t.shape[0] == cfg.d_ff:
+        return t[j * f:(j + 1) * f].clone()
+    return t
 
 
 @dataclass

@@ -34,29 +34,23 @@
 // Design: one launch of a thread-block cluster of CLUSTER = 8 blocks per
 // tile of up to TOK = 16 tokens (blocks tile * CLUSTER .. + 7 of a
 // one-dimensional grid).
-//  * Block r of the cluster owns rows [r * per, (r + 1) * per) of d (per
-//    a multiple of 8, from the wrapper's chunk_plan).  Its rows of w are
-//    one contiguous span of 32-byte rows (E = 8), copied to shared memory
-//    with 16-byte cp.async, together with its slice of x, all issued
-//    before the first is used; a chunk larger than the shared-memory
-//    budget is walked in tiles of rt rows.  Its threads split the
-//    (token, expert) logits and, when there are fewer logits than
-//    threads, the rows too (G groups of 8-row blocks, summed in group
-//    order; G = 1 from 256 logits on), so the block's partial logits
-//    (tokens x E, f32) land in its shared memory.  At the decode shape
-//    (32 logits, G = 8) the call took 0.0110 ms against 0.0123 ms with
-//    one logit per thread (G = 1), L2 flushed, on an NVIDIA H100 80GB
-//    HBM3 at 700 W (scripts/time_route_kernels.py).  Block 0 loads the
-//    bias, the count weights and the placement tables for its epilogue
-//    meanwhile (the tables after the tiles, so the tile plan, and with it
-//    the logits, do not depend on them).
-//  * After cluster.sync(), block 0 reads every block's partials through
-//    distributed shared memory and sums them in chunk order 0..7, then
-//    adds the bias: the sum order is fixed, so two launches on the same
-//    inputs agree bit for bit, with no global scratch, atomics or
-//    counters.  One warp per token then does the softmax and the top-k
-//    with the experts across its lanes (route.cuh's softmax_topk_warp,
-//    shared with gating_topk.cu).
+//  * The front end, up to the top-k, is route.cuh's router_cluster_topk,
+//    shared with gating_topk.cu: block r of the cluster sums rows
+//    [r * per, (r + 1) * per) of d (the wrapper's chunk_plan) from
+//    shared-memory tiles filled by 16-byte cp.async, its threads
+//    splitting the logits and, below 256 logits, the rows (G row groups);
+//    after cluster.sync() block 0 sums the partials in chunk order through
+//    distributed shared memory, adds the bias, and one warp per token
+//    does the softmax and the top-k.  The sum order is fixed, so two
+//    launches on the same inputs agree bit for bit, with no global
+//    scratch, atomics or counters, and gating_topk gives the same gates
+//    and experts.  At the decode shape (32 logits, G = 8) the call took
+//    0.0110 ms against 0.0123 ms with one logit per thread (G = 1), L2
+//    flushed, on an NVIDIA H100 80GB HBM3 at 700 W
+//    (scripts/time_route_kernels.py).  Block 0 loads the count weights and
+//    the placement tables for its epilogue before it (the tables after
+//    the front end's tiles in shared memory, so the tile plan, and with
+//    it the logits, do not depend on them).
 //  * T <= TOK (one cluster, the decode path): block 0 goes on to the
 //    dispatch.  Warp j takes output row j and expert j.  It scans the
 //    T*K entries in token order, 32 at a time: each lane maps its entry
@@ -75,56 +69,17 @@
 //    E <= 32).
 #include "route.cuh"
 
-#include <cooperative_groups.h>
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;               // threads per block
-constexpr int CLUSTER = 8;            // blocks per cluster: d is split 8 ways
-constexpr int TOK = 16;               // tokens per cluster
-constexpr int ALIGN_ROWS = 8;         // chunk and tile starts are multiples of 8 rows
-constexpr int SMEM_BYTES = 40 * 1024; // dynamic shared memory per block
+constexpr int NT = repro::ROUTE_NT;
+constexpr int CLUSTER = repro::ROUTE_CLUSTER;
+constexpr int TOK = repro::ROUTE_TOK;
 constexpr int MAX_E = repro::ROUTE_MAX_E;
 constexpr int MAX_K = repro::ROUTE_MAX_K;
 constexpr int MAX_ROWS = 256;         // rows of the output buffers
 constexpr int MAX_TABLE = 4096;       // E * R entries of each placement table
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) & ~(size_t)15;
-}
-
-// floats of the row groups' sums: G * TT * E <= max(NT, TT * E)
-__host__ __device__ __forceinline__ int acc_floats(int TT, int E) {
-  return TT * E > NT ? TT * E : NT;
-}
-
-// rows of d per shared-memory tile: as many as the budget holds beside
-// the row groups' sums, at most the chunk
-template <typename X>
-int tile_rows(int TT, int E, int per) {
-  const size_t fixed = align16((size_t)acc_floats(TT, E) * 4);
-  const size_t row = (size_t)E * 4 + (size_t)TT * sizeof(X);
-  const int rt = (int)((SMEM_BYTES - fixed) / row) / ALIGN_ROWS * ALIGN_ROWS;
-  return rt < per ? rt : per;
-}
-
-template <typename X>
-size_t smem_bytes(int TT, int E, int rt) {
-  return align16((size_t)acc_floats(TT, E) * 4) + (size_t)rt * E * 4 +
-         (size_t)TT * rt * sizeof(X);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The placement tables (E, R) in shared memory; node == nullptr: none.
 struct Tables {
@@ -234,24 +189,6 @@ __device__ __forceinline__ Tables load_tables(const int* rep_node, const int* re
   return Tables{node_s, slot_s, cum_s, R};
 }
 
-// 8 consecutive elements of x from shared memory, as f32 (16 or 32 bytes)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
-  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-}
-
 template <typename X>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     gating_dispatch_kernel(const X* __restrict__ x, const float* __restrict__ w,
@@ -265,118 +202,22 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
                            float* __restrict__ counts, int T, int d, int E, int K,
                            int C, int per, int rt, int R, int S, int owner,
                            int n_rows, int tbl_off) {
-  constexpr int VX = 16 / sizeof(X);  // elements of x per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float gate_s[TOK * MAX_K];
   __shared__ int expert_s[TOK * MAX_K];
-  __shared__ float bias_s[MAX_E];
   __shared__ float cw_s[TOK];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), tid = threadIdx.x;
-  const int TT = min(T, TOK);
-  const int t0 = (int)(blockIdx.x / CLUSTER) * TOK, nt = min(TOK, T - t0);
+  const int rank = (int)cooperative_groups::this_cluster().block_rank(), tid = threadIdx.x;
+  const int t0 = (int)(blockIdx.x / CLUSTER) * TOK;
   const bool fused = T <= TOK;
   Tables tb{nullptr, nullptr, nullptr, 0};
   if (rank == 0) {  // block 0's epilogue inputs, loaded while the others work
-    for (int e = tid; e < E; e += NT) bias_s[e] = bias != nullptr ? bias[e] : 0.f;
     if (fused && tid < T) cw_s[tid] = cw != nullptr ? cw[tid] : 1.f;
     if (fused && rep_node != nullptr)  // after the tiles: visible at cluster.sync()
       tb = load_tables(rep_node, rep_slot, rep_cum, E * R, R, smem + tbl_off);
   }
-  // (G, nt, E) row groups' sums; group 0's become the partial logits
-  float* acc_s = reinterpret_cast<float*>(smem);
-  float* w_s = reinterpret_cast<float*>(smem + align16((size_t)acc_floats(TT, E) * 4));
-  X* x_s = reinterpret_cast<X*>(w_s + (size_t)rt * E);  // (nt, rt) slice of x
-
-  // logit o = t * E + e.  G groups of threads split the rows: group g
-  // takes the 8-row blocks g, g + G, ... of a tile (one 16-byte load of
-  // x and 8 independent loads of w each) and sums into acc_s[g * nout +
-  // o].  With fewer logits than threads G = NT / nout and each thread
-  // has one logit; otherwise G = 1 and each thread sums logits tid, tid
-  // + NT, ...  Each slot starts at 0, has one writer and adds each
-  // tile's sum.
-  const int nout = nt * E;
-  const int G = nout >= NT ? 1 : NT / nout;
-  const int g = tid / nout;  // 0 when G == 1
-  for (int i = tid; i < G * nout; i += NT) acc_s[i] = 0.f;
-
-  const int r_begin = min(d, rank * per), r_end = min(d, r_begin + per);
-  for (int r0 = r_begin; r0 < r_end; r0 += rt) {
-    const int rows = min(rt, r_end - r0);
-    const float* wsrc = w + (size_t)r0 * E;
-    const int nw = rows * E, nw4 = nw / 4;
-    for (int i = tid; i < nw4; i += NT) cp_async16(w_s + 4 * i, wsrc + 4 * i);
-    for (int i = 4 * nw4 + tid; i < nw; i += NT) w_s[i] = wsrc[i];
-    if (d % VX == 0) {  // every row of x starts on a 16-byte boundary
-      const int nv = rows / VX;
-      for (int i = tid; i < nt * nv; i += NT) {
-        const int t = i / nv, c = i % nv;
-        cp_async16(x_s + (size_t)t * rt + c * VX,
-                   x + (size_t)(t0 + t) * d + r0 + c * VX);
-      }
-    } else {
-      for (int i = tid; i < nt * rows; i += NT) {
-        const int t = i / rows, c = i % rows;
-        x_s[(size_t)t * rt + c] = x[(size_t)(t0 + t) * d + r0 + c];
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 1
-    for (int o = tid % nout; g < G && o < nout; o += NT) {
-      const int t = o / E, e = o % E;
-      const X* xr = x_s + (size_t)t * rt;
-      float a = 0.f;
-      for (int b = g; b < rows / 8; b += G) {
-        float xf[8], wf[8];
-        load8(xr + b * 8, xf);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) wf[i] = w_s[(b * 8 + i) * E + e];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a = fmaf(xf[i], wf[i], a);
-      }
-      if (g == 0)  // the ragged end of d (d % 8 != 0)
-        for (int i = rows / 8 * 8; i < rows; ++i)
-          a = fmaf(repro::to_f(xr[i]), w_s[i * E + e], a);
-      acc_s[g * nout + o] += a;
-    }
-    __syncthreads();
-  }
-  __syncthreads();  // a block with no rows has only zeroed its sums
-  for (int o = tid; o < nout; o += NT) {  // the groups' sums, in group order
-    float s = acc_s[o];
-    for (int q = 1; q < G; ++q) s += acc_s[q * nout + o];
-    acc_s[o] = s;
-  }
-  cluster.sync();  // every block's partials are visible to block 0
-
-  if (rank == 0) {
-    const int lane = tid & 31, J = (E + 31) / 32;
-    for (int t = tid >> 5; t < nt; t += NT / 32) {
-      float v[repro::ROUTE_LANE_E];
-#pragma unroll
-      for (int j = 0; j < repro::ROUTE_LANE_E && j < J; ++j) {
-        const int e = lane + 32 * j;
-        v[j] = 0.f;
-        if (e < E) {
-          float pr[CLUSTER];
-#pragma unroll
-          for (int r = 0; r < CLUSTER; ++r)
-            pr[r] = cluster.map_shared_rank(acc_s, r)[t * E + e];
-          float s = pr[0];
-#pragma unroll
-          for (int r = 1; r < CLUSTER; ++r) s += pr[r];
-          v[j] = s + bias_s[e];
-        }
-      }
-      if (fused)
-        repro::softmax_topk_warp(v, E, K, gate_s + t * K, expert_s + t * K);
-      else
-        repro::softmax_topk_warp(v, E, K, gates + (size_t)(t0 + t) * K,
-                                 experts + (size_t)(t0 + t) * K);
-    }
-  }
-  cluster.sync();  // block 0 is done reading; the other blocks may exit
+  repro::router_cluster_topk<X>(x, w, bias, T, d, E, K, per, rt, smem,
+                                fused ? gate_s : gates + (size_t)t0 * K,
+                                fused ? expert_s : experts + (size_t)t0 * K);
   if (rank != 0 || !fused) return;
   dispatch_block(gate_s, expert_s, cw_s, tb, S, owner, n_rows, idx_buf, gate_buf,
                  counts, T, E, K, C);
@@ -433,10 +274,7 @@ extern "C" int gating_dispatch(const void* x, const void* w, const void* bias,
                                int per, int R, int S, int owner, int rows, int dtype,
                                void* stream) {
   const bool tables = rep_node != nullptr;
-  const long long tiles = (T + TOK - 1) / TOK;
-  if (T <= 0 || d <= 0 || E <= 0 || E > MAX_E || K <= 0 || K > MAX_K ||
-      K > E || C <= 0 || per <= 0 || per % ALIGN_ROWS != 0 ||
-      (long long)per * CLUSTER < d || tiles * CLUSTER > 0x7fffffffLL || S <= 0 ||
+  if (repro::route_check(T, d, E, K, per) != cudaSuccess || C <= 0 || S <= 0 ||
       rows <= 0 || rows > MAX_ROWS || owner < -1 || (owner >= 0 && rows != S) ||
       (tables && (rep_slot == nullptr || rep_cum == nullptr || R <= 0 ||
                   (long long)E * R > MAX_TABLE)))
@@ -446,16 +284,17 @@ extern "C" int gating_dispatch(const void* x, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)x | (uintptr_t)w) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = (unsigned)((T + TOK - 1) / TOK * CLUSTER);
   const int TT = T < TOK ? T : TOK;
   const size_t tbl_bytes = tables ? (size_t)E * R * 12 : 0;
   REPRO_DISPATCH_DTYPE(dtype, X, {
-    const int rt = tile_rows<X>(TT, E, per);
-    const size_t tbl_off = align16(smem_bytes<X>(TT, E, rt));
+    const int rt = repro::route_tile_rows<X>(TT, E, per);
+    const size_t tbl_off = repro::align16(repro::route_smem_bytes<X>(TT, E, rt));
     const size_t bytes = tbl_off + (fused ? tbl_bytes : 0);
     static size_t granted = 48 * 1024;
     const cudaError_t e = allow_smem(gating_dispatch_kernel<X>, bytes, granted);
     if (e != cudaSuccess) return (int)e;
-    gating_dispatch_kernel<X><<<(unsigned)(tiles * CLUSTER), NT, bytes, s>>>(
+    gating_dispatch_kernel<X><<<blocks, NT, bytes, s>>>(
         (const X*)x, (const float*)w, (const float*)bias, (const float*)count_weights,
         (const int*)rep_node, (const int*)rep_slot, (const float*)rep_cum,
         (float*)gates, (int*)experts, (int*)idx_buf, (float*)gate_buf,

@@ -28,9 +28,8 @@ With ``--transport multi`` and more than one process (the ``REPRO_*``
 variables, or OpenMPI's / SLURM's) the engine serves on the JAX
 launcher's layout of ranks (``launch.mesh.ServingRoles``): the last
 ``--prefill-devices`` ranks prefill, the first half of the others run
-attention, the rest the experts.  Each rank draws the weights from the
-seed in turn (the others at a barrier) and keeps what its role reads;
-rank 0 prints.  In one process ``multi`` is the in-process hop.
+attention, the rest the experts.  Each rank draws from the seed only
+what its role reads, each leaf cut as it is drawn; rank 0 prints.  In one process ``multi`` is the in-process hop.
 """
 from __future__ import annotations
 
@@ -44,7 +43,7 @@ import torch
 
 from repro_torch.config import get_config, reduced
 from repro_torch.core.disagg import (STAGES, DisaggPlan, DisaggregatedInstance,
-                                     rank_params)
+                                     rank_params, rank_place)
 from repro_torch.core.transport import HOP_KINDS, TRANSPORTS, make_transport
 from repro_torch.launch.mesh import ServingRoles
 from repro_torch.models.transformer import init_params
@@ -151,9 +150,11 @@ def build(sc: ServingConfig):
     return cfg, engine_for(sc, cfg, params, transport)
 
 
-def draw_params(sc: ServingConfig, cfg, device) -> dict:
-    """The model's weights from ``sc.seed`` (with the zipf router bias)."""
-    params = init_params(cfg, sc.seed, getattr(torch, sc.dtype), device=device)
+def draw_params(sc: ServingConfig, cfg, device, place=None) -> dict:
+    """The model's weights from ``sc.seed`` (with the zipf router bias);
+    ``place``: ``init_params``' (what the tree keeps of each leaf)."""
+    params = init_params(cfg, sc.seed, getattr(torch, sc.dtype), device=device,
+                         place=place)
     if sc.zipf_route_bias > 0.0:
         inject_router_bias(params, cfg,
                            zipf_router_bias(cfg.moe.n_experts,
@@ -162,22 +163,15 @@ def draw_params(sc: ServingConfig, cfg, device) -> dict:
 
 
 def draw_for_rank(sc: ServingConfig, cfg, transport) -> dict:
-    """This rank's parameters (``core.disagg.rank_params``): the ranks
-    draw the whole model from the seed in turn, each keeping what its
-    role reads while the others wait at a barrier, so ranks that share a
-    card hold one whole draw at a time."""
-    kept, me = None, transport.process_index
-    for r in range(transport.process_count):
-        if r == me:
-            full = draw_params(sc, cfg, transport.device or sc.device)
-            kept = rank_params(cfg, full, transport.roles, me,
-                               use_m2n=sc.use_m2n,
-                               inline_prefill=not sc.prefill_devices)
-            del full
-            if torch.cuda.is_available():
-                torch.cuda.empty_cache()
-        transport.barrier()
-    return kept
+    """This rank's parameters (``core.disagg.rank_params``), each leaf cut
+    to what the rank's role keeps as soon as it is drawn
+    (``core.disagg.rank_place``), so only a rank that keeps the whole
+    model holds it whole.  The values are the seed's."""
+    me = transport.process_index
+    kw = dict(use_m2n=sc.use_m2n, inline_prefill=not sc.prefill_devices)
+    params = draw_params(sc, cfg, transport.device or sc.device,
+                         place=rank_place(cfg, transport.roles, me, **kw))
+    return rank_params(cfg, params, transport.roles, me, **kw)
 
 
 def engine_for(sc: ServingConfig, cfg, params: dict, transport=None) -> Engine:

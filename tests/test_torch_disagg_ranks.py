@@ -20,6 +20,10 @@ against the JAX runtime on the same split of forced host devices
     (1 + 4), with and without M2N: tokens equal to the static run's and to
     JAX's, rebalances, at least one replicated expert, an imbalance below
     the static run's and equal to JAX's, the expert loads JAX's.
+
+A rank draws only what its role keeps (``launch.serve.draw_for_rank``
+through ``core.disagg.rank_place``): equal, leaf for leaf, to what
+``rank_params`` keeps of a whole draw, on every rank of each layout.
 """
 import pickle
 
@@ -66,6 +70,33 @@ def runs(tmp_path_factory):
     one = {"pp": td.one_process(pj, dict(base, m2n=True, expert_ranks=(2, 3))),
            "static": td.one_process(pj, dict(zipf, **X4))}
     return want, got, one
+
+
+@pytest.mark.parametrize("arch,world,prefill,kw", [
+    ("mixtral-8x22b", 5, 0, dict(attn_ranks=[0], expert_ranks=[1, 2, 3, 4])),
+    ("mixtral-8x22b", 4, 1, {}),
+    ("granite-3-8b", 3, 0, {})])
+@pytest.mark.parametrize("m2n", [False, True])
+def test_rank_place_draws_what_rank_params_keeps(arch, world, prefill, kw, m2n):
+    from repro_torch.config import get_config, reduced
+    from repro_torch.core.disagg import rank_params, rank_place
+    from repro_torch.launch.mesh import ServingRoles
+    from repro_torch.launch.serve import draw_params
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.training.optimizer import named_leaves
+    cfg = reduced(get_config(arch))
+    moe = cfg.moe is not None
+    sc = ServingConfig(arch=arch, use_m2n=m2n and moe, prefill_devices=prefill,
+                       zipf_route_bias=1.2 if moe else 0.0, seed=3)
+    roles = ServingRoles(world, prefill, **kw)
+    whole = draw_params(sc, cfg, "cpu")
+    for rank in range(world):
+        rk = dict(use_m2n=sc.use_m2n, inline_prefill=not prefill)
+        want = dict(named_leaves(rank_params(cfg, whole, roles, rank, **rk)))
+        placed = draw_params(sc, cfg, "cpu", place=rank_place(cfg, roles, rank, **rk))
+        got = dict(named_leaves(rank_params(cfg, placed, roles, rank, **rk)))
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want), (roles.role(rank), rank)
 
 
 def same_on_every_rank(results, key):

@@ -14,8 +14,8 @@ against the JAX engine on the same split of forced host devices
     the prefix cache's hits JAX's;
   * one decode rank beside a prefill rank (2 ranks): the one-card
     runtime on the decode rank, its KV from the prefill rank;
-  * ``launch.serve.run(transport="multi")`` on 4 ranks (each drawing the
-    weights from the seed in turn) against ``run`` in one process;
+  * ``launch.serve.run(transport="multi")`` on 4 ranks (each drawing from
+    the seed what its role keeps) against ``run`` in one process;
   * an expert group that does not divide the experts (1 + 3 ranks) is
     refused on every rank, as JAX refuses it;
   * ``ServingRoles`` splits ranks as JAX's ``split_serving_devices`` and

@@ -12,8 +12,9 @@ the card; they skip on a machine without one.  bf16 cases there compare
 at 2e-2 (one bf16 rounding of the output plus f32 sums in another
 order).  The CPU also holds a plain mirror of the decode-attention
 kernel's split of the ring and its merge against the plain version, and
-a plain mirror of the gating-dispatch kernel's chunked router sum
-against the JAX package.  The JAX cases get JAX through a fixture that
+plain mirrors of the router kernels' chunked router sum (the cluster
+front end gating_dispatch and gating_topk share) against the JAX
+package.  The JAX cases get JAX through a fixture that
 skips where it is not installed, so the file also collects on the
 card's machine.
 """
@@ -494,6 +495,39 @@ def test_gating_dispatch_launches_by_token_count():
     assert [gd_mod.dispatch_launches(t) for t in (1, 4, 16, 17, 128)] == [1, 1, 1, 2, 2]
 
 
+def _chunked_topk(x, w, k):
+    """A plain mirror of the gating_topk kernel's arithmetic (the cluster
+    front end it shares with gating_dispatch): the partial logits
+    x[:, a:b] @ w[a:b] over ``chunk_plan`` added in chunk order, then the
+    softmax, ``topk_lowest_index`` and the counts."""
+    parts = [x[:, a:b].float() @ w[a:b].float() for a, b in gd_mod.chunk_plan(x.shape[1])]
+    logits = parts[0]
+    for part in parts[1:]:
+        logits = logits + part
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = moe_lib.topk_lowest_index(probs, k)
+    routing = moe_lib.Routing(gates / gates.sum(-1, keepdim=True),
+                              experts.to(torch.int32), probs)
+    counts = moe_lib.routing_counts(routing, w.shape[1])
+    return routing.gates, routing.experts, counts.to(torch.int32)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_gating_topk_chunked_router_sum_matches_jax(jx, case):
+    """``_chunked_topk`` against the JAX package's Pallas gating_topk run in
+    interpret mode, on the dispatch cases' x, router and k (none of them
+    underflows, where the TPU kernel repeats expert 0): experts and counts
+    exact, gates within 1e-5."""
+    name, x, w, k, _, _ = _dispatch_cases()[case]
+    got = _chunked_topk(_t(x), _t(w), k)
+    want = jx.ops.gating_topk(jx.jnp.asarray(x), jx.jnp.asarray(w), k)
+    _topk_equal(got, want)
+
+
+def test_gating_topk_launches_by_token_count():
+    assert [gt_mod.topk_launches(t) for t in (1, 4, 16, 17, 128)] == [1, 1, 1, 2, 2]
+
+
 # ---------------------------------------------------------------- grouped matmul
 @pytest.mark.parametrize("g,m,k,n", [(1, 8, 16, 8), (4, 32, 64, 16), (2, 100, 60, 28),
                                      (8, 4, 96, 80)])
@@ -789,20 +823,71 @@ def test_paged_decode_attention_kernel_equals_decode_attention_on_the_gathered_v
     _close(got, want.float().cpu().numpy(), tol)
 
 
+# the registry's routers (d, E, top-k): mixtral-8x22b, qwen2-moe-a2.7b,
+# arctic-480b
+ROUTERS = [(6144, 8, 2), (2048, 60, 4), (7168, 128, 2)]
+
+
+def _router_case(t, d, e, seed=0):
+    """x (t, d) and a router at its init scale (d ** -0.5), so the logits
+    are O(1) as a model's are."""
+    x, w = _dispatch_case(t, d, e, seed)
+    return x, (w / np.sqrt(d)).astype(np.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,d,e,k", [(8, 16, 4, 2), (4, 6144, 8, 2), (96, 48, 16, 4),
-                                     (33, 20, 8, 8)])
-def test_gating_topk_kernel_matches_plain(cuda, dtype, t, d, e, k):
-    x, w = _dispatch_case(t, d, e)
+@pytest.mark.parametrize("t,d,e,k,router", [
+    (8, 16, 4, 2, False), (4, 6144, 8, 2, False), (96, 48, 16, 4, False),
+    (33, 20, 8, 8, False)] + [(t, d, e, k, True) for d, e, k in ROUTERS
+                              for t in (1, 4, 8, 16, 17, 128)])
+def test_gating_topk_kernel_matches_plain(cuda, dtype, t, d, e, k, router):
+    """One launch counted per call (one or two device ops: the counts take
+    a second launch past 16 tokens), experts and counts equal to plain,
+    gates within 1e-5, two calls bit-identical."""
+    x, w = (_router_case if router else _dispatch_case)(t, d, e)
     xt, wt = _t(x).to(cuda, dtype), _t(w).to(cuda)
     n0 = gt_mod.KERNEL.launches
     got = kops.gating_topk(xt, wt, k)
+    again = kops.gating_topk(xt, wt, k)
     want = gating_topk_plain(xt, wt, k)
     torch.cuda.synchronize()
-    assert gt_mod.KERNEL.launches == n0 + 1
+    assert gt_mod.KERNEL.launches == n0 + 2
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     _close(got[0], want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,e,k", ROUTERS)
+@pytest.mark.parametrize("t", [1, 4, 16, 17, 128])
+def test_gating_topk_kernel_is_gating_dispatchs_front_end(cuda, dtype, d, e, k, t):
+    """gating_dispatch with E buckets, capacity T and no bias drops
+    nothing: its buffers hold exactly gating_topk's (token, expert) pairs,
+    with its gates bit for bit (one front end, one sum order)."""
+    x, w = _router_case(t, d, e, seed=1)
+    xt, wt = _t(x).to(cuda, dtype), _t(w).to(cuda)
+    gates, experts, _ = (a.cpu() for a in kops.gating_topk(xt, wt, k))
+    idx, gbuf, _ = (a.cpu() for a in kops.gating_dispatch(xt, wt, k, e, t))
+    want = sorted((int(ex), tok, float(g)) for tok in range(t)
+                  for ex, g in zip(experts[tok].tolist(), gates[tok].tolist()))
+    got = sorted((ex, int(idx[ex, c]), float(gbuf[ex, c])) for ex in range(e)
+                 for c in range(t) if int(idx[ex, c]) < t)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_gating_topk_kernel_refuses_a_misaligned_view(cuda):
+    x, w = _dispatch_case(4, 64, 8)
+    xt = _t(x).to(cuda, torch.bfloat16)
+    base = torch.empty(xt.numel() + 1, dtype=xt.dtype, device=cuda)
+    xm = base[1:].view(xt.shape)
+    xm.copy_(xt)
+    n0 = gt_mod.KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        kops.gating_topk(xm, _t(w).to(cuda), 2)
+    assert gt_mod.KERNEL.launches == n0
 
 
 @pytest.mark.cuda
