@@ -423,6 +423,14 @@ def time_ms(torch, fn, reps=20, flush=None):
     return statistics.median(times)
 
 
+def device_events(torch, prof):
+    """The device activity of a profile (kernels, memsets, copies), not
+    the device-side ranges of the port's spans (``repro_torch.trace``)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ops(torch, fn, label):
     """The names of the device ops (kernels, memsets, copies) of one call
     ``fn``, recorded by torch.profiler."""
@@ -438,8 +446,7 @@ def device_ops(torch, fn, label):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.name for e in device_events(torch, prof)]
         if names:
             return names
     raise SmokeFailure(f"{label}: torch.profiler recorded no device activity "
@@ -2655,8 +2662,7 @@ def profile_train_step(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(torch, prof)
     if not kernels:
         print("phase 8 profile: torch.profiler recorded no device time")
         return
@@ -2701,8 +2707,8 @@ def trace_decode(torch, eng, prompts):
         wall_us = (time.perf_counter() - t0) * 1e6
     calls = launch_counts()["gating_dispatch"] - calls0
     eng.run_until_done()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events(torch, prof))
     require(bool(spans), "trace: the profiler recorded no device time")
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -2727,19 +2733,17 @@ def profile_decode(torch, eng, prompts, label="profile"):
           f"{busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window "
           f"({tr.n_ops} device ops)")
     # each gating_dispatch call of the decode step (T = 4) is one kernel
-    gd = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and "gating_dispatch" in e.name]
+    gd = [e.time_range.elapsed_us() for e in device_events(torch, prof)
+          if "gating_dispatch" in e.name]
     gd_kernels = len(gd)
     print(f"{label}: gating_dispatch {calls} calls, {gd_kernels} device kernels, "
           f"{sum(gd) / max(1, gd_kernels):.2f} us each")
     require(calls > 0 and gd_kernels == calls,
             f"{label}: {gd_kernels} gating_dispatch kernels for {calls} calls")
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in device_events(torch, prof):
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the top 8, and every launch of the port's attention and gating kernels
     shown = ranked[:8] + [kv for kv in ranked[8:]
@@ -4602,8 +4606,7 @@ def p13_profiled(torch, eng, prompts, max_new, warm=None):
     eng.run_until_done()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    dev = [e.name for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [e.name for e in device_events(torch, prof)]
     seen = {k: sum(fn in n for n in dev) for k, fn in P13_KERNELS}
     return ({r.rid: list(r.generated) for r in eng.finished if r.rid >= 0}, dt, seen,
             host, bool(dev))
@@ -5241,8 +5244,7 @@ def p14b_child(torch, out_dir):
                                                 P["max_seq"], steps=R["steps"])
             torch.cuda.synchronize()
         host = {k: v for k, v in launch_counts().items() if v}
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.name for e in device_events(torch, prof)]
         if names:
             break
     require(bool(names), f"phase 14(b) rank {rank}: torch.profiler saw no device "

@@ -43,6 +43,11 @@ the card and host times on the CPU.  The M2N and N2M hops are timed as
 what the transport prices them at (``TransportHandle.sim_s``): a stream
 wait moves no bytes, so its device time is 0.  That sets T_c, and with
 T_a and T_e the micro-batch count of paper eq. 3 (``auto_microbatches``).
+What a hop does cost on one card is the destination stream's stall on
+the source, timed by two CUDA events around the wait
+(``m2n_wait_s`` / ``n2m_wait_s``): the ping-pong balance of the two
+streams.  Every stage and hop is also a ``runtime.*`` span
+(``repro_torch.trace``) while a profiler records.
 
 Per-micro-batch cache rows are views of the engine's cache, and the
 attention sublayer writes the new K/V token into them in place, so no
@@ -98,12 +103,17 @@ from repro_torch.models.common import rms_norm
 from repro_torch.models.ffn import gated_ffn
 from repro_torch.models.transformer import (embed_tokens, init_cache, lm_head,
                                             self_attn_decode_sublayer)
+from repro_torch.trace import span
 
 EXPERT_KEYS = ("we1", "we3", "we2")
 DENSE_KEYS = ("w1", "w3", "w2")
 # pipeline stages timed by the runtime (attention compute, M2N dispatch
 # hop, expert compute, N2M return hop, attention-side combine)
 STAGES = ("attn", "m2n", "expert", "n2m", "combine")
+# the stalls of a hop's destination stream on its source, by hop: the
+# expert stream waiting for a micro-batch (m2n), the attention stream
+# waiting for its return (n2m)
+WAITS = ("m2n_wait", "n2m_wait")
 
 
 def _tensors(tree):
@@ -390,7 +400,7 @@ class DisaggregatedInstance:
 
     # ------------------------------------------------------ stage timing
     def reset_stage_times(self):
-        self.stage_times = {s: 0.0 for s in STAGES}
+        self.stage_times = {s: 0.0 for s in STAGES + WAITS}
         self.stage_counts = {s: 0 for s in STAGES}
         self._pending_events = []
 
@@ -400,26 +410,31 @@ class DisaggregatedInstance:
         pipeline never blocks, unless ``plan.profile_stages``); on the
         CPU with the host clock."""
         self.stage_counts[stage] += 1
-        if stream is None:
-            t0 = time.perf_counter()
-            out = fn(*args)
-            self.stage_times[stage] += time.perf_counter() - t0
+        with span(f"runtime.{stage}"):
+            if stream is None:
+                t0 = time.perf_counter()
+                out = fn(*args)
+                self.stage_times[stage] += time.perf_counter() - t0
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                start.record(stream)
+                out = fn(*args)
+                end.record(stream)
+            if self.plan.profile_stages:
+                end.synchronize()
+            self._pending_events.append((stage, start, end))
             return out
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(stream):
-            start.record(stream)
-            out = fn(*args)
-            end.record(stream)
-        if self.plan.profile_stages:
-            end.synchronize()
-        self._pending_events.append((stage, start, end))
-        return out
 
     def stage_report(self) -> dict:
         """Cumulative per-stage seconds and counts, plus the paper's
         per-op T_a (attention + combine), T_e (expert) and T_c (one
-        hop), and the port's count of stream hops.
+        hop), the port's count of stream hops, and how long each hop's
+        destination stream stalled on its source (``m2n_wait_s``: the
+        expert stream waiting for micro-batches, ``n2m_wait_s``: the
+        attention stream waiting for their returns; 0 on the CPU and
+        across ranks, where a hop is no stream wait).
 
         T_c differs in origin from the JAX runtime's: there it is the
         host wall time of a cross-mesh ``device_put``, which has no
@@ -439,6 +454,7 @@ class DisaggregatedInstance:
         rep["hops"] = self.stage_counts["m2n"] + self.stage_counts["n2m"]
         rep["t_c"] = ((self.stage_times["m2n"] + self.stage_times["n2m"])
                       / max(1, rep["hops"]))
+        rep.update({f"{w}_s": self.stage_times[w] for w in WAITS})
         # across ranks every decode rank takes part, and reads the same
         return self._stage_report_ranks(rep) if self.on_ranks else rep
 
@@ -490,13 +506,21 @@ class DisaggregatedInstance:
         keeps the memory of ``payload`` and of the tensors in ``also``
         until ``dst`` is done with them, the ledger counts ``payload``'s
         bytes times ``fanout``, and the stage is timed at the hop's
-        priced latency."""
-        h = self.transport.send_tokens(payload, dst, src=src, fanout=fanout)
-        self.stage_counts[stage] += 1
-        self.stage_times[stage] += h.sim_s
-        if dst is not None:
-            for t in also:
-                t.record_stream(dst)
+        priced latency.  On the card two events on ``dst`` around the
+        transport's stream wait time the stall of ``dst`` on ``src``."""
+        with span(f"runtime.{stage}"):
+            if dst is not None:
+                before = torch.cuda.Event(enable_timing=True)
+                before.record(dst)
+            h = self.transport.send_tokens(payload, dst, src=src, fanout=fanout)
+            self.stage_counts[stage] += 1
+            self.stage_times[stage] += h.sim_s
+            if dst is not None:
+                after = torch.cuda.Event(enable_timing=True)
+                after.record(dst)
+                self._pending_events.append((f"{stage}_wait", before, after))
+                for t in also:
+                    t.record_stream(dst)
 
     def _account_combine(self, t_tokens: int, d_model: int, itemsize: int):
         """The m2n combine (a reduce-scatter plus an all-gather over the
@@ -930,6 +954,7 @@ class DisaggregatedInstance:
         rep["t_e"] = rep["expert_s"] / max(1, rep["expert_n"])
         rep["hops"] = rep["m2n_n"] + rep["n2m_n"]
         rep["t_c"] = (rep["m2n_s"] + rep["n2m_s"]) / max(1, rep["hops"])
+        rep.update({f"{w}_s": sum(r[f"{w}_s"] for r in reps) for w in WAITS})
         rep["ranks"] = reps
         return rep
 

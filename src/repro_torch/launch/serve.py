@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import get_config, reduced
-from repro_torch.core.disagg import (STAGES, DisaggPlan, DisaggregatedInstance,
-                                     rank_params, rank_place)
+from repro_torch.core.disagg import (STAGES, WAITS, DisaggPlan,
+                                     DisaggregatedInstance, rank_params, rank_place)
 from repro_torch.core.transport import HOP_KINDS, TRANSPORTS, make_transport
 from repro_torch.launch.mesh import ServingRoles
 from repro_torch.models.transformer import init_params
@@ -53,11 +53,17 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.prefill import PrefillWorker
 
 
-def format_stages(report: dict) -> str:
+def format_stages(report: dict, iters: int) -> str:
+    """The stage report's line: each stage's seconds and count, the
+    per-op T_a / T_e / T_c, and each hop's stream stall per decode
+    iteration of the ``iters`` the report covers."""
     per_stage = " ".join(f"{s}={report[f'{s}_s'] * 1e3:.3f}ms/{report[f'{s}_n']}"
                          for s in STAGES)
+    waits = " ".join(f"{w}={report[f'{w}_s'] * 1e3 / max(1, iters):.3f}ms"
+                     for w in WAITS)
     return (f"stages: {per_stage} | per-op t_a={report['t_a'] * 1e6:.1f}us "
-            f"t_e={report['t_e'] * 1e6:.1f}us t_c={report['t_c'] * 1e6:.1f}us")
+            f"t_e={report['t_e'] * 1e6:.1f}us t_c={report['t_c'] * 1e6:.1f}us "
+            f"| per-iteration {waits}")
 
 
 def format_phases(ph: dict) -> str:
@@ -330,7 +336,7 @@ def run(config: Optional[ServingConfig] = None, **overrides) -> dict:
         if "kv_pages" in stats:
             print(format_pages(stats))
         if "stages" in stats:
-            print(format_stages(stats["stages"]))
+            print(format_stages(stats["stages"], stats["decode_iters"]))
         if "imbalance" in stats:
             print(format_experts(stats))
         print("kernel launches: " + " ".join(

@@ -60,6 +60,7 @@ from repro_torch.models.ffn import gated_ffn
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.rglru import rglru_block, rglru_block_step
 from repro_torch.models.ssd import ssd_block, ssd_block_step
+from repro_torch.trace import span
 
 # ---------------------------------------------------------------------------
 # parameter init
@@ -524,13 +525,20 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
     """One layer over a full sequence.  Returns (x, cache entry or None,
     aux: an MoE layer's load-balance loss with ``with_aux``, else None)."""
     cache, aux = None, None
-    ffn = functools.partial(_ffn_sublayer, cfg=cfg, capacity_mode=capacity_mode,
-                            with_aux=with_aux)
+    # a prefill's sublayers are spans (the training passes build no cache)
+    part = span if build_cache else (lambda name: contextlib.nullcontext())
+
+    def ffn(p, x):
+        with part("model.prefill.ffn"):
+            return _ffn_sublayer(p, x, cfg=cfg, capacity_mode=capacity_mode,
+                                 with_aux=with_aux)
+
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else 0
-        delta, cache = _self_attn_sublayer(
-            p, x, cfg, positions, causal=causal, window=window,
-            build_cache=build_cache, cache_len=cache_len(cfg, kind, max_seq))
+        with part("model.prefill.attn"):
+            delta, cache = _self_attn_sublayer(
+                p, x, cfg, positions, causal=causal, window=window,
+                build_cache=build_cache, cache_len=cache_len(cfg, kind, max_seq))
         x = x + delta
         dff, aux = ffn(p, x)
         x = x + dff
@@ -540,8 +548,9 @@ def apply_layer_seq(kind: str, p: dict, cfg: ModelConfig, x, positions, *,
         dff, aux = ffn(p, x)
         x = x + _gated(parallel.seq_weight(p["gate_ffn"]), dff, x.dtype)
     elif kind == "selfcross":
-        delta, cache = _self_attn_sublayer(
-            p, x, cfg, positions, build_cache=build_cache, cache_len=max_seq)
+        with part("model.prefill.attn"):
+            delta, cache = _self_attn_sublayer(
+                p, x, cfg, positions, build_cache=build_cache, cache_len=max_seq)
         x = x + delta
         delta, src_cache = _cross_sublayer(p, x, cfg, source, "ln_cross", "c_",
                                            build_cache)
@@ -693,10 +702,13 @@ def _seq_pass(params, cfg: ModelConfig, x, positions, source, capacity_mode,
         with (mp.seq_region(rows, T) if sp and periodic else contextlib.nullcontext()):
             for i in range(lo, hi):
                 lp = parallel.use_params(layers[i], f"layers/{i}")
-                x, c, a = apply_layer_seq(kinds[i], lp, cfg, x, positions,
-                                          source=source, capacity_mode=capacity_mode,
-                                          max_seq=max_seq, build_cache=build_cache,
-                                          with_aux=with_aux)
+                # the prefill's layers (the training passes build no cache)
+                with (span("model.prefill.layer") if build_cache
+                      else contextlib.nullcontext()):
+                    x, c, a = apply_layer_seq(
+                        kinds[i], lp, cfg, x, positions, source=source,
+                        capacity_mode=capacity_mode, max_seq=max_seq,
+                        build_cache=build_cache, with_aux=with_aux)
                 if a is not None:
                     aux = aux + a
                 caches.append(c)
@@ -765,16 +777,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     capacity_mode "auto": drop-free ("full") for B*T <= 2048, bounded
     "eval" capacity above.  Returns (last-token logits (B, V), cache)."""
-    B, T = tokens.shape
-    _check_model_axis(cfg)
-    if capacity_mode == "auto":
-        capacity_mode = "full" if B * T <= 2048 else "eval"
-    x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(T, device=tokens.device).expand(B, T)
-    source = _source(params, cfg, cross_embeds, frames)
-    x, _, cache = _seq_pass(params, cfg, x, positions, source, capacity_mode,
-                            build_cache=True, max_seq=max_seq)
-    return lm_head(params, cfg, x[:, -1]), cache
+    with span("model.prefill"):
+        B, T = tokens.shape
+        _check_model_axis(cfg)
+        if capacity_mode == "auto":
+            capacity_mode = "full" if B * T <= 2048 else "eval"
+        x = embed_tokens(params, cfg, tokens)
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+        source = _source(params, cfg, cross_embeds, frames)
+        x, _, cache = _seq_pass(params, cfg, x, positions, source, capacity_mode,
+                                build_cache=True, max_seq=max_seq)
+        return lm_head(params, cfg, x[:, -1]), cache
 
 
 # ---------------------------------------------------------------------------

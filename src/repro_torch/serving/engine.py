@@ -78,6 +78,7 @@ from repro_torch.serving.prefill import suffix_prefill
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import sample, sample_rows
 from repro_torch.serving.stats import STATS_SCHEMA_VERSION, EngineStats
+from repro_torch.trace import span
 
 
 @dataclass
@@ -326,55 +327,59 @@ class Engine:
         plans first and broadcasts the requests it admits; every other
         rank admits exactly those (its own plan, held to their count, must
         give the same ones)."""
-        if self.roles is None:
-            recs = self._admission_plan(None)
-        else:
-            leader = self.roles.attn[0]
-            recs = self._admission_plan(None) if self.rank == leader else None
-            said = self.transport.broadcast_ints(
-                [len(recs)] + [r[0].rid for r in recs] if recs is not None else [],
-                root=leader, n=self.max_batch + 1)
-            rids = said[1:1 + said[0]]
-            if recs is None:
-                recs = self._admission_plan(said[0])
-            if [r[0].rid for r in recs] != rids:
-                raise RuntimeError(f"rank {self.rank} admits "
-                                   f"{[r[0].rid for r in recs]}, the first "
-                                   f"attention rank {rids}")
-        if recs:
-            self._admit_records(recs)
+        with span("engine.admit"):
+            if self.roles is None:
+                recs = self._admission_plan(None)
+            else:
+                leader = self.roles.attn[0]
+                recs = self._admission_plan(None) if self.rank == leader else None
+                said = self.transport.broadcast_ints(
+                    [len(recs)] + [r[0].rid for r in recs] if recs is not None
+                    else [], root=leader, n=self.max_batch + 1)
+                rids = said[1:1 + said[0]]
+                if recs is None:
+                    recs = self._admission_plan(said[0])
+                if [r[0].rid for r in recs] != rids:
+                    raise RuntimeError(f"rank {self.rank} admits "
+                                       f"{[r[0].rid for r in recs]}, the first "
+                                       f"attention rank {rids}")
+            if recs:
+                self._admit_records(recs)
 
     def _rebalance(self):
         """Drain one interval of live routing counts, re-solve the
         placement over the sliding window, and apply it (§6)."""
         t0 = time.perf_counter()
-        self._load_window.append(self.runtime.take_expert_counts())
-        loads = np.sum(self._load_window, axis=0)
-        placement = balance_experts(loads, self.runtime.n_expert_nodes,
-                                    allow_replication=self.expert_replication)
-        if self.runtime.apply_placement(placement):
-            self.n_placement_updates += 1
+        with span("engine.rebalance"):
+            self._load_window.append(self.runtime.take_expert_counts())
+            loads = np.sum(self._load_window, axis=0)
+            placement = balance_experts(loads, self.runtime.n_expert_nodes,
+                                        allow_replication=self.expert_replication)
+            if self.runtime.apply_placement(placement):
+                self.n_placement_updates += 1
         self.n_rebalances += 1
         self.t_rebalance += time.perf_counter() - t0
 
     def _retire(self):
-        for rid in [r for r, q in self.running.items() if q.done]:
-            req = self.running.pop(rid)
-            req.t_done = time.perf_counter()
-            slot = self.slots.release(rid)
-            if self.kv_layout == "paged":
-                # drop the table's references: pages the radix tree (or
-                # another request) still holds stay alive.  A recycled
-                # page is invalidated (pos = -1) when it is allocated.
-                for p in self.block_tables.pop(rid):
-                    self.page_pool.release(p)
-                left = self._page_reserve.pop(rid, 0)
-                if left:
-                    self.page_pool.unreserve(left)
-            elif self.rows.start <= slot < self.rows.stop:
-                # a recycled row must never expose the previous request's KV
-                reset_row(self.cache, slot - self.rows.start)
-            self.finished.append(req)
+        with span("engine.retire"):
+            for rid in [r for r, q in self.running.items() if q.done]:
+                req = self.running.pop(rid)
+                req.t_done = time.perf_counter()
+                slot = self.slots.release(rid)
+                if self.kv_layout == "paged":
+                    # drop the table's references: pages the radix tree (or
+                    # another request) still holds stay alive.  A recycled
+                    # page is invalidated (pos = -1) when it is allocated.
+                    for p in self.block_tables.pop(rid):
+                        self.page_pool.release(p)
+                    left = self._page_reserve.pop(rid, 0)
+                    if left:
+                        self.page_pool.unreserve(left)
+                elif self.rows.start <= slot < self.rows.stop:
+                    # a recycled row must never expose the previous
+                    # request's KV
+                    reset_row(self.cache, slot - self.rows.start)
+                self.finished.append(req)
 
     def _paged_writeback(self, dense_cache: List[dict]):
         """Scatter this iteration's new KV token of each live row back
@@ -419,68 +424,75 @@ class Engine:
         number of requests decoded.  Across ranks a rank runs its stage of
         the decode step (a prefill rank none), and the tokens sampled
         from an attention rank's rows are summed into every rank's copy."""
-        self._retire()
-        self._admit()
-        if not self.running:
-            return 0
-        pos = np.zeros((self.max_batch,), np.int32)
-        rids = np.zeros((self.max_batch,), np.int64)
-        active = np.zeros((self.max_batch,), np.float32)
-        for req in self.running.values():
-            pos[req.slot] = req.position - 1
-            rids[req.slot] = req.rid
-            active[req.slot] = 1.0
-        t0 = time.perf_counter()
-        logits = cache = None
-        if self.role != "prefill":
-            toks = torch.tensor(self._last_token, dtype=torch.int64,
-                                device=self.device)
-            pos_t = torch.from_numpy(pos).to(self.device)
-            cache = self.cache
-            if self.kv_layout == "paged" and self.rows.stop > self.rows.start:
-                # block-table gather: a fresh dense (B, W) view, a pure copy
-                # (unmapped pages read pos = -1, exactly a reset row), so
-                # the decode step below is the contiguous layout's, bit for
-                # bit
-                cache = self.page_pool.gather(self.block_table_array()[self.rows])
-            if self.runtime is not None:
-                # idle rows decode anyway; keep them out of the expert counts
-                self.runtime.set_active_slots(active)
-            if self.mode == "pingpong":
-                logits, cache = self.runtime.decode_microbatched(
-                    toks, cache, pos_t, self.mb_slices)
-            elif self.runtime is not None:                       # disagg
-                logits, cache = self.runtime.decode_step(toks, cache, pos_t)
-            else:
-                logits, cache = decode_step(self.params, self.cfg, toks, cache,
-                                            pos_t)
-        if self.kv_layout == "paged":
-            # the attention stages wrote the new tokens into the gathered
-            # view on the caller's current stream (the runtime's attention
-            # stream), and the write-back is issued on that stream after
-            # them, so stream order alone puts it after the last write
-            self._paged_writeback(cache if logits is not None else None)
-        seed = self._next_seed()
-        if self.roles is None:
-            nxt = sample_rows(logits, seed, rids, self.sampling).tolist()
-        else:
-            nxt = torch.zeros(self.max_batch, dtype=torch.int64,
-                              device=self.transport._wire_device())
-            if logits is not None:
-                nxt[self.rows] = sample_rows(logits, seed, rids[self.rows],
-                                             self.sampling).to(nxt.device)
-            nxt = self.transport.share(nxt).tolist()
-        self.t_decode += time.perf_counter() - t0
-        for req in self.running.values():
-            req.generated.append(nxt[req.slot])
-            self._last_token[req.slot] = nxt[req.slot]
-        self.n_decode_iters += 1
-        if (self.expert_rebalance_every and self.role != "prefill"
-                and self.n_decode_iters % self.expert_rebalance_every == 0):
-            self._rebalance()
-        n_active = len(self.running)
-        self._retire()
-        return n_active
+        with span("engine.step"):
+            self._retire()
+            self._admit()
+            if not self.running:
+                return 0
+            with span("engine.decode.issue"):
+                pos = np.zeros((self.max_batch,), np.int32)
+                rids = np.zeros((self.max_batch,), np.int64)
+                active = np.zeros((self.max_batch,), np.float32)
+                for req in self.running.values():
+                    pos[req.slot] = req.position - 1
+                    rids[req.slot] = req.rid
+                    active[req.slot] = 1.0
+                t0 = time.perf_counter()
+                logits = cache = None
+                if self.role != "prefill":
+                    logits, cache = self._issue_decode(pos, active)
+            if self.kv_layout == "paged":
+                # the attention stages wrote the new tokens into the
+                # gathered view on the caller's current stream (the
+                # runtime's attention stream), and the write-back is issued
+                # on that stream after them, so stream order alone puts it
+                # after the last write
+                self._paged_writeback(cache if logits is not None else None)
+            with span("engine.sample"):
+                seed = self._next_seed()
+                if self.roles is None:
+                    nxt = sample_rows(logits, seed, rids, self.sampling).tolist()
+                else:
+                    nxt = torch.zeros(self.max_batch, dtype=torch.int64,
+                                      device=self.transport._wire_device())
+                    if logits is not None:
+                        nxt[self.rows] = sample_rows(logits, seed, rids[self.rows],
+                                                     self.sampling).to(nxt.device)
+                    nxt = self.transport.share(nxt).tolist()
+                self.t_decode += time.perf_counter() - t0
+                for req in self.running.values():
+                    req.generated.append(nxt[req.slot])
+                    self._last_token[req.slot] = nxt[req.slot]
+            self.n_decode_iters += 1
+            if (self.expert_rebalance_every and self.role != "prefill"
+                    and self.n_decode_iters % self.expert_rebalance_every == 0):
+                self._rebalance()
+            n_active = len(self.running)
+            self._retire()
+            return n_active
+
+    def _issue_decode(self, pos: np.ndarray, active: np.ndarray):
+        """Issue this rank's stage of the decode step over its KV rows at
+        positions ``pos`` ((B,), the live rows ``active``).  Returns
+        (logits, cache)."""
+        toks = torch.tensor(self._last_token, dtype=torch.int64,
+                            device=self.device)
+        pos_t = torch.from_numpy(pos).to(self.device)
+        cache = self.cache
+        if self.kv_layout == "paged" and self.rows.stop > self.rows.start:
+            # block-table gather: a fresh dense (B, W) view, a pure copy
+            # (unmapped pages read pos = -1, exactly a reset row), so the
+            # decode step below is the contiguous layout's, bit for bit
+            cache = self.page_pool.gather(self.block_table_array()[self.rows])
+        if self.runtime is not None:
+            # idle rows decode anyway; keep them out of the expert counts
+            self.runtime.set_active_slots(active)
+        if self.mode == "pingpong":
+            return self.runtime.decode_microbatched(toks, cache, pos_t,
+                                                    self.mb_slices)
+        if self.runtime is not None:                             # disagg
+            return self.runtime.decode_step(toks, cache, pos_t)
+        return decode_step(self.params, self.cfg, toks, cache, pos_t)
 
     # ------------------------------------------------------------- ranks
     def _owner(self, slot: int) -> int:
@@ -501,42 +513,43 @@ class Engine:
         stays at the head of its queue.  Returns
         [(request, slot, prefill result or None, shared pages, fresh
         pages, shared tokens)]."""
-        w, paged, recs = self.prefill_worker, self.kv_layout == "paged", []
-        if w is not None:
-            self._pump_worker()
-        while self.slots.free and (quota is None or len(recs) < quota):
-            h, shared, res = 0, [], None
+        with span("engine.admit.plan"):
+            w, paged, recs = self.prefill_worker, self.kv_layout == "paged", []
             if w is not None:
-                if not w.ready_count:
+                self._pump_worker()
+            while self.slots.free and (quota is None or len(recs) < quota):
+                h, shared, res = 0, [], None
+                if w is not None:
+                    if not w.ready_count:
+                        break
+                    res = w.ready[0]
+                    req, shared = res.request, list(res.shared_pages)
+                elif self.waiting:
+                    req = self.waiting[0]
+                    if paged and self.prefix is not None:
+                        h, shared = self.prefix.lookup(req.prompt)
+                else:
                     break
-                res = w.ready[0]
-                req, shared = res.request, list(res.shared_pages)
-            elif self.waiting:
-                req = self.waiting[0]
-                if paged and self.prefix is not None:
-                    h, shared = self.prefix.lookup(req.prompt)
-            else:
-                break
-            if paged and not self._reserve_pages(
-                    req.rid, self._pages_for_request(req) - len(shared)):
-                if w is None:
-                    for p in shared:            # drop the lookup pins
-                        self.page_pool.release(p)
-                break
-            w.ready.popleft() if w is not None else self.waiting.pop(0)
-            slot = self.slots.alloc(req.rid)
-            fresh = []
-            if paged:
-                n = (len(res.page_chunks) if res is not None else
-                     n_pages_for(len(req.prompt), self.page_pool.page_size)
-                     - len(shared))
-                fresh = [self._take_page(req.rid) for _ in range(n)]
-                self._install_pages(req, shared, fresh)
-            recs.append((req, slot, res, shared, fresh, h))
-        if quota is not None and len(recs) != quota:
-            raise RuntimeError(f"rank {self.rank} can admit {len(recs)} requests, "
-                               f"the first attention rank admitted {quota}")
-        return recs
+                if paged and not self._reserve_pages(
+                        req.rid, self._pages_for_request(req) - len(shared)):
+                    if w is None:
+                        for p in shared:            # drop the lookup pins
+                            self.page_pool.release(p)
+                    break
+                w.ready.popleft() if w is not None else self.waiting.pop(0)
+                slot = self.slots.alloc(req.rid)
+                fresh = []
+                if paged:
+                    n = (len(res.page_chunks) if res is not None else
+                         n_pages_for(len(req.prompt), self.page_pool.page_size)
+                         - len(shared))
+                    fresh = [self._take_page(req.rid) for _ in range(n)]
+                    self._install_pages(req, shared, fresh)
+                recs.append((req, slot, res, shared, fresh, h))
+            if quota is not None and len(recs) != quota:
+                raise RuntimeError(f"rank {self.rank} can admit {len(recs)} requests, "
+                                   f"the first attention rank admitted {quota}")
+            return recs
 
     def _admit_records(self, recs: list):
         """The device half of admission, in order: inline prefill (in one
@@ -575,22 +588,24 @@ class Engine:
                                           max_seq=self.max_seq, **self._extras())
                 self.t_prefill += time.perf_counter() - t0
                 t0 = time.perf_counter()
-                if paged:
-                    ps = self.page_pool.page_size
-                    self.page_pool.write_row_span(fresh, row, len(shared) * ps,
-                                                  len(req.prompt))
-                else:
-                    insert_rows(self.cache, row, slot - self.rows.start)
+                with span("engine.admit.insert"):
+                    if paged:
+                        ps = self.page_pool.page_size
+                        self.page_pool.write_row_span(fresh, row, len(shared) * ps,
+                                                      len(req.prompt))
+                    else:
+                        insert_rows(self.cache, row, slot - self.rows.start)
                 self.t_transfer += time.perf_counter() - t0
                 logits = logits if own else None
             elif res is not None and not ranks:
                 t0 = time.perf_counter()
-                if paged:
-                    migrate_pages(self.page_pool, res.page_chunks, fresh, src=src,
-                                  dst=dst, sync=sync, transport=tr)
-                else:
-                    migrate_kv(self.cache, res.kv, slot, src=src, dst=dst,
-                               sync=sync, transport=tr)
+                with span("engine.admit.insert"):
+                    if paged:
+                        migrate_pages(self.page_pool, res.page_chunks, fresh,
+                                      src=src, dst=dst, sync=sync, transport=tr)
+                    else:
+                        migrate_kv(self.cache, res.kv, slot, src=src, dst=dst,
+                                   sync=sync, transport=tr)
                 self.t_transfer += time.perf_counter() - t0
                 logits = res.last_logits
             elif res is not None:

@@ -3,9 +3,10 @@ against the JAX package, on the CPU.
 
   * every function of ``core.pingpong`` equals the JAX one over a grid
     of (t_a, t_e, t_c, m, L), simulator events included;
-  * ``stage_report()`` carries every key of the JAX report, with the
-    same counts as JAX ``measure_stage_times`` on reduced mixtral-8x22b
-    (``attn_n == expert_n == m2n_n == n2m_n == m * L``);
+  * ``stage_report()`` carries every key of the JAX report (and the
+    port's hop count and stream stalls), with the same counts as JAX
+    ``measure_stage_times`` on reduced mixtral-8x22b (``attn_n ==
+    expert_n == m2n_n == n2m_n == m * L``);
   * T_c is what the transport priced the hops at: 0 under ``inproc``,
     the RDMA cost model's latency under ``simrdma``;
   * ``auto_microbatches`` obeys eq. 3 on one measurement (the JAX
@@ -101,12 +102,14 @@ def test_stage_report_counts_match_jax(mixtral, m):
     inst = DisaggregatedInstance(mixtral.cfg, mixtral.params, DisaggPlan(m))
     got = inst.measure_stage_times(4)
     assert set(got) >= set(want)
-    assert set(got) - set(want) == {"hops"}
+    assert set(got) - set(want) == {"hops", "m2n_wait_s", "n2m_wait_s"}
     L = mixtral.cfg.n_layers
     for s in STAGES:
         assert got[f"{s}_n"] == want[f"{s}_n"] == m * L
     assert got["hops"] == 2 * m * L
     assert got["t_a"] > 0 and got["t_e"] > 0 and got["t_c"] == 0.0
+    # a hop on the CPU is no stream wait: nothing stalls
+    assert got["m2n_wait_s"] == got["n2m_wait_s"] == 0.0
     # profiling leaves the stage accumulators and the traffic trace empty
     assert inst.stage_report()["attn_n"] == 0
     assert inst.peek_expert_counts().sum() == 0
