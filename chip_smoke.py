@@ -28,7 +28,10 @@ then:
      device op of one call counted, ``topk_launches``: one up to 16
      tokens, no memset), gating dispatch's time beside it, the
      grouped matmul at the up and the down projection with each of
-     its two compute bodies (beside ``torch.bmm``).  The three serving
+     its two strip bodies (beside ``torch.bmm``), and at the benchmark's
+     decode micro-batch (M = 64 with its dispatch table: mixtral up and
+     down, ~16 live rows an expert; arctic up, 81 of 128 experts live)
+     with the live-row body beside the strips forced.  The three serving
      kernels are also held at the row counts of m = 3 micro-batches of
      the 8-row batch (3 and 2), and decode attention at B = 1 (the
      suffix prefill's decode steps).  Gating dispatch's
@@ -1037,7 +1040,15 @@ def phase_kernels(torch, dev):
     print(f"grouped_mlp: {mlp_bytes / 1e9:.3f} GB of expert weights in "
           f"{mlp_ms:.3f} ms = {mlp_bytes / (mlp_ms / 1e3) / 1e9:.1f} GB/s; "
           f"device copy {copy_bw / 1e9:.1f} GB/s (read + write)")
-    del big, dst, w1, w2, w3, xe, he
+    del big, dst
+    # the benchmark's decode micro-batch: 64 tokens top-2 over 8 experts
+    g8, counts = torch.Generator().manual_seed(8), [0] * G
+    for _ in range(64):
+        for e in torch.randperm(G, generator=g8)[:2].tolist():
+            counts[e] += 1
+    shapes += [gm_decode_shape(torch, "decode up", w1, counts, flush),
+               gm_decode_shape(torch, "decode down", w2, counts, flush)]
+    del w1, w2, w3, xe, he
     registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
                            dispatch_shape, gm_shape)
     del flush
@@ -1094,6 +1105,53 @@ def ring_positions(torch, dev, B, W, P):
     w = torch.arange(W, dtype=torch.int32, device=dev)[None]
     cpos = pos[:, None] - torch.remainder(pos[:, None] - w, W)
     return torch.where(cpos >= 0, cpos, -1).to(torch.int32).contiguous(), pos
+
+
+def gm_decode_shape(torch, label, w, counts, flush):
+    """``grouped_matmul`` at a decode micro-batch of 64 tokens top-2 (the
+    benchmark's M = C = 64 in capacity mode "full"): expert e holds
+    counts[e] routed tokens in its first slots, the rest are sentinel
+    slots (zeros in x, as gather_tokens fills them).  The live-row body
+    with the dispatch table is held against the plain version and against
+    itself, and timed beside the tensor-core strips forced (no table: the
+    launch before the live-row body); the bound is the bytes the routed
+    tokens need (the weights of the experts that hold one, the routed rows
+    in and out)."""
+    from repro_torch.kernels import grouped_matmul as gm_mod
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
+    G, K, N = w.shape
+    T = 64
+    gen = torch.Generator().manual_seed(G * K)
+    idx = torch.full((G, T), T, dtype=torch.int32)
+    for e, c in enumerate(counts):
+        idx[e, :c] = torch.randperm(T, generator=gen)[:c].int()
+    idx = idx.to(w.device)
+    x = torch.randn(G, T, K, device=w.device, dtype=torch.bfloat16)
+    x.mul_((idx != T)[..., None])
+    kw = dict(idx=idx, n_tokens=T)
+    n0 = gm_mod.KERNEL.variant_launches["wgmma"]
+    got = gm_mod.grouped_matmul(x, w, **kw)
+    require(gm_mod.KERNEL.variant_launches["wgmma"] == n0 + 1,
+            f"grouped_matmul {label}: M = 64 did not take the live-row body")
+    want = grouped_matmul_plain(x, w, **kw)
+    torch.cuda.synchronize()
+    check_close(torch, f"grouped_matmul bf16 {label}", got, want, 2e-2, 2e-2)
+    require(torch.equal(got, gm_mod.grouped_matmul(x, w, **kw)),
+            f"grouped_matmul {label}: two launches on the same inputs differ")
+    hit, routed = sum(c > 0 for c in counts), sum(counts)
+    r = dict(shape=f"{label} {tuple(x.shape)} @ {tuple(w.shape)}, {hit} of {G} experts "
+                   f"live, {routed} routed rows",
+             err=max_err(torch, got, want),
+             ms=time_ms(torch, lambda: gm_mod.grouped_matmul(x, w, **kw), flush=flush),
+             mma_ms=time_ms(torch, lambda: gm_mod.grouped_matmul(x, w, body="mma"),
+                            flush=flush),
+             bound=bound_ms(2 * (hit * K * N + routed * (K + N)), 2 * routed * K * N,
+                            "bfloat16"))
+    print(f"grouped_matmul {r['shape']}: live-row body {r['ms']:.4f} ms, mma strips "
+          f"{r['mma_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({100 * r['bound'][0] / r['ms']:.1f}%), max |err| {r['err']:.3e}")
+    del x, idx, got, want
+    return r
 
 
 def registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
@@ -1191,6 +1249,14 @@ def registry_kernel_shapes(torch, dev, gen, flush, randn, rows, attn_shape,
         w_up, w_down = big((G, d, f), d ** -0.5), big((G, f, d), f ** -0.5)
         for label, a, b in (("up", xe, w_up), ("down", he, w_down)):
             r = gm_shape(f"{label} ({model})", a, b)
+            r["model"] = model
+            rows["grouped_matmul"]["shapes"].append(r)
+        if model == "arctic-480b":
+            # the benchmark's decode micro-batch: 81 of 128 experts live
+            counts = [2] * 47 + [1] * 34 + [0] * 47
+            perm = torch.randperm(G, generator=torch.Generator().manual_seed(128))
+            r = gm_decode_shape(torch, f"decode up ({model})", w_up,
+                                [counts[i] for i in perm.tolist()], flush)
             r["model"] = model
             rows["grouped_matmul"]["shapes"].append(r)
         del xe, he, w_up, w_down
@@ -3489,18 +3555,24 @@ def p11_prompts(torch, which, cfg, dev):
                          generator=gen).to(dev)
 
 
-def p11_predicted(which, n_layers):
+def p11_predicted(which, n_layers, bf16=False):
     """Host launches of one rank's prefill and decode steps, by kernel: a
     decode attention (the partial branch where the slots split) per layer
     and step; under m2n one dispatch (the owner branch) and three grouped
-    matmuls per layer and pass (prefill included)."""
+    matmuls per layer and pass (prefill included), each given its slot
+    table, and in bf16 the prefill's (full capacity: batch x prompt rows)
+    on the live-row body."""
+    from repro_torch.kernels.grouped_matmul import FMA_MAX_M
     L, S = n_layers, P11_RUN["steps"]
     out = {"decode_attention": L * S,
            "decode_attention[partial]": L * S if which == "b" else 0}
     if P11[which]["m2n"]:
+        rows = P11_RUN["batch"] * P11[which]["prompt_len"]
         out.update({"gating_dispatch": L * (S + 1),
                     "gating_dispatch[owner]": L * (S + 1),
-                    "grouped_matmul": 3 * L * (S + 1)})
+                    "grouped_matmul": 3 * L * (S + 1),
+                    "grouped_matmul[live_rows]": 3 * L * (S + 1),
+                    "grouped_matmul[wgmma]": 3 * L if bf16 and rows > FMA_MAX_M else 0})
     return out
 
 
@@ -3695,7 +3767,8 @@ def p11_child(torch, which, out_dir):
             got = p11_serve(torch, cfg, params, prompts, P["max_seq"],
                             steps=R["steps"], **kw)
         launches = {k: v for k, v in launch_counts().items() if v}
-        want = {k: v for k, v in p11_predicted(which, L).items() if v}
+        bf16 = label.startswith("bfloat16")
+        want = {k: v for k, v in p11_predicted(which, L, bf16).items() if v}
         require(launches == want, f"phase 11({which}) {label} rank {rank}: "
                 f"launches {launches}, predicted {want}")
         return got, launches
@@ -5642,8 +5715,9 @@ def main() -> int:
             if "shapes" in r:
                 kernels[-1]["shapes"] = [
                     {"shape": sh["shape"], "max_abs_err": sh["err"], "ms": sh["ms"],
-                     "plain_ms": sh["plain_ms"], "bound_ms": sh["bound"][0],
-                     "bound_by": sh["bound"][1], "library_ms": sh["library_ms"],
+                     # the decode shapes time no plain version and no library call
+                     "plain_ms": sh.get("plain_ms"), "bound_ms": sh["bound"][0],
+                     "bound_by": sh["bound"][1], "library_ms": sh.get("library_ms"),
                      **{k: sh[k] for k in ("fma_ms", "mma_ms", "dispatch_ms", "model",
                                            "path_launches") if k in sh}}
                     for sh in r["shapes"]]

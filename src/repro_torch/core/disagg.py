@@ -363,10 +363,13 @@ class DisaggregatedInstance:
         return x, h, {"xe": xe, "idx": idx_buf, "gates": gate_buf,
                       "counts": counts}
 
-    def _expert_phase(self, pe, payload):
+    def _expert_phase(self, pe, payload, idx=None, n_tokens=None):
+        """The routed experts on the (rows, C, d) payload; with the dispatch
+        table ``idx`` (sentinel ``n_tokens``) the kernel skips the empty
+        slots past each expert's last routed one."""
         if self.cfg.moe is not None:
             return kops.grouped_mlp(payload, pe["we1"], pe["we3"], pe["we2"],
-                                    self.cfg.act)
+                                    self.cfg.act, idx=idx, n_tokens=n_tokens)
         return gated_ffn(payload, pe["w1"], pe["w3"], pe["w2"], self.cfg.act)
 
     def _expert_phase_m2n(self, pe, pa, h, act, tbl=None):
@@ -725,10 +728,17 @@ class DisaggregatedInstance:
                     self._account_combine(h.shape[0], h.shape[1],
                                           h.element_size())
                 else:
-                    payload = h if disp is None else disp["xe"]
-                    self._hop("m2n", payload, attn_s, exp_s)
-                    out = self._timed("expert", exp_s, self._expert_phase, pe,
-                                      payload)
+                    if disp is None:
+                        self._hop("m2n", h, attn_s, exp_s)
+                        out = self._timed("expert", exp_s, self._expert_phase,
+                                          pe, h)
+                    else:
+                        # the table crosses with the payload
+                        self._hop("m2n", disp["xe"], attn_s, exp_s,
+                                  also=(disp["idx"],))
+                        out = self._timed("expert", exp_s, self._expert_phase,
+                                          pe, disp["xe"], disp["idx"],
+                                          h.shape[0])
                 trace.append(("expert", i, l))
                 inflight.append((i, x, h, out, disp))
                 # double buffer: one micro-batch on the expert stream, one

@@ -76,7 +76,7 @@ def _shard(params, w, x, cfg, act, cap, j, n_shards, e_loc, n_real, tk,
         return x.new_zeros((T, d), dtype=torch.float32), counts
     idx, gates = idx_buf[:n_real], gate_buf[:n_real]
     xe = moe_lib.gather_tokens(x, idx)
-    out = kops.grouped_mlp(xe, *w, act, row_valid=idx < T)
+    out = kops.grouped_mlp(xe, *w, act, row_valid=idx < T, idx=idx, n_tokens=T)
     return moe_lib.combine(out, idx, gates, T), counts
 
 

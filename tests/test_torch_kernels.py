@@ -560,6 +560,63 @@ def test_grouped_mlp_plain_matches_jax(jx, use_valid):
         assert not got[~_t(kw["row_valid"])].any()
 
 
+def _table(E, C, T, counts, gap=False):
+    """An (E, C) dispatch table (sentinel T): expert e holds counts[e]
+    tokens in its first slots; ``gap`` empties the middle one of each."""
+    idx = np.full((E, C), T, dtype=np.int32)
+    rng = np.random.RandomState(E * C)
+    for e, c in enumerate(counts):
+        idx[e, :c] = rng.permutation(T)[:c]
+        if gap and c > 2:
+            idx[e, c // 2] = T
+    return torch.from_numpy(idx)
+
+
+# (C, per-expert counts, gap): one empty expert in each; a full expert
+TABLES = [(16, (3, 0, 16, 7), False), (16, (5, 0, 1, 9), True),
+          (64, (17, 0, 64, 40), False), (64, (30, 0, 2, 63), True)]
+
+
+@pytest.mark.parametrize("C,counts,gap", TABLES)
+def test_grouped_matmul_plain_live_rows(C, counts, gap):
+    """With the dispatch table, the plain version is the full product
+    with each expert's rows at and past its live count (1 + its last
+    slot that is not the sentinel) set to exact zeros; an expert with no
+    live row is all zeros, and a gap below the last live slot is
+    computed like any row."""
+    E, K, N, T = len(counts), 24, 40, 70
+    rng = np.random.RandomState(C)
+    x = _t(rng.randn(E, C, K).astype(np.float32))
+    w = _t(rng.randn(E, K, N).astype(np.float32))
+    idx = _table(E, C, T, counts, gap)
+    got = kops.grouped_matmul(x, w, idx=idx, n_tokens=T)
+    full = kops.grouped_matmul(x, w)
+    live = gm_mod.live_rows(idx, T)
+    assert live.tolist() == list(counts)     # a gap leaves the last slot live
+    for e, n in enumerate(counts):
+        assert torch.equal(got[e, :n], full[e, :n])
+        assert not got[e, n:].any()
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("C,counts,gap", TABLES[:2])
+def test_grouped_mlp_live_rows(act, C, counts, gap):
+    """``grouped_mlp`` with the table forwards it to its three launches:
+    the MLP of the live rows, exact zeros past them."""
+    E, d, f, T = len(counts), 32, 48, 70
+    rng = np.random.RandomState(2)
+    xe = _t(rng.randn(E, C, d).astype(np.float32) * 0.5)
+    ws = [_t(rng.randn(*s).astype(np.float32) * 0.2)
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    idx = _table(E, C, T, counts, gap)
+    got = kops.grouped_mlp(xe, *ws, act, idx=idx, n_tokens=T)
+    full = kops.grouped_mlp(xe, *ws, act)
+    for e, n in enumerate(counts):
+        assert torch.equal(got[e, :n], full[e, :n])
+        assert not got[e, n:].any()
+
+
 # ---------------------------------------------------------------- build layer
 def test_library_name_tracks_the_source():
     """An edited source gets a new library name, so a stale build is
@@ -1153,6 +1210,71 @@ def test_grouped_matmul_kernel_path_shapes(cuda, body, k, n):
     got = gm_mod.grouped_matmul(x, w, body=body)
     again = gm_mod.grouped_matmul(x, w, body=body)
     want = grouped_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want.float().cpu().numpy(), dict(rtol=2e-2, atol=2e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", [False, True])
+@pytest.mark.parametrize("m", [16, 33, 64, 128, 200])
+@pytest.mark.parametrize("k,n", [(130, 257), (256, 264), (520, 1000)])
+def test_grouped_matmul_live_body(cuda, m, k, n, table):
+    """The live-row body (bf16, M > 8), with ragged (element-filled) and
+    vector-aligned N and K, with and without a dispatch table that holds
+    an empty expert and gaps; two launches are bit-identical."""
+    x, w = _gm_inputs(cuda, torch.bfloat16, 4, m, k, n)
+    kw = {}
+    if table:
+        counts = (m // 3, 0, m, min(m, 5))
+        kw = dict(idx=_table(4, m, m + 3, counts, gap=True).to(cuda), n_tokens=m + 3)
+    before = dict(gm_mod.KERNEL.variant_launches)
+    got = kops.grouped_matmul(x, w, **kw)
+    again = kops.grouped_matmul(x, w, **kw)
+    want = grouped_matmul_plain(x, w, **kw)
+    torch.cuda.synchronize()
+    after = gm_mod.KERNEL.variant_launches
+    assert after["wgmma"] == before["wgmma"] + 2
+    assert after["live_rows"] == before["live_rows"] + 2 * table
+    assert torch.equal(got, again)
+    _close(got, want.float().cpu().numpy(), dict(rtol=2e-2, atol=2e-2))
+    if table:
+        assert not got[1].any() and not got[0, m // 3:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
+def test_grouped_matmul_body_by_rows(cuda, dtype, m):
+    """bf16 takes the strip bodies up to 8 rows and the live-row body
+    above; f32 always the FMA body.  The strip bodies honour the table
+    too: rows past an expert's live count, and empty experts, are zeros."""
+    x, w = _gm_inputs(cuda, dtype, 3, m, 256, 264)
+    idx = _table(3, m, m + 1, (m, 0, (m + 1) // 2)).to(cuda)
+    before = dict(gm_mod.KERNEL.variant_launches)
+    got = kops.grouped_matmul(x, w, idx=idx, n_tokens=m + 1)
+    want = grouped_matmul_plain(x, w, idx=idx, n_tokens=m + 1)
+    torch.cuda.synchronize()
+    after = gm_mod.KERNEL.variant_launches
+    assert after["wgmma"] == before["wgmma"] + (dtype == torch.bfloat16 and m > 8)
+    assert after["live_rows"] == before["live_rows"] + 1
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    _close(got, want.float().cpu().numpy(), tol)
+    assert not got[1].any() and not got[2, (m + 1) // 2:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(6144, 16384), (16384, 6144)])
+def test_grouped_matmul_decode_shapes(cuda, k, n):
+    """The benchmark's decode micro-batch (8 experts, C = 64, ~16 live
+    rows an expert) through the live-row body with its table against
+    the plain version, and bit-identical from launch to launch."""
+    x, w = _gm_inputs(cuda, torch.bfloat16, 8, 64, k, n)
+    idx = _table(8, 64, 64, (16, 12, 20, 15, 17, 14, 18, 16)).to(cuda)
+    x.mul_((idx != 64)[..., None])
+    got = kops.grouped_matmul(x, w, idx=idx, n_tokens=64)
+    again = kops.grouped_matmul(x, w, idx=idx, n_tokens=64)
+    want = grouped_matmul_plain(x, w, idx=idx, n_tokens=64)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, want.float().cpu().numpy(), dict(rtol=2e-2, atol=2e-2))

@@ -144,6 +144,57 @@ def test_pingpong_matches_monolithic_logits(port_cfg, variant):
                                              port_cfg.n_layers)
 
 
+def test_pingpong_expert_phase_gets_the_dispatch_table(port_cfg, monkeypatch):
+    """The runtime hands each micro-batch's dispatch table across the M2N
+    hop with its payload and into the expert MLP, with the micro-batch's
+    token count as the sentinel; the logits equal those of the same step
+    with the table withheld (the expert MLP's full product)."""
+    from repro_torch.core import disagg
+    from repro_torch.models.transformer import init_cache, prefill
+    params = init_params(port_cfg, 2, device="cpu")
+    B, T = 4, 5
+    toks = torch.randint(0, port_cfg.vocab, (B, T),
+                         generator=torch.Generator().manual_seed(1))
+    _, rc = prefill(params, port_cfg, toks, max_seq=16)
+    nxt, pos = toks[:, -1], torch.full((B,), T, dtype=torch.int32)
+    orig = disagg.kops.grouped_mlp
+    calls, hops = [], []
+
+    def step(keep_table):
+        def mlp(xe, *w, idx=None, n_tokens=None, **kw):
+            calls.append((xe, idx, n_tokens))
+            if not keep_table:
+                idx = n_tokens = None
+            return orig(xe, *w, idx=idx, n_tokens=n_tokens, **kw)
+        monkeypatch.setattr(disagg.kops, "grouped_mlp", mlp)
+        cache = init_cache(port_cfg, B, 16, device="cpu")
+        for full, part in zip(cache, rc):
+            for k in full:
+                full[k].copy_(part[k])
+        inst = DisaggregatedInstance(port_cfg, params, DisaggPlan(n_microbatches=2))
+        hop = inst._hop
+
+        def logged_hop(stage, payload, *a, also=(), **kw):
+            hops.append((stage, payload, also))
+            return hop(stage, payload, *a, also=also, **kw)
+        inst._hop = logged_hop
+        return inst.decode_microbatched(nxt, cache, pos)[0]
+
+    with_table = step(True)
+    n = len(calls)
+    assert n == 2 * port_cfg.n_layers
+    m2n = [(p, a) for st, p, a in hops if st == "m2n"]
+    assert len(m2n) == n
+    E = port_cfg.moe.n_experts
+    for (xe, idx, n_tok), (payload, also) in zip(calls, m2n):
+        assert payload is xe and len(also) == 1 and also[0] is idx
+        assert idx.dtype == torch.int32 and idx.shape == (E, xe.shape[1])
+        assert n_tok == B // 2 and int(idx.max()) <= n_tok
+    without = step(False)
+    assert torch.equal(with_table, without)
+    assert torch.equal(with_table.argmax(-1), without.argmax(-1))
+
+
 def test_microbatch_slices_must_tile_the_batch(port_cfg):
     params = init_params(port_cfg, 0, device="cpu")
     inst = DisaggregatedInstance(port_cfg, params)
