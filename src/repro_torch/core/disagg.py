@@ -53,6 +53,12 @@ Per-micro-batch cache rows are views of the engine's cache, and the
 attention sublayer writes the new K/V token into them in place, so no
 cache merge follows the step (the JAX runtime rebuilt the cache).
 
+On one card the plain-PyTorch chains of the attention stream (the
+attention sublayer around its kernel, the combine, the embedding and the
+LM head) replay from CUDA graphs captured at the step's shapes, from the
+second step of those shapes on (``core.graphs``); the kernels, the
+hops and the stage events stay eager calls.
+
 On ranks (a ``MultiControllerTransport`` whose ``setup_serving`` placed
 the attention and the expert group on disjoint ranks, the JAX
 runtime's two meshes) each rank runs its own stage, issuing its
@@ -95,6 +101,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import load_balance as lb_lib
 from repro_torch.core import m2n as m2n_lib
 from repro_torch.core import pingpong
+from repro_torch.core.graphs import ChainCache, DecodeChains
 from repro_torch.core.transport import InProcessTransport
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import GroupMesh
@@ -331,6 +338,9 @@ class DisaggregatedInstance:
                 E, max(e_loc, int(round(e_loc * self.plan.replication_slots))))
         else:
             self.placement_slots = 0
+        # the attention stream's plain-PyTorch chains, replayed from CUDA
+        # graphs on one card (core.graphs)
+        self._chain_cache = ChainCache()
         self.reset_stage_times()
         self.last_trace: List[tuple] = []
 
@@ -343,6 +353,15 @@ class DisaggregatedInstance:
             # m2n: routing and dispatch run on the expert stream; only the
             # (T, d) activations cross
             return x, h, None
+        idx_buf, gate_buf, counts = self._route(p, h, act, tbl)
+        xe = moe_lib.gather_tokens(h, idx_buf)                 # (rows, C, d)
+        return x, h, {"xe": xe, "idx": idx_buf, "gates": gate_buf,
+                      "counts": counts}
+
+    def _route(self, p, h, act, tbl):
+        """The router, top-k and capacity dispatch of the (T, d) rows h:
+        (idx (rows, C) int32, gates (rows, C) f32, counts (E,) f32)."""
+        cfg = self.cfg
         cap = moe_lib.expert_capacity(h.shape[0], cfg.moe,
                                       self.plan.capacity_mode)
         if tbl is None:
@@ -355,21 +374,29 @@ class DisaggregatedInstance:
             spn, tk = self.placement_slots, tbl
         # fused router + top-k + capacity dispatch; act (the live-row
         # weights) keeps idle KV rows out of the traffic counts
-        idx_buf, gate_buf, counts = kops.gating_dispatch(
+        return kops.gating_dispatch(
             h, p["router"], cfg.moe.top_k, n_buckets=n_buckets,
             capacity=cap, bias=p.get("router_bias"), count_weights=act,
             slots_per_node=spn, **tk)
-        xe = moe_lib.gather_tokens(h, idx_buf)                 # (rows, C, d)
-        return x, h, {"xe": xe, "idx": idx_buf, "gates": gate_buf,
-                      "counts": counts}
 
-    def _expert_phase(self, pe, payload, idx=None, n_tokens=None):
+    def _dispatch_rows(self) -> int:
+        """Rows of the dispatch table: the experts, or the virtual slots of
+        an applied placement (0 for a dense FFN)."""
+        if self.cfg.moe is None:
+            return 0
+        if self.layers_expert_placed is None:
+            return self.cfg.moe.n_experts
+        return self.n_expert_nodes * self.placement_slots
+
+    def _expert_phase(self, pe, payload, idx=None, n_tokens=None, out=None):
         """The routed experts on the (rows, C, d) payload; with the dispatch
         table ``idx`` (sentinel ``n_tokens``) the kernel skips the empty
-        slots past each expert's last routed one."""
+        slots past each expert's last routed one; ``out``: a buffer for
+        the output."""
         if self.cfg.moe is not None:
             return kops.grouped_mlp(payload, pe["we1"], pe["we3"], pe["we2"],
-                                    self.cfg.act, idx=idx, n_tokens=n_tokens)
+                                    self.cfg.act, idx=idx, n_tokens=n_tokens,
+                                    out=out)
         return gated_ffn(payload, pe["w1"], pe["w3"], pe["w2"], self.cfg.act)
 
     def _expert_phase_m2n(self, pe, pa, h, act, tbl=None):
@@ -406,6 +433,8 @@ class DisaggregatedInstance:
         self.stage_times = {s: 0.0 for s in STAGES + WAITS}
         self.stage_counts = {s: 0 for s in STAGES}
         self._pending_events = []
+        # attention-stream stages run from CUDA graph replays, and captures
+        self.graphed_n = self.captures = 0
 
     def _timed(self, stage: str, stream, fn, *args):
         """Run one stage on ``stream``.  On the card its device time is
@@ -443,7 +472,11 @@ class DisaggregatedInstance:
         host wall time of a cross-mesh ``device_put``, which has no
         counterpart on one card.  Here a hop is a stream wait, so its
         seconds are what the transport prices it at: 0 under
-        ``inproc``, the ``RdmaCostModel`` latency under ``simrdma``."""
+        ``inproc``, the ``RdmaCostModel`` latency under ``simrdma``.
+
+        ``graphed_n``: the attention and combine stages that ran from CUDA
+        graph replays (``core.graphs``); ``captures``: how often the
+        chains were captured (both 0 on the CPU and across ranks)."""
         for stage, start, end in self._pending_events:
             end.synchronize()
             self.stage_times[stage] += start.elapsed_time(end) / 1e3
@@ -458,6 +491,7 @@ class DisaggregatedInstance:
         rep["t_c"] = ((self.stage_times["m2n"] + self.stage_times["n2m"])
                       / max(1, rep["hops"]))
         rep.update({f"{w}_s": self.stage_times[w] for w in WAITS})
+        rep["graphed_n"], rep["captures"] = self.graphed_n, self.captures
         # across ranks every decode rank takes part, and reads the same
         return self._stage_report_ranks(rep) if self.on_ranks else rep
 
@@ -682,11 +716,15 @@ class DisaggregatedInstance:
                   if self.expert_stream is not None else None)
         exp_s = self.expert_stream
         trace = []
-        xs = [embed_tokens(self.head, cfg, tokens[s]) for s in mbs]
-        poss = [pos[s] for s in mbs]
-        act = (self._active if self._active is not None else
-               torch.ones(B, dtype=torch.float32, device=self.device))
-        acts = [act[s] for s in mbs]
+        chains = self._chains_for(B, cache, mbs)
+        if chains is None:
+            xs = [embed_tokens(self.head, cfg, tokens[s]) for s in mbs]
+            poss = [pos[s] for s in mbs]
+            act = (self._active if self._active is not None else
+                   torch.ones(B, dtype=torch.float32, device=self.device))
+            acts = [act[s] for s in mbs]
+        else:
+            chains.begin(tokens, pos, self._active)
         m2n = cfg.moe is not None and self.plan.use_m2n
         placed = self.layers_expert_placed is not None
         tbl = self._tables_dev if placed else None
@@ -708,14 +746,21 @@ class DisaggregatedInstance:
                     self.expert_counts += out["counts"]
                 else:
                     self._hop("n2m", out, exp_s, attn_s)
-                xs[i] = self._timed("combine", attn_s, self._combine_phase,
-                                    pa, x, h, out, disp)
+                if chains is None:
+                    xs[i] = self._timed("combine", attn_s, self._combine_phase,
+                                        pa, x, h, out, disp)
+                else:
+                    self._timed("combine", attn_s, chains.combine, l, i, out)
 
             for i, s in enumerate(mbs):
-                entry = {k: v[s] for k, v in cache[l].items()}   # row views
-                x, h, disp = self._timed("attn", attn_s, self._attn_phase,
-                                         pa, xs[i], acts[i], entry, poss[i],
-                                         window, tbl)
+                if chains is None:
+                    entry = {k: v[s] for k, v in cache[l].items()}  # row views
+                    x, h, disp = self._timed("attn", attn_s, self._attn_phase,
+                                             pa, xs[i], acts[i], entry, poss[i],
+                                             window, tbl)
+                else:
+                    x, h, disp = self._timed("attn", attn_s, chains.attn, l, i,
+                                             window, tbl)
                 if disp is not None:
                     self.expert_counts += disp["counts"]
                 trace.append(("attn", i, l))
@@ -738,7 +783,7 @@ class DisaggregatedInstance:
                                   also=(disp["idx"],))
                         out = self._timed("expert", exp_s, self._expert_phase,
                                           pe, disp["xe"], disp["idx"],
-                                          h.shape[0])
+                                          h.shape[0], disp.get("out"))
                 trace.append(("expert", i, l))
                 inflight.append((i, x, h, out, disp))
                 # double buffer: one micro-batch on the expert stream, one
@@ -748,9 +793,48 @@ class DisaggregatedInstance:
             while inflight:
                 drain_one()
 
-        logits = torch.cat([lm_head(self.head, cfg, x) for x in xs], 0)
+        logits = (torch.cat([lm_head(self.head, cfg, x) for x in xs], 0)
+                  if chains is None else chains.head())
         self.last_trace = trace
         return logits, cache
+
+    def chain_spec(self, batch: int, mbs: Sequence[slice],
+                   cache: List[dict]) -> Optional[tuple]:
+        """The shapes the attention stream's chains of a step are captured
+        at (``core.graphs``), or None where the step runs eager: across
+        ranks, under M2N (routing runs on the expert stream) and while
+        ``profile_stages`` times each stage alone."""
+        if self.on_ranks or self.plan.use_m2n or self.plan.profile_stages:
+            return None
+        return (batch, tuple((s.start, s.stop) for s in mbs),
+                cache[0]["k"].dtype, self._dispatch_rows())
+
+    def _chains_for(self, batch: int, cache: List[dict],
+                    mbs: Sequence[slice]) -> Optional[DecodeChains]:
+        """The captured chains this step replays (captured now, on the
+        second step of their key), or None for an eager step.  Only on
+        one card (``expert_stream``): the CPU runs every step eager."""
+        if self.expert_stream is None:
+            return None
+        return self._chains_lookup(batch, cache, mbs)
+
+    def _chains_lookup(self, batch: int, cache: List[dict],
+                       mbs: Sequence[slice]) -> Optional[DecodeChains]:
+        """``_chains_for`` past the device check: the step's action by
+        ``ChainCache``, capturing where it says so."""
+        spec = self.chain_spec(batch, mbs, cache)
+        tensors = [t for entry in cache for t in entry.values()]
+        action = self._chain_cache.action(spec, tensors)
+        if action == "capture":
+            with span("runtime.capture"):
+                if self.device.type == "cuda":
+                    # no replay of the chains dropped here is in flight
+                    torch.cuda.synchronize(self.device)
+                self._chain_cache.drop()
+                self._chain_cache.install(DecodeChains(
+                    self, cache, mbs, batch, self._dispatch_rows()))
+            self.captures += 1
+        return None if action == "eager" else self._chain_cache.chains
 
     # ------------------------------------------------------------- ranks
     def owners(self, m: int) -> List[int]:
@@ -965,6 +1049,8 @@ class DisaggregatedInstance:
         rep["hops"] = rep["m2n_n"] + rep["n2m_n"]
         rep["t_c"] = (rep["m2n_s"] + rep["n2m_s"]) / max(1, rep["hops"])
         rep.update({f"{w}_s": sum(r[f"{w}_s"] for r in reps) for w in WAITS})
+        for k in ("graphed_n", "captures"):
+            rep[k] = sum(r[k] for r in reps)
         rep["ranks"] = reps
         return rep
 

@@ -77,18 +77,25 @@ def _aligned(*ts) -> bool:
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
-                     attn_softcap: float = 0.0, partial: bool = False):
+                     attn_softcap: float = 0.0, partial: bool = False, out=None):
     """q: (B, H, hd); k/v cache: (B, W, Hkv, hd); cache_pos: (B, W) int32
-    (-1 = empty); pos: (B,) int32.  Returns (B, H, hd) in q's dtype.
+    (-1 = empty); pos: (B,) int32.  Returns (B, H, hd) in q's dtype,
+    written into ``out`` where one is given (a contiguous tensor of that
+    shape and dtype on q's device).
 
     ``partial``: the slots given are a block of the ring (a rank's); returns
     (out (B, H, hd) f32, lse (B, H) f32), each row over those slots and its
     log-sum-exp (out 0 and lse -inf for a row with no valid slot), for
     ``models.parallel.merge_partials``."""
+    check(out is None or not partial, "decode_attention: out= with partial")
+    check(out is None or (tuple(out.shape) == tuple(q.shape) and out.dtype == q.dtype
+                          and out.device == q.device and out.is_contiguous()),
+          "decode_attention: out must be a contiguous tensor like q")
     if kernel_route(q) == "plain":
         fn = decode_attention_partial_plain if partial else decode_attention_plain
-        return fn(q, k_cache, v_cache, cache_pos, pos, window=window,
-                  attn_softcap=attn_softcap)
+        res = fn(q, k_cache, v_cache, cache_pos, pos, window=window,
+                 attn_softcap=attn_softcap)
+        return res if out is None else out.copy_(res)
     check_no_grad("decode_attention", q, k_cache, v_cache)
     B, H, hd = q.shape
     _, W, Hkv, _ = k_cache.shape
@@ -108,8 +115,8 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
     check(hd in HEAD_DIMS, f"decode_attention: head_dim {hd} not in {HEAD_DIMS}")
     check(H % Hkv == 0 and H // Hkv <= MAX_REP,
           f"decode_attention: {H} heads over {Hkv} kv heads")
-    check(_aligned(q, k_cache, v_cache),
-          "decode_attention: q, k and v must start on a 16-byte boundary")
+    check(_aligned(q, k_cache, v_cache) and (out is None or _aligned(out)),
+          "decode_attention: q, k, v and out must start on a 16-byte boundary")
     nsplit, per = split_plan(B, Hkv, W)
     part = torch.empty(scratch_shape(B, H, Hkv, hd, W), dtype=torch.float32,
                        device=q.device)
@@ -117,7 +124,7 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0,
         out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
     else:
-        out, lse = torch.empty_like(q), None
+        out, lse = (torch.empty_like(q) if out is None else out), None
     KERNEL.launch(q.device, ptr(q), ptr(k_cache), ptr(v_cache), ptr(cache_pos),
                   ptr(pos), ptr(part), ptr(out),
                   ptr(lse) if partial else ctypes.c_void_p(None), B, H, Hkv, W,

@@ -34,26 +34,36 @@ def live_rows(idx: torch.Tensor, n_tokens: int) -> torch.Tensor:
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
                          idx: Optional[torch.Tensor] = None,
-                         n_tokens: Optional[int] = None) -> torch.Tensor:
-    """(G, M, K) x (G, K, N) -> (G, M, N), f32 accumulation, x's dtype.
-    With the (G, M) dispatch table ``idx`` (sentinel ``n_tokens``), the
-    rows of each expert at and past its live count are exact zeros."""
-    out = torch.einsum("gmk,gkn->gmn", x.float(), w.float()).to(x.dtype)
-    if idx is None:
-        return out
-    live = live_rows(idx, n_tokens)
-    rows = torch.arange(x.shape[1], device=x.device)
-    return torch.where((rows < live[:, None])[..., None], out, out.new_zeros(()))
+                         n_tokens: Optional[int] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(G, M, K) x (G, K, N) -> (G, M, N), f32 accumulation, x's dtype
+    (written into ``out`` where one is given).  With the (G, M) dispatch
+    table ``idx`` (sentinel ``n_tokens``), the rows of each expert at and
+    past its live count are exact zeros."""
+    y = torch.einsum("gmk,gkn->gmn", x.float(), w.float()).to(x.dtype)
+    if idx is not None:
+        live = live_rows(idx, n_tokens)
+        rows = torch.arange(x.shape[1], device=x.device)
+        y = torch.where((rows < live[:, None])[..., None], y, y.new_zeros(()))
+    return y if out is None else out.copy_(y)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, body: str = "auto",
                    idx: Optional[torch.Tensor] = None,
-                   n_tokens: Optional[int] = None) -> torch.Tensor:
-    """``grouped_matmul_plain``'s function.  On the card, with ``idx`` a
-    block loads nothing for rows past its expert's live count, and an
-    expert with no live row streams none of its weights."""
+                   n_tokens: Optional[int] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``grouped_matmul_plain``'s function (``out``: a contiguous (G, M, N)
+    tensor of x's dtype and device to write into).  On the card, with
+    ``idx`` a block loads nothing for rows past its expert's live count,
+    and an expert with no live row streams none of its weights."""
+    if out is not None:
+        check(tuple(out.shape) == (x.shape[0], x.shape[1], w.shape[2])
+              and out.dtype == x.dtype and out.device == x.device
+              and out.is_contiguous(),
+              f"grouped_matmul: out must be a contiguous "
+              f"({x.shape[0]}, {x.shape[1]}, {w.shape[2]}) {x.dtype} tensor")
     if kernel_route(x) == "plain":
-        return grouped_matmul_plain(x, w, idx=idx, n_tokens=n_tokens)
+        return grouped_matmul_plain(x, w, idx=idx, n_tokens=n_tokens, out=out)
     check_no_grad("grouped_matmul", x, w)
     G, M, K = x.shape
     check(w.device == x.device, "grouped_matmul: mixed devices")
@@ -63,8 +73,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, body: str = "auto",
           f"grouped_matmul: dtypes {x.dtype}, {w.dtype}")
     check(x.is_contiguous() and w.is_contiguous(),
           "grouped_matmul: inputs must be contiguous")
-    check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-          "grouped_matmul: x and w must start on a 16-byte boundary")
+    check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+          and (out is None or out.data_ptr() % 16 == 0),
+          "grouped_matmul: x, w and out must start on a 16-byte boundary")
     check(body in BODIES and (body != "mma" or x.dtype == torch.bfloat16),
           f"grouped_matmul: body {body!r} for {x.dtype}")
     if idx is not None:
@@ -74,7 +85,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, body: str = "auto",
               f"grouped_matmul: idx must be ({G}, {M}) contiguous int32 on "
               f"x's device")
     N = w.shape[2]
-    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     wgmma = x.dtype == torch.bfloat16 and body == "auto" and M > FMA_MAX_M
     KERNEL.launch(x.device, ptr(x), ptr(w), ptr(out),
                   None if idx is None else ptr(idx), G, M, K, N,

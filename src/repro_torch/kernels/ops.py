@@ -22,19 +22,20 @@ from repro_torch.models.common import activation
 
 
 def _grouped_mlp(mm: Callable, xe, w1, w3, w2, act: str,
-                 row_valid: Optional[torch.Tensor], idx, n_tokens):
+                 row_valid: Optional[torch.Tensor], idx, n_tokens, out):
     kw = {} if idx is None else dict(idx=idx, n_tokens=n_tokens)
     h = activation(mm(xe, w1, **kw).float(), act)
     h = h * mm(xe, w3, **kw).float()
-    out = mm(h.to(xe.dtype), w2, **kw)
+    y = mm(h.to(xe.dtype), w2, out=out, **kw)
     if row_valid is not None:
-        out = out * row_valid[..., None].to(out.dtype)
-    return out
+        y = torch.mul(y, row_valid[..., None].to(y.dtype), out=out)
+    return y
 
 
 def grouped_mlp(xe, w1, w3, w2, act: str = "silu", row_valid=None, *,
-                idx=None, n_tokens=None):
-    """Per-expert gated MLP: (E, C, d) expert buffers -> (E, C, d).
+                idx=None, n_tokens=None, out=None):
+    """Per-expert gated MLP: (E, C, d) expert buffers -> (E, C, d),
+    written into ``out`` where one is given (the last launch's output).
 
     row_valid: optional (E, C) bool; rows of dropped or empty capacity
     slots come out as exact zeros even where act(0) != 0.  idx: optional
@@ -42,12 +43,12 @@ def grouped_mlp(xe, w1, w3, w2, act: str = "silu", row_valid=None, *,
     the three launches: rows at and past an expert's live count come out
     as zeros and cost no loads."""
     return _grouped_mlp(grouped_matmul, xe, w1, w3, w2, act, row_valid, idx,
-                        n_tokens)
+                        n_tokens, out)
 
 
 def grouped_mlp_plain(xe, w1, w3, w2, act: str = "silu", row_valid=None, *,
-                      idx=None, n_tokens=None):
+                      idx=None, n_tokens=None, out=None):
     """``grouped_mlp`` built from the plain grouped matmul on any device
     (the comparison the card's checks hold the kernel path to)."""
     return _grouped_mlp(grouped_matmul_plain, xe, w1, w3, w2, act, row_valid,
-                        idx, n_tokens)
+                        idx, n_tokens, out)

@@ -594,7 +594,9 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
         x = params["embed"][torch.where(mine, ids, 0)]
         x = mp.reduce(x * mine[..., None].to(x.dtype))
     if cfg.tie_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # a host scalar (a 0-d CPU tensor), so the embedding can be captured
+        # in a CUDA graph; the product is the same as by a device scalar
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
@@ -805,6 +807,17 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
     (``_decode_on_shards``)."""
     if parallel.current() is not None:
         return _decode_on_shards(p, cfg, x, pos, cache, window)
+    q = attn_decode_prologue(p, cfg, x, pos, cache)
+    out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
+                                window=window, attn_softcap=cfg.attn_softcap)
+    return attn_decode_epilogue(p, cfg, out)
+
+
+def attn_decode_prologue(p: dict, cfg: ModelConfig, x, pos, cache: dict):
+    """The decode self-attention sublayer up to the attention read:
+    ``ln1``, the q / k / v products and their ropes, and this token's K /
+    V / position written into the ring slot ``pos % W`` of ``cache`` in
+    place.  Returns q (B, H, hd)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     h = rms_norm(x, p["ln1"])
@@ -819,8 +832,14 @@ def self_attn_decode_sublayer(p: dict, cfg: ModelConfig, x, pos, cache: dict,
     cache["k"][b_idx, slot] = k.to(cache["k"].dtype)
     cache["v"][b_idx, slot] = v.to(cache["v"].dtype)
     cache["pos"][b_idx, slot] = pos.to(torch.int32)
-    out = kops.decode_attention(q, cache["k"], cache["v"], cache["pos"], pos,
-                                window=window, attn_softcap=cfg.attn_softcap)
+    return q
+
+
+def attn_decode_epilogue(p: dict, cfg: ModelConfig, out):
+    """The decode self-attention sublayer after the attention read: the
+    (B, H, hd) read through ``wo`` and the post-norm where configured.
+    Returns delta (B, d)."""
+    B, H, hd = out.shape
     delta = out.reshape(B, H * hd) @ p["wo"]
     return _maybe_post(p, "ln1_post", delta, cfg)
 

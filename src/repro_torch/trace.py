@@ -38,6 +38,8 @@ SPANS = {
     "runtime.combine": "the combine of one micro-batch and layer",
     "runtime.m2n": "the M2N hop of one micro-batch and layer",
     "runtime.n2m": "the N2M hop of one micro-batch and layer",
+    "runtime.capture": "one capture of the decode's attention-stream chains "
+                       "into CUDA graphs (core.graphs; on the card only)",
 }
 
 _OFF = contextlib.nullcontext()

@@ -4,7 +4,7 @@ against the JAX package, on the CPU.
   * every function of ``core.pingpong`` equals the JAX one over a grid
     of (t_a, t_e, t_c, m, L), simulator events included;
   * ``stage_report()`` carries every key of the JAX report (and the
-    port's hop count and stream stalls), with the same counts as JAX
+    port's hop count, stream stalls and CUDA-graph counters), with the same counts as JAX
     ``measure_stage_times`` on reduced mixtral-8x22b (``attn_n ==
     expert_n == m2n_n == n2m_n == m * L``);
   * T_c is what the transport priced the hops at: 0 under ``inproc``,
@@ -102,7 +102,8 @@ def test_stage_report_counts_match_jax(mixtral, m):
     inst = DisaggregatedInstance(mixtral.cfg, mixtral.params, DisaggPlan(m))
     got = inst.measure_stage_times(4)
     assert set(got) >= set(want)
-    assert set(got) - set(want) == {"hops", "m2n_wait_s", "n2m_wait_s"}
+    assert set(got) - set(want) == {"hops", "m2n_wait_s", "n2m_wait_s",
+                                    "graphed_n", "captures"}
     L = mixtral.cfg.n_layers
     for s in STAGES:
         assert got[f"{s}_n"] == want[f"{s}_n"] == m * L

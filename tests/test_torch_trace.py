@@ -4,10 +4,11 @@ stream stalls at each hop, on the CPU; one case on the card.
   * with no profiler recording ``span`` is the shared no-op;
   * under ``torch.profiler`` one step of a tiny ping-pong MoE engine
     (``tests/_torch_disagg.py``'s engine shape and prompts) opens every
-    span of ``SPANS`` and nests them: ``engine.step`` holds
-    ``engine.admit``, which holds each request's ``model.prefill`` (one
-    ``model.prefill.layer`` a layer, each holding its attention and FFN
-    sublayers, the FFN its ``model.moe.combine``) and KV insert, and
+    span of ``SPANS`` but the card's ``runtime.capture`` and nests them:
+    ``engine.step`` holds ``engine.admit``, which holds each request's
+    ``model.prefill`` (one ``model.prefill.layer`` a layer, each holding
+    its attention and FFN sublayers, the FFN its ``model.moe.combine``)
+    and KV insert, and
     ``engine.decode.issue``, which holds every ``runtime.*`` span, L·m
     of each;
   * the tokens are the same with the profiler recording and without;
@@ -85,7 +86,8 @@ def test_one_step_nests_the_spans(tiny):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.step()
     got = spans(prof)
-    assert {s[0] for s in got} == set(trace.SPANS)
+    # the chains are captured into CUDA graphs on the card only
+    assert {s[0] for s in got} == set(trace.SPANS) - {"runtime.capture"}
     [step] = [s for s in got if s[0] == "engine.step"]
     [admit] = inside(step, got, "engine.admit")
     [decode] = inside(step, got, "engine.decode.issue")
